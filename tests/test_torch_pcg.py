@@ -1,0 +1,112 @@
+"""tpukk_torch PCG against tpukk.sparse.pcg on the CPU, with the identity
+and Jacobi preconditioners.
+
+On a 30×30 Laplacian (DIA route) the two solves agree closely: the same
+iteration count (both check convergence every 10 iterations) and x within
+1e-10 relative in f64.
+
+data/fem2d_small.mtx.gz (the CSR-kernel route) has condition number ~5.8e6,
+and CG on it amplifies rounding: tpukk's own ELL and SEGSUM routes, which sum
+the same products in another order, give iterates 2.5e-8 apart after 10
+iterations and 6.6e-3 apart after 50, and converge in different iteration
+counts.  No port can match tpukk there to 1e-10, so on that matrix the test
+holds the port to tpukk's own spread: iterates after 10 iterations within
+1e-6 relative, and at tol 1e-8 both converge within one check block of each
+other with a true residual below 1e-7.
+"""
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import scipy.sparse as sps
+import torch
+
+import tpukk.containers as jkc
+import tpukk.sparse as jsp
+from tpukk_torch.interop import csr_from_numpy
+from tpukk_torch.sparse import (IdentityPrec, JacobiPrec, MatrixPrec, SpmvAlgorithm,
+                                SpmvHandle, pcg)
+
+ROOT = Path(__file__).resolve().parent.parent
+CPU = "cpu"
+
+MATRICES = {
+    "lap30": (lambda: jkc.generate_structured_laplacian(30, 30, dtype=np.float64),
+              SpmvAlgorithm.DIA),
+    "fem_small": (lambda: jkc.read_mtx(ROOT / "data" / "fem2d_small.mtx.gz"),
+                  SpmvAlgorithm.ONEHOT),
+}
+
+
+def _port(Aj):
+    return csr_from_numpy(Aj.host_row_map(), Aj.host_entries(), Aj.host_values_full(),
+                          nrows=Aj.nrows, ncols=Aj.ncols, device=CPU)
+
+
+def _solve_both(case, prec, **kw):
+    make, route = MATRICES[case]
+    Aj = make()
+    At = _port(Aj)
+    assert SpmvHandle(At).algorithm == route
+    b = Aj.to_scipy() @ np.random.default_rng(3).standard_normal(Aj.nrows)
+    pj = jsp.JacobiPrec(Aj) if prec == "jacobi" else None
+    pt = JacobiPrec(At) if prec == "jacobi" else None
+    xj, sj = jsp.pcg(Aj, jnp.asarray(b), prec=pj, **kw)
+    xt, st = pcg(At, torch.from_numpy(b), prec=pt, **kw)
+    return Aj, b, np.asarray(xj), sj, xt.numpy(), st
+
+
+def _rel(a, b):
+    return np.linalg.norm(a - b) / np.linalg.norm(b)
+
+
+@pytest.mark.parametrize("prec", ["identity", "jacobi"])
+def test_pcg_matches_tpukk_on_laplacian(prec):
+    _, _, xj, sj, xt, st = _solve_both("lap30", prec, tol=1e-10, max_iters=4000)
+    assert sj.converged and st.converged
+    assert st.num_iters == sj.num_iters
+    assert _rel(xt, xj) <= 1e-10
+    assert abs(st.end_rel_res - sj.end_rel_res) <= 1e-3 * sj.end_rel_res
+
+
+@pytest.mark.parametrize("prec", ["identity", "jacobi"])
+def test_pcg_iterates_match_tpukk_on_fem(prec):
+    _, _, xj, sj, xt, st = _solve_both("fem_small", prec, tol=0.0, max_iters=10)
+    assert st.num_iters == sj.num_iters == 10
+    assert _rel(xt, xj) <= 1e-6
+
+
+def test_pcg_converges_with_tpukk_on_fem():
+    Aj, b, xj, sj, xt, st = _solve_both("fem_small", "jacobi", tol=1e-8, max_iters=4000)
+    assert sj.converged and st.converged
+    assert abs(st.num_iters - sj.num_iters) <= 10
+    sp = Aj.to_scipy()
+    for x in (xt, xj):
+        assert np.linalg.norm(b - sp @ x) <= 1e-7 * np.linalg.norm(b)
+
+
+def test_pcg_matrix_prec_equals_jacobi_and_keeps_inputs():
+    At = _port(MATRICES["lap30"][0]())
+    Dinv = sps.diags(1.0 / At.to_scipy().diagonal()).tocsr()
+    M = csr_from_numpy(Dinv.indptr, Dinv.indices, Dinv.data, nrows=At.nrows, ncols=At.ncols,
+                       device=CPU)
+    b = torch.ones(At.nrows, dtype=torch.float64)
+    x0 = torch.zeros_like(b)
+    b0, x00 = b.clone(), x0.clone()
+    xm, sm = pcg(At, b, x0=x0, prec=MatrixPrec(M))
+    xj, sj = pcg(At, b, x0=x0, prec=JacobiPrec(At))
+    xi, si = pcg(SpmvHandle(At), b, prec=IdentityPrec())
+    assert sm.num_iters == sj.num_iters and sm.converged and si.converged
+    torch.testing.assert_close(xm, xj, rtol=1e-12, atol=0)
+    # the in-place updates belong to the solve, never to the caller's tensors
+    assert torch.equal(b, b0) and torch.equal(x0, x00)
+    r = b.numpy() - At.to_scipy() @ xi.numpy()
+    assert np.linalg.norm(r) <= 1e-8 * np.linalg.norm(b.numpy())
+
+
+def test_pcg_reports_non_convergence():
+    At = _port(MATRICES["fem_small"][0]())
+    b = torch.ones(At.nrows, dtype=torch.float64)
+    _, st = pcg(At, b, tol=1e-14, max_iters=20)
+    assert st.num_iters == 20 and not st.converged and st.end_rel_res > 1e-14

@@ -1,0 +1,95 @@
+"""Matrix generators — counterpart of ``tpukk/containers/generators.py``
+(kk_generate_diagonally_dominant_sparse_matrix and kk_generate_sparse_matrix,
+sparse/src/KokkosSparse_IOUtils.hpp:229,333, and the structured stencils of
+test_common/KokkosKernels_Test_Structured_Matrix.hpp).
+
+Each generator builds its matrix on the host with the same numpy/scipy calls
+as ``tpukk``, so the same arguments and seed give the same arrays; only the
+final container differs.
+"""
+from __future__ import annotations
+
+import numpy as np
+import scipy.sparse as sps
+
+from .csr import CsrMatrix
+
+__all__ = [
+    "generate_structured_laplacian",
+    "generate_random_csr",
+    "generate_diag_dominant_csr",
+    "generate_banded_csr",
+]
+
+
+def generate_structured_laplacian(nx: int, ny: int = 1, nz: int = 1,
+                                  dtype=np.float32, device=None) -> CsrMatrix:
+    """FD Laplacian on an nx(×ny(×nz)) grid with Dirichlet boundaries —
+    5-point stencil in 2D, 7-point in 3D, 3-point in 1D."""
+    def lap1d(n):
+        return sps.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(n, n), format="csr")
+
+    eye = sps.identity
+    if ny == 1 and nz == 1:
+        A = lap1d(nx)
+    elif nz == 1:
+        A = sps.kron(eye(ny), lap1d(nx)) + sps.kron(lap1d(ny), eye(nx))
+    else:
+        A = (
+            sps.kron(eye(nz), sps.kron(eye(ny), lap1d(nx)))
+            + sps.kron(eye(nz), sps.kron(lap1d(ny), eye(nx)))
+            + sps.kron(lap1d(nz), sps.kron(eye(ny), eye(nx)))
+        )
+    A = A.tocsr().astype(dtype)
+    A.sort_indices()
+    return CsrMatrix.from_scipy(A, device=device)
+
+
+def _random_csr_scipy(nrows, ncols, nnz_per_row, dtype, seed, sorted_cols):
+    rng = np.random.default_rng(seed)
+    rows = []
+    cols = []
+    for i in range(nrows):
+        k = min(ncols, max(1, int(rng.integers(max(1, nnz_per_row // 2), nnz_per_row * 2))))
+        c = rng.choice(ncols, size=k, replace=False)
+        rows.append(np.full(k, i))
+        cols.append(c)
+    rows = np.concatenate(rows)
+    cols = np.concatenate(cols)
+    vals = rng.standard_normal(len(rows)).astype(dtype)
+    A = sps.coo_matrix((vals, (rows, cols)), shape=(nrows, ncols)).tocsr()
+    if sorted_cols:
+        A.sort_indices()
+    return A
+
+
+def generate_random_csr(nrows: int, ncols: int, nnz_per_row: int, dtype=np.float32,
+                        seed: int = 0, sorted_cols: bool = True, device=None) -> CsrMatrix:
+    """Random CSR with ~nnz_per_row entries per row (kk_generate_sparse_matrix)."""
+    return CsrMatrix.from_scipy(
+        _random_csr_scipy(nrows, ncols, nnz_per_row, dtype, seed, sorted_cols),
+        device=device)
+
+
+def generate_diag_dominant_csr(n: int, nnz_per_row: int, dtype=np.float32, seed: int = 0,
+                               device=None) -> CsrMatrix:
+    """Diagonally dominant random CSR for solver tests
+    (kk_generate_diagonally_dominant_sparse_matrix)."""
+    A = _random_csr_scipy(n, n, nnz_per_row, np.float64, seed, True).tolil()
+    A.setdiag(0.0)
+    A = A.tocsr()
+    rowsum = np.asarray(np.abs(A).sum(axis=1)).ravel()
+    A = A + sps.diags(rowsum + 1.0)
+    A = A.tocsr().astype(dtype)
+    A.sort_indices()
+    return CsrMatrix.from_scipy(A, device=device)
+
+
+def generate_banded_csr(n: int, bandwidth: int, dtype=np.float32, seed: int = 0,
+                        device=None) -> CsrMatrix:
+    rng = np.random.default_rng(seed)
+    offsets = list(range(-bandwidth, bandwidth + 1))
+    diags = [rng.standard_normal(n - abs(k)) for k in offsets]
+    A = sps.diags(diags, offsets, shape=(n, n), format="csr").astype(dtype)
+    A.sort_indices()
+    return CsrMatrix.from_scipy(A, device=device)

@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
-"""Drive tpukk_torch's SpMV + PCG main path once on one CUDA GPU.
+"""Drive tpukk_torch's main paths once on one CUDA GPU: SpMV + PCG, and
+ILU(0)-preconditioned GMRES with the RCM route.
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from ``tpukk_torch/csrc`` (nvcc, sm_90a), holds each
-kernel against its plain torch version on the card, drives the main path a
-user runs (SpmvHandle AUTO SpMV and SpMM on the 1M-row 2-D Laplacian, AUTO
-SpMV on a random 100k-row CSR, PCG on the Laplacian and on the FEM matrix),
-checks every result on the host with scipy, times each kernel, its plain
-version and the cuSPARSE call that computes the same product, and prints one
-JSON line per phase.  The last two lines are the card's name and power limit
-as nvidia-smi reports them, and the result line.  Any failed check exits
+Builds the CUDA kernels from ``tpukk_torch/csrc`` (nvcc, sm_90a) and the host
+planners (``csrc/host.cpp``, g++), all in parallel, holds each kernel against
+its plain torch version on the card, drives the paths a user runs
+(SpmvHandle AUTO SpMV and SpMM on the 1M-row 2-D Laplacian, AUTO SpMV on a
+random 100k-row CSR, PCG on the Laplacian and on the FEM matrix; SpILUK →
+LUPrec → GMRES on the FEM matrix to convergence and two restart cycles on the
+Laplacian; GMRES with reorder="rcm" / "none" / "auto"), checks every result
+on the host with scipy, times each kernel, its plain version and the torch
+call that computes the same function, profiles one PCG and one GMRES
+iteration, and prints one JSON line per phase.  The last two lines are the
+card's name and power limit as nvidia-smi reports them, and the result line.  Any failed check exits
 non-zero.  Without a CUDA device it exits 1 and prints no result.  It imports
 nothing of JAX or of tpukk.
 """
@@ -33,10 +37,13 @@ PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 L2_BYTES = 50e6
 
 SOURCES = {"dia_spmv": "tpukk_torch/csrc/dia.cu", "dia_spmm": "tpukk_torch/csrc/dia.cu",
-           "csr_spmv": "tpukk_torch/csrc/csr.cu"}
+           "csr_spmv": "tpukk_torch/csrc/csr.cu", "sptrsv_levels": "tpukk_torch/csrc/sptrsv.cu",
+           "permute_gather": "tpukk_torch/csrc/permute.cu"}
 REPLACES = {"dia_spmv": "tpukk/sparse/spmv_pallas.py:41",
             "dia_spmm": "tpukk/sparse/spmv_pallas.py:180",
-            "csr_spmv": "tpukk/sparse/spmv_pallas.py:2053"}
+            "csr_spmv": "tpukk/sparse/spmv_pallas.py:2053",
+            "sptrsv_levels": "tpukk/sparse/sptrsv_pallas.py:515",
+            "permute_gather": "tpukk/common/permute.py:91"}
 
 
 def emit(phase: str, **fields) -> None:
@@ -82,14 +89,20 @@ def main() -> int:
     import dataclasses
 
     import numpy as np
+    import scipy.sparse as sps
     from torch.autograd import DeviceType
 
     from tpukk_torch import _kernels
     from tpukk_torch.common import chain_time_slope
-    from tpukk_torch.containers import (generate_random_csr,
+    from tpukk_torch.containers import (CsrMatrix, generate_random_csr,
                                         generate_structured_laplacian, read_mtx)
-    from tpukk_torch.sparse import JacobiPrec, SpmvAlgorithm, SpmvHandle, pcg, spmm
+    from tpukk_torch.sparse import (GmresHandle, JacobiPrec, LUPrec, Ortho, SpilukHandle,
+                                    SpmvAlgorithm, SpmvHandle, SptrsvHandle, gmres, pcg,
+                                    spiluk_numeric, spiluk_symbolic, spmm, sptrsv_solve,
+                                    sptrsv_symbolic)
     from tpukk_torch.sparse import spmv_cuda as kc
+    from tpukk_torch.sparse import sptrsv_cuda as ks
+    from tpukk_torch.sparse.gmres import _arnoldi_cycle, _rcm_reorder
     from tpukk_torch.sparse.pcg import pcg_initial_state, pcg_iteration
     from tpukk_torch.sparse.spmv_impl import build_dia_plan
 
@@ -102,6 +115,18 @@ def main() -> int:
     def vec(n, dtype, k=None):
         shape = (n,) if k is None else (n, k)
         return torch.from_numpy(rng.standard_normal(shape)).to(dev, dtype)
+
+    rng2 = np.random.default_rng(1)  # the GMRES slice's inputs; rng keeps the SpMV slice's
+
+    def vec2(n, dtype):
+        return torch.from_numpy(rng2.standard_normal(n)).to(dev, dtype)
+
+    def launch_counts() -> dict:
+        return {**kc.launch_counts(), **ks.launch_counts()}
+
+    def reset_launch_counts() -> None:
+        kc.reset_launch_counts()
+        ks.reset_launch_counts()
 
     # ---- 1. device and build ------------------------------------------------
     build_s = _kernels.build_all()
@@ -120,7 +145,7 @@ def main() -> int:
          rand100k=[rnd.nrows, rnd.nnz])
 
     # ---- 2. each kernel against its plain version, on the card ----------------
-    errs = {k.__name__: 0.0 for k in kc.KERNELS}
+    errs = {k.__name__: 0.0 for k in (*kc.KERNELS, *ks.KERNELS)}
 
     def hold(kernel: str, label: str, got, plain, bound, dtype) -> None:
         """|got - plain| <= 20·eps·(|A|·|x|) elementwise."""
@@ -162,15 +187,15 @@ def main() -> int:
     emit("kernels_checked", launches=after)
 
     # ---- 3. the main path, each part with the counts set to 0 around it --------
-    total = {k: 0 for k in after}
+    total = {k: 0 for k in launch_counts()}
 
     def counted(part: str, fn, needs: tuple):
-        kc.reset_launch_counts()
+        reset_launch_counts()
         t = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-        counts = kc.launch_counts()
+        counts = launch_counts()
         for k, v in counts.items():
             total[k] += v
         require(all(counts[k] > 0 for k in needs), f"{part}: {needs} not launched: {counts}")
@@ -230,6 +255,127 @@ def main() -> int:
     require(counts["csr_spmv"] > 0, f"pcg fem2d_30k: K3 not launched: {counts}")
     emit("main_pcg_fem2d30k_f64_jacobi", iters=st.num_iters, rel_res_host=rel, seconds=wall,
          us_per_iter=wall / st.num_iters * 1e6, launches=counts)
+    # ---- 3b. K4 and K5 against their plain versions, on the card ---------------
+    def ilu0(A):
+        """L, U of ILU(0) through the entry points a user calls."""
+        hk = SpilukHandle(0)
+        spiluk_symbolic(hk, A)
+        return spiluk_numeric(hk, A)
+
+    t0 = time.perf_counter()
+    ilu = {"lap1000 f64": ilu0(lap64), "lap1000 f32": ilu0(lap), "fem2d_30k f64": ilu0(fem)}
+    emit("ilu0_factors", seconds=time.perf_counter() - t0,
+         nnz={k: [L.nnz, U.nnz] for k, (L, U) in ilu.items()})
+
+    def hold_trsv(label, plan, b, got, plain):
+        """|x - x_plain| <= M(T)⁻¹·(40·eps·|T||x|) elementwise, M(T) the
+        comparison matrix (ks.solve_error_bound)."""
+        torch.cuda.synchronize()
+        dt = b.dtype
+        tol = ks.solve_error_bound(plan, got)
+        err = (got - plain).abs().double()
+        ok = bool((err <= tol).all())
+        errs["sptrsv_levels"] = max(errs["sptrsv_levels"], float(err.max()))
+        emit("check", kernel="sptrsv_levels", case=label, dtype=str(dt),
+             max_abs_err=float(err.max()), max_err_over_tol=float((err / tol.clamp_min(1e-300)).max()),
+             tol="M(T)^-1 (40*eps*|T||x|)_i", ok=ok)
+        require(ok, f"sptrsv_levels {label} disagrees with its plain version")
+
+    def residual_check(label, T, x, b):
+        """|T·x - b| <= 20·eps·(|T|·|x|) elementwise, f64 product by scipy."""
+        sp = T.to_scipy().astype(np.float64)
+        xh, bh = x.double().cpu().numpy(), b.double().cpu().numpy()
+        err = np.abs(sp @ xh - bh)
+        tol = 20 * torch.finfo(x.dtype).eps * (abs(sp) @ np.abs(xh))
+        ok = bool((err <= tol).all())
+        emit("check_residual", case=label, dtype=str(x.dtype), max_abs_res=float(err.max()),
+             max_res_over_tol=float((err / np.maximum(tol, 1e-300)).max()),
+             tol="20*eps*(|T||x|)_i", ok=ok)
+        require(ok, f"{label}: residual of the triangular solve too large")
+
+    before = ks.launch_counts()
+    trsv_plans = {}
+    for label, (L, U) in ilu.items():
+        for tri, lower, T in (("L", True, L), ("U", False, U)):
+            hs = SptrsvHandle(lower=lower)
+            sptrsv_symbolic(hs, T)
+            trsv_plans[f"{label} {tri}"] = (hs, T)
+            bp = vec2(T.nrows, T.dtype)
+            hold_trsv(f"{label} ILU(0) {tri}, {hs.num_levels} levels", hs.plan, bp,
+                      ks.sptrsv_levels(hs.plan, bp), ks.sptrsv_plain(hs.plan, bp))
+            b = vec2(T.nrows, T.dtype)
+            residual_check(f"sptrsv_solve {label} ILU(0) {tri}", T, sptrsv_solve(hs, T, b), b)
+    perm1m = torch.from_numpy(rng2.permutation(1_000_000).astype(np.int32)).to(dev)
+    for dt in (torch.float32, torch.float64):
+        xv = vec2(1_000_000, dt)
+        got, ref = ks.permute_gather(perm1m, xv), ks.permute_plain(perm1m, xv)
+        torch.cuda.synchronize()
+        ok = torch.equal(got, ref)
+        emit("check", kernel="permute_gather", case="random permutation of 1,000,000",
+             dtype=str(dt), max_abs_err=float((got - ref).abs().max()), tol="exact", ok=ok)
+        require(ok, "permute_gather disagrees with its plain version")
+    after = ks.launch_counts()
+    require(all(after[k] > before[k] for k in after), f"a launch counter did not rise: {after}")
+    emit("kernels_checked_trsv", launches=after)
+
+    # ---- 3c. the ILU(0)-GMRES path and the RCM route ---------------------------
+    def host_rel(A, x, b):
+        sp = A.to_scipy().astype(np.float64)
+        bh = b.double().cpu().numpy()
+        return float(np.linalg.norm(bh - sp @ x.double().cpu().numpy()) / np.linalg.norm(bh))
+
+    gmres_needs = ("sptrsv_levels", "permute_gather")
+    t = time.perf_counter()
+    prec_f = LUPrec(*ilu["fem2d_30k f64"])
+    setup_s = time.perf_counter() - t
+    bg = torch.from_numpy(np.random.default_rng(0).standard_normal(fem.nrows)).to(dev)
+    hg = GmresHandle(m=50, tol=1e-8, max_restarts=150)
+    (xg, stg), counts, wall = counted("gmres fem2d_30k", lambda: gmres(hg, fem, bg, prec=prec_f),
+                                      ("csr_spmv", *gmres_needs))
+    rel = host_rel(fem, xg, bg)
+    require(stg.converged and rel <= 2e-8, f"gmres fem2d_30k: {stg}, host residual {rel}")
+    emit("main_gmres_ilu0_fem2d_30k", iters=stg.num_iters, tpukk_cpu_iters=3950,
+         within_one_cycle_of_tpukk=abs(stg.num_iters - 3950) <= 50,
+         rel_res_reported=stg.end_rel_res, rel_res_host=rel, seconds=wall,
+         us_per_iter=wall / stg.num_iters * 1e6, luprec_setup_s=setup_s, launches=counts)
+
+    prec_l = LUPrec(*ilu["lap1000 f64"])
+    bl = vec2(lap64.nrows, torch.float64)
+    cycles = {}
+    for nc in (1, 2):
+        hl = GmresHandle(m=50, tol=1e-8, max_restarts=nc)
+        (xl, stl), counts, wall = counted(f"gmres lap1000 {nc} cycles",
+                                          lambda: gmres(hl, lap64, bl, prec=prec_l),
+                                          ("dia_spmv", *gmres_needs))
+        cycles[nc] = (stl, host_rel(lap64, xl, bl), counts, wall)
+    (st1, rel1, _, _), (st2, rel2, counts, wall) = cycles[1], cycles[2]
+    require(abs(st2.end_rel_res - rel2) <= 1e-10 * rel2,
+            f"gmres lap1000: reported residual {st2.end_rel_res}, host {rel2}")
+    require(rel2 < rel1, f"gmres lap1000: cycle 2 residual {rel2} not below cycle 1's {rel1}")
+    emit("main_gmres_ilu0_lap1000", iters=st2.num_iters, rel_res_reported=st2.end_rel_res,
+         rel_res_host=rel2, rel_res_host_after_cycle_1=rel1, seconds=wall,
+         us_per_iter=wall / st2.num_iters * 1e6, launches=counts)
+
+    sp4 = (fem.to_scipy() + 4.0 * sps.identity(fem.nrows, format="csr")).astype(np.float32)
+    A4 = CsrMatrix.from_scipy(sp4, device=dev)
+    b4 = torch.from_numpy(np.random.default_rng(7).standard_normal(A4.nrows)
+                          .astype(np.float32)).to(dev)
+    require(_rcm_reorder(SpmvHandle(A4)) is not None, "reorder='auto' does not engage")
+    rcm_runs = {}
+    for mode, needs in (("rcm", ("csr_spmv", "permute_gather")), ("none", ("csr_spmv",)),
+                        ("auto", ("csr_spmv", "permute_gather"))):
+        hr4 = GmresHandle(m=40, tol=1e-6, reorder=mode)
+        (xr4, st4), counts, wall = counted(f"gmres reorder={mode}",
+                                           lambda: gmres(hr4, A4, b4), needs)
+        rel4 = host_rel(A4, xr4, b4)
+        require(st4.converged and rel4 <= 1e-5, f"gmres reorder={mode}: {st4}, host {rel4}")
+        rcm_runs[mode] = dict(x=xr4.cpu().numpy(), iters=st4.num_iters, rel_res_host=rel4,
+                              seconds=wall, launches=counts)
+    require(rcm_runs["none"]["launches"]["permute_gather"] == 0, "reorder='none' permuted")
+    agree = np.allclose(rcm_runs["rcm"]["x"], rcm_runs["none"]["x"], rtol=2e-3, atol=2e-4)
+    require(agree, "gmres reorder='rcm' and 'none' disagree beyond rtol 2e-3 / atol 2e-4")
+    emit("main_gmres_rcm", matrix="fem2d_30k + 4I f32, m=40, tol 1e-6", rcm_none_agree=agree,
+         **{mode: {k: v for k, v in r.items() if k != "x"} for mode, r in rcm_runs.items()})
     require(all(v > 0 for v in total.values()), f"a kernel of the path never ran: {total}")
     emit("main_path_launches", launches=total)
 
@@ -326,7 +472,94 @@ def main() -> int:
     k3_row("lap1000 f32 (pinned ONEHOT)", lap, torch.float32)
     k3_row("fem2d_30k f64 (PCG route)", fem, torch.float64)
 
-    # ---- 5. where a PCG iteration's time goes (torch.profiler) ---------------
+    # K4 / K5: CUDA-event slope over CUDA graphs like K1-K3; K4's plain version
+    # launches a few kernels per level, so its graphs hold fewer calls
+    def event_ms(fn, iters: int) -> float:
+        """Mean ms per call over a host loop, bracketed by CUDA events: for a
+        call that is not graph-capturable, or slow enough that the host loop
+        does not matter."""
+        fn()
+        torch.cuda.synchronize()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(iters):
+            fn()
+        e1.record()
+        e1.synchronize()
+        return e0.elapsed_time(e1) / iters
+
+    def timed_kernel(label, make, nbytes, flops, dt, kk, plain_kk, library_ms, **extra):
+        """make(i) -> (kernel, plain) calls on copy i of the inputs; L2-warm
+        on copy 0, L2-cold on a ring of copies three times the L2."""
+        kern, plain = make(0)
+        ms = chain_time_slope(kern, *kk) * 1e3
+        plain_ms = chain_time_slope(plain, *plain_kk, reps=3) * 1e3
+        ring = [make(i)[0] for i in range(max(2, math.ceil(3 * L2_BYTES / nbytes)))]
+        ms_cold = chain_time_slope(rotating(ring), *kk) * 1e3
+        del ring
+        b_ms, by = bound_ms(nbytes, flops, dt)
+        row = dict(case=label, ms=ms, ms_l2_cold=ms_cold, plain_ms=plain_ms,
+                   library_ms=library_ms, bound_ms=b_ms, bound_by=by,
+                   working_set_MB=nbytes / 1e6, **extra)
+        emit("timing", **row)
+        return row
+
+    def k4_row(key, kk, plain_kk):
+        hs, T = trsv_plans[key]
+        plan, dt = hs.plan, T.dtype
+        sz, n, nnz = torch.finfo(dt).bits // 8, T.nrows, hs.plan.cols.shape[0]
+        bp = vec2(n, dt)
+
+        def make(i):
+            p = plan if i == 0 else dataclasses.replace(
+                plan, rowptr=plan.rowptr.clone(), cols=plan.cols.clone(),
+                vals=plan.vals.clone(), invd=plan.invd.clone(), flags=plan.flags.clone(),
+                state=plan.state.clone(), _rows=None)
+            bi = bp if i == 0 else bp.clone()
+            return (lambda: ks.sptrsv_levels(p, bi)), (lambda: ks.sptrsv_plain(p, bi))
+
+        # torch's one call for x = T⁻¹b (sparse CSR T, cuSPARSE), natural order
+        tri = torch.sparse_csr_tensor(T.row_map, T.entries, T.values, T.shape)
+        b2 = bp.reshape(n, 1)
+        try:
+            lib_ms, lib_err = event_ms(
+                lambda: torch.triangular_solve(b2, tri, upper=not hs.lower), 5), None
+        except (RuntimeError, NotImplementedError) as e:  # the yardstick only
+            lib_ms, lib_err = None, str(e)[:200]
+        full_ms = event_ms(lambda: sptrsv_solve(hs, T, bp), 20)
+        return timed_kernel(f"K4 sptrsv_levels {key} ILU(0)", make,
+                            (n + 1) * 4 + nnz * (4 + sz) + 3 * n * sz, 2 * nnz + 2 * n, dt,
+                            kk, plain_kk, lib_ms, levels=hs.num_levels, nnz_strict=nnz,
+                            library="torch.triangular_solve(b, T_csr), natural order",
+                            library_error=lib_err,
+                            sptrsv_solve_ms=full_ms)
+
+    t_k4 = k4_row("lap1000 f64 L", (2, 6), (1, 3))
+    k4_row("lap1000 f64 U", (2, 6), (1, 3))
+    k4_row("lap1000 f32 L", (2, 6), (1, 3))
+    k4_row("fem2d_30k f64 L", (20, 100), (5, 25))
+    k4_row("fem2d_30k f64 U", (20, 100), (5, 25))
+
+    def k5_row(label, src, dt):
+        n, sz = src.shape[0], torch.finfo(dt).bits // 8
+        xx = vec2(n, dt)
+
+        def make(i):
+            si = src if i == 0 else src.clone()
+            xi = xx if i == 0 else xx.clone()
+            return (lambda: ks.permute_gather(si, xi)), (lambda: ks.permute_plain(si, xi))
+
+        lib = lambda: torch.index_select(xx, 0, src)  # noqa: E731
+        return timed_kernel(f"K5 permute_gather {label}", make, n * (4 + 2 * sz), 0, dt,
+                            (50, 250), (50, 250), chain_time_slope(lib) * 1e3,
+                            library="torch.index_select(x, 0, src)")
+
+    t_k5 = k5_row("random permutation of 1,000,000, f64", perm1m, torch.float64)
+    k5_row("random permutation of 1,000,000, f32", perm1m, torch.float32)
+    k5_row("fem2d_30k L level order, f64", trsv_plans["fem2d_30k f64 L"][0].plan.order,
+           torch.float64)
+
+    # ---- 5. where a PCG and a GMRES iteration's time goes (torch.profiler) -----
     for label, A, iters in (("lap1000 f64 Jacobi", lap64, 20), ("fem2d_30k f64 Jacobi", fem, 50)):
         Ah, prec = SpmvHandle(A), JacobiPrec(A)
         state = pcg_initial_state(Ah, prec, vec(A.nrows, torch.float64), torch.zeros(
@@ -355,8 +588,33 @@ def main() -> int:
              launches_per_iter=sum(e.count for e in kern) / iters,
              top=[[e.key[:60], e.self_device_time_total / iters, e.count // iters] for e in top])
 
+    # one Arnoldi step of the ILU(0)-GMRES on fem2d_30k: a whole cycle of m=50
+    # steps (its one host least-squares solve included), per step
+    Ah, m = SpmvHandle(fem), 50
+    x0 = torch.zeros(fem.nrows, dtype=torch.float64, device=dev)
+    _arnoldi_cycle(Ah, prec_f, bg, x0, m, Ortho.CGS2)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    _arnoldi_cycle(Ah, prec_f, bg, x0, m, Ortho.CGS2)
+    torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t) / m * 1e6
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        _arnoldi_cycle(Ah, prec_f, bg, x0, m, Ortho.CGS2)
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+            and not e.key.startswith("tpukk::")]
+    dev_us = sum(e.self_device_time_total for e in kern) / m
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
+    emit("profile_gmres_iteration", case="fem2d_30k f64 ILU(0) LUPrec, m=50 CGS2",
+         wall_us_per_iter=wall_us, device_busy_us_per_iter=dev_us,
+         device_idle_share=1 - dev_us / wall_us,
+         launches_per_iter=sum(e.count for e in kern) / m,
+         top=[[e.key[:60], e.self_device_time_total / m, e.count / m] for e in top])
+
     total_k = []
-    for name, row in (("dia_spmv", t_k1), ("dia_spmm", t_k2), ("csr_spmv", t_k3)):
+    for name, row in (("dia_spmv", t_k1), ("dia_spmm", t_k2), ("csr_spmv", t_k3),
+                      ("sptrsv_levels", t_k4), ("permute_gather", t_k5)):
         total_k.append(dict(name=name, route="cuda", source=SOURCES[name],
                             replaces=REPLACES[name], launches=total[name],
                             max_abs_err=errs[name], ms=row["ms"], plain_ms=row["plain_ms"],

@@ -1,6 +1,6 @@
 """tpukk_torch's CUDA kernels on a CUDA device: each kernel against its plain
-version, and the SpMV/PCG path through the kernels.  Every test skips
-without a CUDA device: the kernels have no CPU mode.
+version, and the SpMV/PCG and ILU(0)-GMRES paths through the kernels.  Every
+test skips without a CUDA device: the kernels have no CPU mode.
 
 This file imports neither JAX nor tpukk, so it runs on a GPU host that has
 neither, without tests/conftest.py (which imports JAX)::
@@ -8,7 +8,9 @@ neither, without tests/conftest.py (which imports JAX)::
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
 Tolerance: |y - y_plain| <= 20·eps·(|A|·|x|)_i (the products are the same,
-summed in another order); the max reduction must agree exactly.
+summed in another order); the max reduction and the permutation must agree
+exactly; a triangular solve x must satisfy |T·x - b| <= 20·eps·(|T|·|x|)_i and
+|x - x_plain| <= M(T)⁻¹·(40·eps·|T||x|)_i (M(T) the comparison matrix).
 """
 import dataclasses
 
@@ -18,9 +20,13 @@ import scipy.sparse as sps
 import torch
 
 import tpukk_torch.containers as tkc
-from tpukk_torch.sparse import JacobiPrec, SpmvAlgorithm, SpmvHandle, pcg, spmv
+from tpukk_torch.sparse import (GmresHandle, JacobiPrec, LUPrec, Ortho, SpilukHandle,
+                                SpmvAlgorithm, SpmvHandle, gmres, pcg, spiluk_numeric,
+                                spiluk_symbolic, spmv, trsv)
 from tpukk_torch.sparse import spmv_cuda as kc
+from tpukk_torch.sparse import sptrsv_cuda as ks
 from tpukk_torch.sparse import spmv_impl
+from tpukk_torch.sparse.sptrsv import SptrsvHandle, sptrsv_symbolic
 
 pytestmark = pytest.mark.cuda
 
@@ -112,3 +118,126 @@ def test_empty_shapes_launch_nothing(dev):
     assert kc.dia_spmv(p, torch.ones(5, dtype=torch.float64, device=dev)).shape == (0,)
     assert kc.dia_spmm(p, torch.ones(5, 0, dtype=torch.float64, device=dev)).shape == (0, 0)
     assert kc.launch_counts() == n0
+
+
+def _ilu0(A):
+    h = SpilukHandle(0)
+    spiluk_symbolic(h, A)
+    return spiluk_numeric(h, A)
+
+
+def _solve_residual_ok(T, x, b, dtype):
+    """|T·x - b| <= 20·eps·(|T|·|x|) per element, in f64 on the host."""
+    sp = T.to_scipy().astype(np.float64)
+    xh, bh = x.double().cpu().numpy(), b.double().cpu().numpy()
+    bound = abs(sp) @ np.abs(xh)
+    return bool((np.abs(sp @ xh - bh) <= 20 * torch.finfo(dtype).eps * bound).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_sptrsv_kernel_matches_plain(dev, dtype):
+    mats = [tkc.generate_structured_laplacian(64, 64, dtype=np.float64, device=dev),
+            tkc.generate_diag_dominant_csr(3000, 8, dtype=np.float64, seed=5, device=dev)]
+    for A in mats:
+        for lower, T in zip((True, False), _ilu0(A)):
+            T = T.astype(dtype)
+            h = SptrsvHandle(lower=lower)
+            sptrsv_symbolic(h, T)
+            b = _x(T.nrows, dtype, dev, seed=2)
+            n0 = ks.sptrsv_levels.launches
+            x = ks.sptrsv_levels(h.plan, b)
+            assert ks.sptrsv_levels.launches == n0 + 1
+            xp = ks.sptrsv_plain(h.plan, b)
+            torch.cuda.synchronize()
+            assert ((x - xp).abs().double() <= ks.solve_error_bound(h.plan, x)).all()
+            # in level order the plan is strictly lower: check the residual there
+            order = h.plan.order.long()
+            Tl = tkc.CsrMatrix.from_scipy(T.to_scipy()[order.cpu().numpy()][:, order.cpu().numpy()])
+            assert _solve_residual_ok(Tl, x, b, dtype)
+            # a second solve on the same plan (next epoch) gives the same x
+            assert torch.equal(ks.sptrsv_levels(h.plan, b), x)
+
+
+def test_sptrsv_kernel_replays_in_a_cuda_graph(dev):
+    A = tkc.generate_structured_laplacian(40, 40, dtype=np.float64, device=dev)
+    L, _ = _ilu0(A)
+    h = SptrsvHandle(lower=True)
+    sptrsv_symbolic(h, L)
+    b = _x(L.nrows, torch.float64, dev, seed=3)
+    ref = ks.sptrsv_levels(h.plan, b)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ks.sptrsv_levels(h.plan, b)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = ks.sptrsv_levels(h.plan, b)
+    for _ in range(3):
+        out.zero_()
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_permute_kernel_matches_plain(dev, dtype):
+    rng = np.random.default_rng(4)
+    for n, k in ((100_003, None), (5000, 3), (1, None)):
+        src = torch.from_numpy(rng.permutation(n).astype(np.int32)).to(dev)
+        x = _x(n, dtype, dev, k)
+        n0 = ks.permute_gather.launches
+        y = ks.permute_gather(src, x)
+        assert ks.permute_gather.launches == n0 + 1
+        assert torch.equal(y, ks.permute_plain(src, x))
+    assert ks.permute_gather(src[:0], x).shape == (0,)
+    assert ks.permute_gather.launches == n0 + 1
+
+
+def test_ilu_gmres_runs_through_the_kernels(dev):
+    A = tkc.generate_diag_dominant_csr(4000, 8, dtype=np.float64, seed=7, device=dev)
+    b = _x(A.nrows, torch.float64, dev, seed=5)
+    kc.reset_launch_counts()
+    ks.reset_launch_counts()
+    x, st = gmres(GmresHandle(m=20, tol=1e-10, max_restarts=20), A, b, prec=LUPrec(*_ilu0(A)))
+    r = b.cpu().numpy() - A.to_scipy() @ x.cpu().numpy()
+    assert st.converged and np.linalg.norm(r) <= 1e-9 * np.linalg.norm(b.cpu().numpy())
+    assert ks.launch_counts()["sptrsv_levels"] >= 2 * st.num_iters
+    assert ks.launch_counts()["permute_gather"] >= 4 * st.num_iters
+    assert kc.launch_counts()["csr_spmv"] >= st.num_iters
+
+
+def test_rcm_route_runs_through_the_kernels(dev):
+    A = tkc.generate_fem2d_csr(5000, seed=3, dtype=np.float32, device=dev)
+    h = SpmvHandle(A, SpmvAlgorithm.RCM)
+    x = _x(A.ncols, torch.float32, dev)
+    ks.reset_launch_counts()
+    y = h(x)
+    assert ks.launch_counts()["permute_gather"] == 2
+    ref = A.to_scipy().astype(np.float64) @ x.double().cpu().numpy()
+    bound = abs(A.to_scipy().astype(np.float64)) @ np.abs(x.double().cpu().numpy())
+    assert (np.abs(y.double().cpu().numpy() - ref) <= 20 * np.finfo(np.float32).eps * bound).all()
+
+
+@pytest.mark.parametrize("ortho,sweeps", [("MGS", None), ("CGS2", 3)], ids=["mgs", "jacobi3"])
+def test_gmres_variants_on_cuda(dev, ortho, sweeps):
+    A = tkc.generate_diag_dominant_csr(3000, 8, dtype=np.float64, seed=9, device=dev)
+    b = _x(A.nrows, torch.float64, dev, seed=6)
+    prec = LUPrec(*_ilu0(A), jacobi_sweeps=sweeps)
+    x, st = gmres(GmresHandle(m=20, tol=1e-10, max_restarts=30, ortho=Ortho[ortho]), A, b,
+                  prec=prec)
+    r = b.cpu().numpy() - A.to_scipy() @ x.cpu().numpy()
+    assert st.converged and np.linalg.norm(r) <= 1e-9 * np.linalg.norm(b.cpu().numpy())
+
+
+def test_trsv_on_cuda(dev):
+    A = tkc.generate_diag_dominant_csr(2000, 6, dtype=np.float64, seed=10, device=dev)
+    B = _x(A.nrows, torch.float64, dev, k=3, seed=7)
+    for uplo, T in zip("LU", _ilu0(A)):
+        Td = T.to_scipy().toarray()
+        for trans in "NT":
+            X = trsv(uplo, trans, "N", T, B)
+            assert X.device == B.device and X.shape == B.shape
+            op = Td.T if trans == "T" else Td
+            Bh = B.cpu().numpy()
+            assert np.abs(op @ X.cpu().numpy() - Bh).max() <= 1e-12 * np.abs(Bh).max()

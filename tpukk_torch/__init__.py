@@ -6,6 +6,6 @@ on the CUDA device unless the caller passes ``device="cpu"``; on the CPU every
 hand-written kernel runs as its plain torch version.  Kernels are built with
 nvcc at first use on a CUDA device, never at import (``_kernels.py``).
 """
-from . import common, containers, interop, sparse
+from . import common, containers, graph, interop, sparse
 
-__all__ = ["common", "containers", "interop", "sparse"]
+__all__ = ["common", "containers", "graph", "interop", "sparse"]

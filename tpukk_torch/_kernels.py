@@ -1,17 +1,22 @@
-"""Kernel loader: builds ``csrc/*.cu`` with nvcc at first use on a CUDA device
-and binds the plain C entry points with ctypes.
+"""Kernel loader: builds ``csrc/*.cu`` with nvcc at first use on a CUDA device,
+and the host planners ``csrc/host.cpp`` with g++ at first use anywhere, and
+binds their plain C entry points with ctypes.
 
 Nothing is built when the package is imported.  Each source becomes its own
 shared library under ``build/tpukk_torch/`` beside the package, named by a
 hash of the source and the compiler flags, so an edited source rebuilds and
 an unchanged one is reused.  The compiler writes to a temporary name that is
 ``os.replace``d into place, so concurrent first uses are safe.  Sources build
-in parallel: one nvcc process per source, all started together.
+in parallel: one compiler process per source, all started together.
 
-Build by hand (the same command)::
+Build by hand (the same commands)::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -o build/tpukk_torch/libdia.so tpukk_torch/csrc/dia.cu
+    g++ -O3 -shared -fPIC -std=c++17 -o build/tpukk_torch/libhost.so \\
+         tpukk_torch/csrc/host.cpp
+
+The launch helpers at the end are shared by every kernel wrapper.
 """
 from __future__ import annotations
 
@@ -24,17 +29,21 @@ import threading
 import time
 from pathlib import Path
 
-from .common import TpuKKError
+import torch
 
-__all__ = ["SOURCES", "library", "build_all", "build_dir", "build_log"]
+from .common import TpuKKError, check
+
+__all__ = ["SOURCES", "HOST_SOURCES", "library", "build_all", "build_dir", "build_log",
+           "DTYPE_CODE", "stream_of", "check_launch", "check_operand", "on_cuda"]
 
 _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+GXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-# C signatures of every entry point, by source stem
+# C signatures of every CUDA entry point, by source stem (returns cudaError_t)
 SOURCES = {
     "dia": {
         "tpukk_dia_spmv": [_I, _P, _P, _I, _P, _P, _I64, _I64, _P],
@@ -42,6 +51,21 @@ SOURCES = {
     },
     "csr": {
         "tpukk_csr_spmv": [_I, _I, _I, _P, _P, _P, _P, _P, _I, _P],
+    },
+    "sptrsv": {
+        "tpukk_sptrsv_levels": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    },
+    "permute": {
+        "tpukk_permute_gather": [_I, _P, _P, _P, _I64, _I64, _P],
+    },
+}
+# C signatures and return types of the host planners (csrc/host.cpp)
+HOST_SOURCES = {
+    "host": {
+        "tpukk_iluk_symbolic": ([_I64, ctypes.c_int32, _P, _P, _P, _P], ctypes.c_int64),
+        "tpukk_ilu_numeric": ([_I64, _P, _P, _P, _P, _P, _P], ctypes.c_int32),
+        "tpukk_iluk_depth": ([_I64, _P, _P], ctypes.c_int32),
+        "tpukk_rcm": ([_I64, _P, _P, _P], None),
     },
 }
 
@@ -64,33 +88,48 @@ def _nvcc() -> str:
                      "the CUDA kernels cannot be built")
 
 
+def _source(name: str) -> Path:
+    return _CSRC / (f"{name}.cpp" if name in HOST_SOURCES else f"{name}.cu")
+
+
+def _command(name: str, out: Path) -> list:
+    if name in HOST_SOURCES:
+        gxx = shutil.which("g++")
+        if gxx is None:
+            raise TpuKKError("tpukk_torch: g++ not found on PATH; the host planners "
+                             "cannot be built")
+        return [gxx, *GXX_FLAGS, "-o", str(out), str(_source(name))]
+    return [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(_source(name))]
+
+
 def _target(name: str) -> Path:
-    src = (_CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return build_dir() / f"lib{name}-{digest}.so"
+    flags = GXX_FLAGS if name in HOST_SOURCES else NVCC_FLAGS
+    digest = hashlib.sha256(_source(name).read_bytes() + " ".join(flags).encode()).hexdigest()
+    return build_dir() / f"lib{name}-{digest[:16]}.so"
 
 
 def _start(name: str):
-    """Start nvcc for one source; returns (popen, tmp path, final path) or
-    None when the library is already built."""
+    """Start the compiler for one source; returns (popen, tmp path, final
+    path) or None when the library is already built."""
     out = _target(name)
     if out.is_file():
         return None
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    proc = subprocess.Popen(_command(name, tmp), stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
     return proc, tmp, out
 
 
 def _finish(name: str, job) -> str:
-    """Wait for one nvcc; returns its error report, or "" on success."""
+    """Wait for one compiler; returns its error report, or "" on success."""
     proc, tmp, out = job
     stdout, stderr = proc.communicate()
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        return f"nvcc failed on csrc/{name}.cu (exit {proc.returncode}):\n{stderr}{stdout}"
-    # keep ptxas's register/spill report beside the library
+        return (f"{Path(proc.args[0]).name} failed on csrc/{_source(name).name} "
+                f"(exit {proc.returncode}):\n{stderr}{stdout}")
+    # keep the compiler's report (ptxas registers/spills) beside the library
     out.with_suffix(".log").write_text(stderr + stdout)
     os.replace(tmp, out)
     return ""
@@ -98,6 +137,12 @@ def _finish(name: str, job) -> str:
 
 def _bind(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(_target(name)))
+    if name in HOST_SOURCES:
+        for fn, (argtypes, restype) in HOST_SOURCES[name].items():
+            f = getattr(lib, fn)
+            f.argtypes = argtypes
+            f.restype = restype
+        return lib
     for fn, argtypes in SOURCES[name].items():
         f = getattr(lib, fn)
         f.argtypes = argtypes
@@ -105,32 +150,77 @@ def _bind(name: str) -> ctypes.CDLL:
     return lib
 
 
-def build_all() -> float:
-    """Build (in parallel) and load every source not yet loaded; returns the
-    seconds spent.  Raises with the compiler's stderr on failure."""
-    t0 = time.perf_counter()
+def _build(names) -> None:
+    """Build (in parallel) and load the named sources not yet loaded.
+    Raises with the compilers' stderr on failure."""
     with _lock:
-        names = [n for n in SOURCES if n not in _libs]
-        jobs = {n: _start(n) for n in names}
-        # wait for every compiler before reporting, so none is left running
-        errors = [_finish(n, job) for n, job in jobs.items() if job is not None]
+        names = [n for n in names if n not in _libs]
+        jobs = {}
+        try:
+            for n in names:
+                jobs[n] = _start(n)
+        finally:
+            # wait for every compiler started before reporting, so none is left running
+            errors = [_finish(n, job) for n, job in jobs.items() if job is not None]
         errors = [e for e in errors if e]
         if errors:
             raise TpuKKError("tpukk_torch: " + "\n".join(errors))
         for n in names:
             _libs[n] = _bind(n)
+
+
+def build_all() -> float:
+    """Build every CUDA source and the host planners, in parallel; returns
+    the seconds spent."""
+    t0 = time.perf_counter()
+    _build([*SOURCES, *HOST_SOURCES])
     return time.perf_counter() - t0
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    """The loaded library of ``csrc/<name>.cu`` (or ``host.cpp``), built on
+    first use."""
     lib = _libs.get(name)
     if lib is None:
-        build_all()
+        _build([name])
         lib = _libs[name]
     return lib
 
 
 def build_log(name: str) -> str:
-    """ptxas's report (registers, shared memory, spills) of a built source."""
+    """The compiler's report (for nvcc: ptxas registers, shared memory,
+    spills) of a built source."""
     return _target(name).with_suffix(".log").read_text()
+
+
+# ----------------------------------------------------------------------
+# launch helpers shared by the kernel wrappers
+# ----------------------------------------------------------------------
+
+DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """The current stream, which must belong to t's device: the kernels
+    launch into the thread's current CUDA context."""
+    check(t.device.index == torch.cuda.current_device(),
+          f"tensor on {t.device}, but the current CUDA device is "
+          f"{torch.cuda.current_device()}: use torch.cuda.device(...)")
+    return torch.cuda.current_stream().cuda_stream
+
+
+def check_launch(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"tpukk_torch: {name} launch failed with cudaError_t {err}")
+
+
+def check_operand(t: torch.Tensor, name: str, dtype: torch.dtype, device: torch.device):
+    check(t.device == device, f"{name}: tensor on {t.device}, plan on {device}")
+    check(t.dtype == dtype, f"{name}: dtype {t.dtype}, plan dtype {dtype}")
+    check(t.is_contiguous(), f"{name}: tensor must be contiguous")
+
+
+def on_cuda(t: torch.Tensor, name: str) -> bool:
+    """True for a CUDA tensor, False for a CPU one; anything else raises."""
+    check(t.device.type in ("cpu", "cuda"), f"{name}: unsupported device {t.device}")
+    return t.device.type == "cuda"

@@ -9,6 +9,8 @@ import torch
 __all__ = [
     "exclusive_scan",
     "inclusive_scan",
+    "permute",
+    "permute_via_sort",
     "inverse_permutation",
     "round_up",
     "cdiv",
@@ -25,6 +27,19 @@ def exclusive_scan(x: torch.Tensor, dtype=None) -> torch.Tensor:
 
 def inclusive_scan(x: torch.Tensor, dtype=None) -> torch.Tensor:
     return torch.cumsum(x, 0, dtype=dtype)
+
+
+def permute(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
+    """y[i] = x[perm[i]] along the first axis (gather form)."""
+    return x.index_select(0, perm.long())
+
+
+def permute_via_sort(x: torch.Tensor, inv_perm_keys: torch.Tensor) -> torch.Tensor:
+    """``tpukk``'s key convention: element i carries key inv_perm_keys[i], so
+    after sorting by key, position j holds x[perm[j]] with perm =
+    argsort(inv_perm_keys).  The TPU ran this as a key-sort because its
+    gathers were slow; here it is the argsort and one gather."""
+    return permute(x, torch.argsort(inv_perm_keys, stable=True))
 
 
 def inverse_permutation(perm) -> np.ndarray:

@@ -19,6 +19,7 @@ __all__ = [
     "generate_random_csr",
     "generate_diag_dominant_csr",
     "generate_banded_csr",
+    "generate_fem2d_csr",
 ]
 
 
@@ -93,3 +94,31 @@ def generate_banded_csr(n: int, bandwidth: int, dtype=np.float32, seed: int = 0,
     A = sps.diags(diags, offsets, shape=(n, n), format="csr").astype(dtype)
     A.sort_indices()
     return CsrMatrix.from_scipy(A, device=device)
+
+
+def generate_fem2d_csr(n_nodes: int, dtype=np.float64, seed: int = 0,
+                       device=None) -> CsrMatrix:
+    """P1 finite-element stiffness matrix on an unstructured 2-D Delaunay
+    triangulation of random points, plus 1e-3·I (symmetric positive
+    definite).  Node numbering is random, so the pattern has no band; this is
+    the generator behind ``data/fem2d_*.mtx.gz``
+    (example/gmres/ex_real_A.cpp:36 reads such a matrix from a file)."""
+    from scipy.spatial import Delaunay
+
+    rng = np.random.default_rng(seed)
+    pts = rng.random((n_nodes, 2))
+    t = Delaunay(pts).simplices  # (ntri, 3)
+    # per-triangle P1 stiffness: K_ij = (grad phi_i . grad phi_j) * area
+    p0, p1, p2 = pts[t[:, 0]], pts[t[:, 1]], pts[t[:, 2]]
+    e0, e1, e2 = p2 - p1, p0 - p2, p1 - p0  # edge vectors opposite each vertex
+    cross = e1[:, 0] * e2[:, 1] - e1[:, 1] * e2[:, 0]
+    area = np.maximum(0.5 * np.abs(cross), 1e-14)
+    E = np.stack([e0, e1, e2], axis=1)  # (ntri, 3, 2)
+    K = np.einsum("tid,tjd->tij", E, E) / (4.0 * area)[:, None, None]
+    rows = np.repeat(t, 3, axis=1).reshape(-1)
+    cols = np.tile(t, (1, 3)).reshape(-1)
+    A = sps.coo_matrix((K.reshape(-1), (rows, cols)), shape=(n_nodes, n_nodes)).tocsr()
+    A.sum_duplicates()
+    A = A + 1e-3 * sps.identity(n_nodes, format="csr")
+    A.sort_indices()
+    return CsrMatrix.from_scipy(A, value_dtype=dtype, device=device)

@@ -1,0 +1,257 @@
+// Host planners of tpukk_torch: the plan-construction (symbolic) phases that
+// run on the CPU before any kernel launches.  Copies of the same entry points
+// of tpukk/native/tpukk_native.cpp, kept here so the port depends on nothing
+// of tpukk:
+//   * tpukk_iluk_symbolic  ILU(k) level-of-fill pattern  (sparse/spiluk.py)
+//   * tpukk_ilu_numeric    IKJ ILU numeric on a pattern   (sparse/spiluk.py)
+//   * tpukk_iluk_depth     entry-dependency DAG depth     (sparse/spiluk.py)
+//   * tpukk_rcm            reverse Cuthill-McKee order    (graph/ordering.py,
+//                          the RCM route of sparse/spmv.py)
+// The Python plain versions beside their callers (_iluk_pattern, the
+// dense-row IKJ numeric, scipy's RCM) are what the tests hold these against.
+//
+// Build (tpukk_torch/_kernels.py does this at first use):
+//   g++ -O3 -shared -fPIC -std=c++17 -o build/tpukk_torch/libhost.so host.cpp
+// ABI: plain C, int32 indices, int64 sizes, double values.
+
+#include <algorithm>
+#include <cstdint>
+#include <cstring>
+#include <limits>
+#include <vector>
+
+extern "C" {
+
+// ---------------------------------------------------------------------------
+// ILU(k) level-of-fill symbolic.
+// Two-phase ABI: call with out_indices == nullptr to get the required nnz;
+// call again with buffers to fill.  out_indptr has n+1 entries always.
+int64_t tpukk_iluk_symbolic(int64_t n, int32_t fill_k,
+                            const int32_t* a_indptr, const int32_t* a_indices,
+                            int32_t* out_indptr, int32_t* out_indices) {
+  // per-row sorted (col, level); rows kept for later rows' updates
+  std::vector<std::vector<std::pair<int32_t, int32_t>>> rows(n);
+  int64_t total = 0;
+  // stamped workspace: level[c] valid only when stamp[c] == current row
+  std::vector<int32_t> level(n, INT32_MAX);
+  std::vector<int64_t> stamp(n, -1);
+  auto get = [&](int64_t i, int32_t c) {
+    return stamp[c] == i ? level[c] : INT32_MAX;
+  };
+  for (int64_t i = 0; i < n; ++i) {
+    std::vector<int32_t> work;
+    work.reserve(64);
+    for (int32_t e = a_indptr[i]; e < a_indptr[i + 1]; ++e) {
+      int32_t c = a_indices[e];
+      if (get(i, c) == INT32_MAX) work.push_back(c);
+      level[c] = 0; stamp[c] = i;
+    }
+    if (get(i, (int32_t)i) == INT32_MAX) { work.push_back((int32_t)i); }
+    level[i] = 0; stamp[i] = i;
+    std::sort(work.begin(), work.end());
+    // IKJ merge: traverse work in ascending order; may grow
+    for (size_t wi = 0; wi < work.size(); ++wi) {
+      int32_t kk = work[wi];
+      if (kk >= (int32_t)i) break;
+      int32_t lik = get(i, kk);
+      if (lik > fill_k) continue;
+      const auto& rk = rows[kk];
+      for (const auto& [jj, lkj] : rk) {
+        if (jj <= kk) continue;
+        int32_t f = lik + lkj + 1;
+        if (f <= fill_k && f < get(i, jj)) {
+          if (get(i, jj) == INT32_MAX) {
+            // insert keeping work sorted beyond current position
+            auto it = std::lower_bound(work.begin() + wi + 1, work.end(), jj);
+            work.insert(it, jj);
+          }
+          level[jj] = f; stamp[jj] = i;
+        }
+      }
+    }
+    auto& out = rows[i];
+    out.reserve(work.size());
+    for (int32_t c : work) out.emplace_back(c, get(i, c));
+    if (out_indices) {
+      out_indptr[i] = (int32_t)total;
+      for (size_t j = 0; j < out.size(); ++j)
+        out_indices[total + j] = out[j].first;
+    }
+    total += (int64_t)out.size();
+  }
+  if (out_indices) out_indptr[n] = (int32_t)total;
+  return total;
+}
+
+// ---------------------------------------------------------------------------
+// ILU numeric (IKJ, pattern-restricted).  pattern rows must be sorted and
+// include the diagonal.  Writes LU packed values aligned with the pattern.
+int32_t tpukk_ilu_numeric(int64_t n,
+                          const int32_t* p_indptr, const int32_t* p_indices,
+                          const int32_t* a_indptr, const int32_t* a_indices,
+                          const double* a_values, double* lu_values) {
+  // stamped value workspace: w[c] valid only when wstamp[c] == current row
+  // (touched positions can lie outside row i's pattern; stamping makes
+  // discarded fill vanish without O(n) clears)
+  std::vector<double> w(n, 0.0);
+  std::vector<int64_t> wstamp(n, -1);
+  std::vector<int64_t> diag_pos(n, -1);
+  for (int64_t i = 0; i < n; ++i) {
+    auto wget = [&](int32_t c) { return wstamp[c] == i ? w[c] : 0.0; };
+    auto wset = [&](int32_t c, double v) { w[c] = v; wstamp[c] = i; };
+    int32_t s = p_indptr[i], e = p_indptr[i + 1];
+    for (int32_t ea = a_indptr[i]; ea < a_indptr[i + 1]; ++ea)
+      wset(a_indices[ea], a_values[ea]);
+    for (int32_t idx = s; idx < e; ++idx) {
+      int32_t kk = p_indices[idx];
+      if (kk >= (int32_t)i) break;
+      int64_t dp = diag_pos[kk];
+      if (dp < 0) return -1;  // missing diagonal
+      double ukk = lu_values[dp];
+      if (ukk == 0.0) return -2;  // zero pivot
+      double lik = wget(kk) / ukk;
+      wset(kk, lik);
+      // update with row kk's U part
+      for (int32_t kidx = (int32_t)dp + 1; kidx < p_indptr[kk + 1]; ++kidx) {
+        int32_t c = p_indices[kidx];
+        wset(c, wget(c) - lik * lu_values[kidx]);
+      }
+    }
+    for (int32_t idx = s; idx < e; ++idx) {
+      int32_t c = p_indices[idx];
+      lu_values[idx] = wget(c);
+      if (c == (int32_t)i) diag_pos[i] = idx;
+    }
+    if (diag_pos[i] < 0) return -1;
+  }
+  return 0;
+}
+
+// ---------------------------------------------------------------------------
+// Entry-dependency depth of the ILU(k) pattern (device-numeric planning; cf.
+// the level schedule of sparse/impl/KokkosSparse_spiluk_symbolic_impl.hpp's
+// level_list — this is the finer ENTRY-level DAG depth).  An entry (i,j)
+// depends on L(i,k)/U(k,j) pairs with k < min(i,j) and, for i>j, on U(j,j).
+// A synchronous Chow sweep makes depth-s entries exact after s+1 sweeps, so
+// the returned value (max level + 1) is the sweep count for an EXACT
+// device factorization.  rm/ci: pattern CSR, sorted columns, diag present.
+int32_t tpukk_iluk_depth(int64_t n, const int32_t* rm, const int32_t* ci) {
+  std::vector<int32_t> lvl((size_t)rm[n], 0);
+  std::vector<int32_t> dpos(n, -1);
+  int32_t depth = 0;
+  for (int64_t i = 0; i < n; ++i) {
+    for (int32_t e = rm[i]; e < rm[i + 1]; ++e) {
+      int32_t j = ci[e];
+      int32_t L = 0;
+      int32_t kmax = j < (int32_t)i ? j : (int32_t)i;
+      for (int32_t e2 = rm[i]; e2 < rm[i + 1] && ci[e2] < kmax; ++e2) {
+        int32_t k = ci[e2];
+        const int32_t* lo = ci + rm[k];
+        const int32_t* hi = ci + rm[k + 1];
+        const int32_t* it = std::lower_bound(lo, hi, j);
+        if (it != hi && *it == j) {
+          int32_t pkj = (int32_t)(rm[k] + (it - lo));
+          int32_t d = std::max(lvl[e2], lvl[pkj]) + 1;
+          if (d > L) L = d;
+        }
+      }
+      if (j < (int32_t)i && dpos[j] >= 0 && lvl[dpos[j]] + 1 > L)
+        L = lvl[dpos[j]] + 1;
+      if (j == (int32_t)i) dpos[i] = e;
+      lvl[e] = L;
+      if (L > depth) depth = L;
+    }
+  }
+  return depth + 1;
+}
+
+// ---------------------------------------------------------------------------
+// Reverse Cuthill-McKee ordering (role of graph/impl/KokkosGraph_BFS_impl.hpp:113
+// and graph/src/KokkosGraph_RCM.hpp).  BFS-based: per connected component a
+// George-Liu pseudo-peripheral start, then Cuthill-McKee BFS with neighbors
+// visited in ascending-degree order; the whole order is reversed at the end.
+// perm[new] = old (scipy reverse_cuthill_mckee convention).  Caller passes a
+// symmetric pattern.
+void tpukk_rcm(int64_t n, const int32_t* rm, const int32_t* ent,
+               int32_t* perm) {
+  std::vector<int32_t> deg(n);
+  for (int64_t v = 0; v < n; ++v) deg[v] = rm[v + 1] - rm[v];
+  std::vector<uint8_t> visited(n, 0);
+  std::vector<int32_t> level(n);
+  std::vector<int32_t> frontier, next, order;
+  order.reserve(n);
+
+  // BFS from s over unvisited vertices; returns (eccentricity, min-degree
+  // vertex of the last level); records the traversal in `touched`.
+  std::vector<int32_t> touched;
+  auto bfs = [&](int32_t s, int32_t* out_last) -> int32_t {
+    touched.clear();
+    frontier.clear();
+    frontier.push_back(s);
+    level[s] = 0;
+    visited[s] = 1;
+    touched.push_back(s);
+    int32_t ecc = 0, last = s;
+    while (!frontier.empty()) {
+      next.clear();
+      for (int32_t v : frontier) {
+        for (int32_t e = rm[v]; e < rm[v + 1]; ++e) {
+          int32_t u = ent[e];
+          if (u == v || visited[u]) continue;
+          visited[u] = 1;
+          level[u] = level[v] + 1;
+          touched.push_back(u);
+          next.push_back(u);
+        }
+      }
+      if (!next.empty()) {
+        ecc = level[next[0]];
+        last = next[0];
+        for (int32_t v : next)
+          if (deg[v] < deg[last]) last = v;
+      }
+      frontier.swap(next);
+    }
+    *out_last = last;
+    return ecc;
+  };
+
+  for (int64_t seed = 0; seed < n; ++seed) {
+    if (visited[seed]) continue;
+    // component start: the unvisited min-degree vertex is `seed`'s job only
+    // approximately; George-Liu refines it.
+    int32_t start = (int32_t)seed;
+    int32_t last, ecc = bfs(start, &last);
+    for (int iter = 0; iter < 8; ++iter) {
+      for (int32_t v : touched) visited[v] = 0;
+      int32_t last2, ecc2 = bfs(last, &last2);
+      if (ecc2 <= ecc) { start = last; break; }
+      ecc = ecc2;
+      last = last2;
+      start = last;
+    }
+    for (int32_t v : touched) visited[v] = 0;
+    // Cuthill-McKee BFS from start, neighbors in ascending-degree order.
+    size_t head = order.size();
+    order.push_back(start);
+    visited[start] = 1;
+    std::vector<int32_t> nbr;
+    while (head < order.size()) {
+      int32_t v = order[head++];
+      nbr.clear();
+      for (int32_t e = rm[v]; e < rm[v + 1]; ++e) {
+        int32_t u = ent[e];
+        if (u == v || visited[u]) continue;
+        visited[u] = 1;
+        nbr.push_back(u);
+      }
+      std::sort(nbr.begin(), nbr.end(), [&](int32_t a, int32_t b) {
+        return deg[a] != deg[b] ? deg[a] < deg[b] : a < b;
+      });
+      for (int32_t u : nbr) order.push_back(u);
+    }
+  }
+  for (int64_t i = 0; i < n; ++i) perm[i] = order[n - 1 - i];
+}
+
+}  // extern "C"

@@ -2,9 +2,10 @@
 
 ``tpukk`` keeps host numpy mirrors of its matrices (``A.host_row_map()``,
 ``A.host_entries()``, ``A.host_values_full()``) and of its DIA plans
-(``DiaPlan.diags_host``).  These functions turn such arrays into this
-package's objects, so one matrix can be given to both packages; this module
-imports neither JAX nor ``tpukk``.
+(``DiaPlan.diags_host``), of its ILU factors and of its triangular-solve
+levels.  These functions turn such arrays into this package's objects, so one
+matrix, one factorization or one level schedule can be given to both
+packages; this module imports neither JAX nor ``tpukk``.
 """
 from __future__ import annotations
 
@@ -12,8 +13,10 @@ import numpy as np
 
 from .containers import CsrMatrix
 from .sparse.spmv_impl import DiaPlan
+from .sparse.sptrsv_cuda import LevelPlan, build_level_plan
 
-__all__ = ["csr_from_numpy", "dia_plan_from_numpy"]
+__all__ = ["csr_from_numpy", "dia_plan_from_numpy", "csr_pair_from_numpy",
+           "level_plan_from_numpy"]
 
 
 def csr_from_numpy(row_map, entries, values, *, nrows: int, ncols: int,
@@ -25,3 +28,24 @@ def csr_from_numpy(row_map, entries, values, *, nrows: int, ncols: int,
 
 def dia_plan_from_numpy(diags, offsets, nrows: int, ncols: int, device) -> DiaPlan:
     return DiaPlan.from_numpy(np.asarray(diags), offsets, nrows, ncols, device)
+
+
+def csr_pair_from_numpy(L, U, *, device) -> tuple:
+    """(L, U) CsrMatrix pair from two square factors, each given as a
+    (row_map, entries, values) tuple of host arrays (``tpukk``'s
+    ``spiluk_numeric`` output through ``host_row_map()``, ``host_entries()``
+    and ``host_values_full()``)."""
+    out = []
+    for rm, ent, vals in (L, U):
+        n = len(rm) - 1
+        out.append(csr_from_numpy(rm, ent, vals, nrows=n, ncols=n, device=device))
+    return tuple(out)
+
+
+def level_plan_from_numpy(row_map, entries, values, levels, lower: bool,
+                          device) -> LevelPlan:
+    """Triangular-solve plan from host CSR arrays and a 1-based level per row
+    (``tpukk.sparse.sptrsv._compute_levels``'s output)."""
+    rm = np.asarray(row_map)
+    return build_level_plan(rm, np.asarray(entries), np.asarray(values), len(rm) - 1,
+                            np.asarray(levels), lower, device)

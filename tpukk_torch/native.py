@@ -1,0 +1,69 @@
+"""Host planners in C++ — counterpart of ``tpukk/native`` (the subset the
+ILU(k)-GMRES slice uses).
+
+The library is ``csrc/host.cpp``, built with g++ at first use into
+``build/tpukk_torch/`` (``_kernels.py``), never beside the source.  Unlike
+``tpukk.native``, nothing here returns None for a missing toolchain: a failed
+build raises, so the solve path never drops silently to the Python planners.
+Those stay beside their callers as the plain versions the tests hold these
+against (``sparse/spiluk.py``: ``_iluk_pattern``, ``_ilu_numeric_plain``;
+``graph/ordering.py``: ``rcm_plain``).
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from . import _kernels
+from .common import TpuKKError
+
+__all__ = ["iluk_symbolic", "ilu_numeric", "iluk_depth", "rcm"]
+
+
+def _lib():
+    return _kernels.library("host")
+
+
+def _i32(x) -> np.ndarray:
+    return np.ascontiguousarray(x, dtype=np.int32)
+
+
+def iluk_symbolic(indptr, indices, n: int, k: int):
+    """ILU(k) pattern (row map, sorted column ids, diagonal included) of the
+    square CSR pattern (indptr, indices)."""
+    indptr, indices = _i32(indptr), _i32(indices)
+    lib = _lib()
+    nnz = lib.tpukk_iluk_symbolic(n, k, indptr.ctypes.data, indices.ctypes.data, None, None)
+    out_indptr = np.zeros(n + 1, np.int32)
+    out_indices = np.zeros(max(nnz, 1), np.int32)
+    lib.tpukk_iluk_symbolic(n, k, indptr.ctypes.data, indices.ctypes.data,
+                            out_indptr.ctypes.data, out_indices.ctypes.data)
+    return out_indptr, out_indices[:nnz]
+
+
+def ilu_numeric(p_indptr, p_indices, a_indptr, a_indices, a_values, n: int) -> np.ndarray:
+    """f64 L\\U values on the pattern (p_indptr, p_indices) of A's IKJ
+    incomplete factorization."""
+    arrays = [_i32(p_indptr), _i32(p_indices), _i32(a_indptr), _i32(a_indices),
+              np.ascontiguousarray(a_values, np.float64)]
+    lu_vals = np.zeros(len(arrays[1]), np.float64)
+    rc = _lib().tpukk_ilu_numeric(n, *(a.ctypes.data for a in arrays), lu_vals.ctypes.data)
+    if rc != 0:
+        raise TpuKKError(f"ilu_numeric failed (rc={rc}: "
+                         f"{'missing diagonal' if rc == -1 else 'zero pivot'})")
+    return lu_vals
+
+
+def iluk_depth(row_map, entries, n: int) -> int:
+    """Entry-dependency DAG depth of an ILU(k) pattern (sorted columns,
+    diagonal present)."""
+    rm, ent = _i32(row_map), _i32(entries)
+    return int(_lib().tpukk_iluk_depth(n, rm.ctypes.data, ent.ctypes.data))
+
+
+def rcm(row_map, entries, n: int) -> np.ndarray:
+    """Reverse Cuthill-McKee permutation (perm[new] = old) of the pattern's
+    graph, as given (pass a symmetric pattern for the textbook ordering)."""
+    rm, ent = _i32(row_map), _i32(entries)
+    perm = np.empty(n, np.int32)
+    _lib().tpukk_rcm(n, rm.ctypes.data, ent.ctypes.data, perm.ctypes.data)
+    return perm

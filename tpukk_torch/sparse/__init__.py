@@ -1,3 +1,7 @@
+from .gmres import GmresHandle, GmresStats, Ortho, gmres
 from .pcg import PcgStats, pcg
-from .preconditioner import IdentityPrec, JacobiPrec, MatrixPrec, Preconditioner
+from .preconditioner import GsPrec, IdentityPrec, JacobiPrec, LUPrec, MatrixPrec, Preconditioner
+from .spiluk import SpilukHandle, spiluk_numeric, spiluk_symbolic
 from .spmv import SpmvAlgorithm, SpmvHandle, spmm, spmv
+from .sptrsv import SptrsvAlgorithm, SptrsvHandle, sptrsv_solve, sptrsv_symbolic
+from .trsv import trsv

@@ -19,6 +19,8 @@ route              on CUDA                               on the CPU
 DIA, PALLAS        K1 ``dia_spmv`` / K2 ``dia_spmm``     their plain version
 ONEHOT             K3 ``csr_spmv`` (2-D x: ELL until     its plain version
                    B4 is ported)
+RCM                K5 ``permute_gather``, the AUTO       their plain versions
+                   route of P·A·Pᵀ, K5 back
 ELL/SEGSUM/DENSE   torch ops                             torch ops
 DS                 the AUTO route, in native f64         the same
 =================  ====================================  =====================
@@ -28,9 +30,12 @@ from __future__ import annotations
 import weakref
 from typing import Optional
 
+import numpy as np
 import torch
 
+from .. import native
 from ..common import check
+from ..common.permute import build_permute_plan, static_permute
 from ..common.tracing import profile_region, region_name
 from ..containers import CsrMatrix
 from ..containers.sort_crs import transpose as _transpose
@@ -40,7 +45,6 @@ from .spmv_impl import SpmvAlgorithm
 __all__ = ["SpmvAlgorithm", "SpmvHandle", "spmv", "spmm"]
 
 _NOT_PORTED = {
-    SpmvAlgorithm.RCM: "the RCM route is not ported yet (ROADMAP queue A, item A1)",
     SpmvAlgorithm.BSR: "the BSR route is not ported yet (ROADMAP queue A, item A2)",
 }
 
@@ -108,6 +112,34 @@ class SpmvHandle:
             return A.to_dense().to(dtype)
         raise KeyError(key)  # pragma: no cover
 
+    def _rcm_plan(self):
+        """(handle on P·A·Pᵀ, to-permuted plan, back plan), built once: the
+        native RCM of A's pattern as given (not symmetrized), as ``tpukk``'s
+        RCM route does (spmv.py:122-141).  With pm = perm (pm[new] = old),
+        the permuted vector is x[pm] and the natural one y_p[inv]."""
+        p = self._plans.get(("rcm", None))
+        if p is None:
+            A = self.A
+            sp = A.to_scipy().tocsr()
+            pm = native.rcm(sp.indptr, sp.indices, A.nrows).astype(np.int64)
+            spp = sp[pm][:, pm].tocsr()
+            spp.sort_indices()
+            perm_h = SpmvHandle(CsrMatrix.from_scipy(spp, value_dtype=A.host_values().dtype,
+                                                     device=A.device))
+            inv = np.empty(A.nrows, np.int64)
+            inv[pm] = np.arange(A.nrows)
+            p = self._plans[("rcm", None)] = (perm_h, build_permute_plan(pm, A.device),
+                                              build_permute_plan(inv, A.device))
+        return p
+
+    def rcm_permuted(self):
+        """(handle on P·A·Pᵀ, to_permuted, from_permuted): the RCM route's
+        handle and the two converters (each one K5 launch), for solvers that
+        iterate in permuted space and convert once per solve."""
+        perm_h, to_p, from_p = self._rcm_plan()
+        return (perm_h, lambda v: static_permute(to_p, v.contiguous()),
+                lambda v: static_permute(from_p, v.contiguous()))
+
     def transposed(self) -> "SpmvHandle":
         if self._transposed is None:
             self._transposed = SpmvHandle(_transpose(self.A), self.algorithm)
@@ -133,6 +165,9 @@ class SpmvHandle:
             return spmv_impl.apply_segsum(self._plan("segsum", dt), x)
         if alg == SpmvAlgorithm.DENSE:
             return spmv_impl.apply_dense(self._plan("dense", dt), x)
+        if alg == SpmvAlgorithm.RCM:
+            perm_h, to_p, from_p = self._rcm_plan()
+            return static_permute(from_p, perm_h.matvec(static_permute(to_p, x)))
         raise NotImplementedError(alg)  # pragma: no cover
 
     def __call__(self, x: torch.Tensor, alpha=1.0, beta=0.0, y=None, mode: str = "N"):

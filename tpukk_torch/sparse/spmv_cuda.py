@@ -43,34 +43,12 @@ __all__ = [
     "reset_launch_counts",
 ]
 
-_DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
+_DTYPE_CODE = _kernels.DTYPE_CODE
 _REDUCE_CODE = {"sum": 0, "max": 1}
-
-
-def _stream(t: torch.Tensor) -> int:
-    """The current stream, which must belong to t's device: the kernels
-    launch into the thread's current CUDA context."""
-    check(t.device.index == torch.cuda.current_device(),
-          f"tensor on {t.device}, but the current CUDA device is "
-          f"{torch.cuda.current_device()}: use torch.cuda.device(...)")
-    return torch.cuda.current_stream().cuda_stream
-
-
-def _check_launch(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"tpukk_torch: {name} launch failed with cudaError_t {err}")
-
-
-def _check_operand(t: torch.Tensor, name: str, dtype: torch.dtype, device: torch.device):
-    check(t.device == device, f"{name}: tensor on {t.device}, plan on {device}")
-    check(t.dtype == dtype, f"{name}: dtype {t.dtype}, plan dtype {dtype}")
-    check(t.is_contiguous(), f"{name}: tensor must be contiguous")
-
-
-def _on_cuda(t: torch.Tensor, name: str) -> bool:
-    """True for a CUDA tensor, False for a CPU one; anything else raises."""
-    check(t.device.type in ("cpu", "cuda"), f"{name}: unsupported device {t.device}")
-    return t.device.type == "cuda"
+_stream = _kernels.stream_of
+_check_launch = _kernels.check_launch
+_check_operand = _kernels.check_operand
+_on_cuda = _kernels.on_cuda
 
 
 # ----------------------------------------------------------------------

@@ -56,7 +56,7 @@ class SpmvAlgorithm(enum.Enum):
     PALLAS = "pallas"      # tpukk's hand-written kernel path: the DIA CUDA kernels
     ONEHOT = "onehot"      # unstructured route: the CSR CUDA kernel
     DS = "ds"              # f64: the AUTO route computed in native f64
-    RCM = "rcm"            # RCM-reorder route (not ported yet: ROADMAP queue A)
+    RCM = "rcm"            # RCM-reorder route: the AUTO route of P·A·Pᵀ between permutes
 
 
 # ----------------------------------------------------------------------

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive tpukk_torch's main paths once on one CUDA GPU: SpMV + PCG, and
-ILU(0)-preconditioned GMRES with the RCM route.
+"""Drive tpukk_torch's main paths once on one CUDA GPU: SpMV + PCG,
+ILU(0)-preconditioned GMRES with the RCM route, and the Gauss-Seidel path
+(coloring, MIS2, sweeps, GsPrec-PCG).
 
     python3 chip_smoke.py
 
@@ -10,8 +11,9 @@ its plain torch version on the card, drives the paths a user runs
 (SpmvHandle AUTO SpMV and SpMM on the 1M-row 2-D Laplacian, AUTO SpMV on a
 random 100k-row CSR, PCG on the Laplacian and on the FEM matrix; SpILUK →
 LUPrec → GMRES on the FEM matrix to convergence and two restart cycles on the
-Laplacian; GMRES with reorder="rcm" / "none" / "auto"), checks every result
-on the host with scipy, times each kernel, its plain version and the torch
+Laplacian; GMRES with reorder="rcm" / "none" / "auto"; SERIAL and VB coloring,
+MIS2, POINT / CLUSTER / TWOSTAGE sweeps, GsPrec-PCG on both matrices, SpMM
+on the ONEHOT route), checks every result on the host with scipy, times each kernel, its plain version and the torch
 call that computes the same function, profiles one PCG and one GMRES
 iteration, and prints one JSON line per phase.  The last two lines are the
 card's name and power limit as nvidia-smi reports them, and the result line.  Any failed check exits
@@ -38,12 +40,15 @@ L2_BYTES = 50e6
 
 SOURCES = {"dia_spmv": "tpukk_torch/csrc/dia.cu", "dia_spmm": "tpukk_torch/csrc/dia.cu",
            "csr_spmv": "tpukk_torch/csrc/csr.cu", "sptrsv_levels": "tpukk_torch/csrc/sptrsv.cu",
-           "permute_gather": "tpukk_torch/csrc/permute.cu"}
+           "permute_gather": "tpukk_torch/csrc/permute.cu",
+           "gs_color_step": "tpukk_torch/csrc/gs.cu", "csr_spmm": "tpukk_torch/csrc/csr.cu"}
 REPLACES = {"dia_spmv": "tpukk/sparse/spmv_pallas.py:41",
             "dia_spmm": "tpukk/sparse/spmv_pallas.py:180",
             "csr_spmv": "tpukk/sparse/spmv_pallas.py:2053",
             "sptrsv_levels": "tpukk/sparse/sptrsv_pallas.py:515",
-            "permute_gather": "tpukk/common/permute.py:91"}
+            "permute_gather": "tpukk/common/permute.py:91",
+            "gs_color_step": "tpukk/sparse/spmv_pallas.py:2125",
+            "csr_spmm": "tpukk/sparse/spmv_pallas.py:1074"}
 
 
 def emit(phase: str, **fields) -> None:
@@ -96,10 +101,15 @@ def main() -> int:
     from tpukk_torch.common import chain_time_slope
     from tpukk_torch.containers import (CsrMatrix, generate_random_csr,
                                         generate_structured_laplacian, read_mtx)
-    from tpukk_torch.sparse import (GmresHandle, JacobiPrec, LUPrec, Ortho, SpilukHandle,
-                                    SpmvAlgorithm, SpmvHandle, SptrsvHandle, gmres, pcg,
-                                    spiluk_numeric, spiluk_symbolic, spmm, sptrsv_solve,
-                                    sptrsv_symbolic)
+    from tpukk_torch.graph import (ColoringAlgorithm, graph_color, graph_mis2,
+                                   graph_mis2_aggregate, verify_coloring)
+    from tpukk_torch.sparse import (ClusteringAlgorithm, GmresHandle, GsAlgorithm, GsHandle,
+                                    GsPrec, JacobiPrec, LUPrec, Ortho, SpilukHandle,
+                                    SpmvAlgorithm, SpmvHandle, SptrsvHandle, forward_sweep,
+                                    gauss_seidel_apply, gauss_seidel_numeric,
+                                    gauss_seidel_symbolic, gmres, pcg, spiluk_numeric,
+                                    spiluk_symbolic, spmm, sptrsv_solve, sptrsv_symbolic)
+    from tpukk_torch.sparse import gs_cuda as kg
     from tpukk_torch.sparse import spmv_cuda as kc
     from tpukk_torch.sparse import sptrsv_cuda as ks
     from tpukk_torch.sparse.gmres import _arnoldi_cycle, _rcm_reorder
@@ -122,11 +132,12 @@ def main() -> int:
         return torch.from_numpy(rng2.standard_normal(n)).to(dev, dtype)
 
     def launch_counts() -> dict:
-        return {**kc.launch_counts(), **ks.launch_counts()}
+        return {**kc.launch_counts(), **ks.launch_counts(), **kg.launch_counts()}
 
     def reset_launch_counts() -> None:
         kc.reset_launch_counts()
         ks.reset_launch_counts()
+        kg.reset_launch_counts()
 
     # ---- 1. device and build ------------------------------------------------
     build_s = _kernels.build_all()
@@ -145,7 +156,7 @@ def main() -> int:
          rand100k=[rnd.nrows, rnd.nnz])
 
     # ---- 2. each kernel against its plain version, on the card ----------------
-    errs = {k.__name__: 0.0 for k in (*kc.KERNELS, *ks.KERNELS)}
+    errs = {k.__name__: 0.0 for k in (*kc.KERNELS, *ks.KERNELS, *kg.KERNELS)}
 
     def hold(kernel: str, label: str, got, plain, bound, dtype) -> None:
         """|got - plain| <= 20·eps·(|A|·|x|) elementwise."""
@@ -182,6 +193,14 @@ def main() -> int:
                 xa = x.abs()
                 hold("csr_spmv", f"{label} max on |vals|,|x|", kc.csr_spmv(acp, xa, "max"),
                      kc.csr_plain(acp, xa, "max"), kc.csr_plain(acp, xa, "max"), dt)
+    # K7 at the main path's shapes: rand100k f32 k=8 (spmm), fem2d_30k f64 k=4
+    for label, A, dt, k in (("rand100k_deg16", rnd, torch.float32, 8),
+                            ("fem2d_30k", fem, torch.float64, 4)):
+        cp = kc.build_csr_plan(A, dt)
+        acp = dataclasses.replace(cp, values=cp.values.abs())
+        X = vec(A.ncols, dt, k)
+        hold("csr_spmm", f"{label} k={k} G={cp.group}", kc.csr_spmm(cp, X),
+             kc.csr_spmm_plain(cp, X), kc.csr_spmm_plain(acp, X.abs()), dt)
     after = kc.launch_counts()
     require(all(after[k] > before[k] for k in after), f"a launch counter did not rise: {after}")
     emit("kernels_checked", launches=after)
@@ -248,6 +267,7 @@ def main() -> int:
     require(counts["dia_spmv"] > 0, f"pcg lap1000: K1 not launched: {counts}")
     emit("main_pcg_lap1000_f64_jacobi", iters=st.num_iters, rel_res_host=rel, seconds=wall,
          us_per_iter=wall / st.num_iters * 1e6, launches=counts)
+    jacobi = {"lap1000": (b, st.num_iters)}  # the GsPrec phases reuse b and compare counts
 
     xt = torch.from_numpy(rng.standard_normal(fem.nrows)).to(dev)
     bf = torch.from_numpy(fem.to_scipy() @ xt.cpu().numpy()).to(dev)
@@ -255,6 +275,7 @@ def main() -> int:
     require(counts["csr_spmv"] > 0, f"pcg fem2d_30k: K3 not launched: {counts}")
     emit("main_pcg_fem2d30k_f64_jacobi", iters=st.num_iters, rel_res_host=rel, seconds=wall,
          us_per_iter=wall / st.num_iters * 1e6, launches=counts)
+    jacobi["fem2d_30k"] = (bf, st.num_iters)
     # ---- 3b. K4 and K5 against their plain versions, on the card ---------------
     def ilu0(A):
         """L, U of ILU(0) through the entry points a user calls."""
@@ -277,7 +298,7 @@ def main() -> int:
         ok = bool((err <= tol).all())
         errs["sptrsv_levels"] = max(errs["sptrsv_levels"], float(err.max()))
         emit("check", kernel="sptrsv_levels", case=label, dtype=str(dt),
-             max_abs_err=float(err.max()), max_err_over_tol=float((err / tol.clamp_min(1e-300)).max()),
+             max_abs_err=float(err.max()), max_err_over_tol=float((err / tol.clamp_min(torch.finfo(tol.dtype).tiny)).max()),
              tol="M(T)^-1 (40*eps*|T||x|)_i", ok=ok)
         require(ok, f"sptrsv_levels {label} disagrees with its plain version")
 
@@ -376,6 +397,181 @@ def main() -> int:
     require(agree, "gmres reorder='rcm' and 'none' disagree beyond rtol 2e-3 / atol 2e-4")
     emit("main_gmres_rcm", matrix="fem2d_30k + 4I f32, m=40, tol 1e-6", rcm_none_agree=agree,
          **{mode: {k: v for k, v in r.items() if k != "x"} for mode, r in rcm_runs.items()})
+
+    # ---- 3d. K6 against its plain version on every color block ----------------
+    def gs_handle(A, alg=GsAlgorithm.POINT, **kw):
+        hh = GsHandle(alg, **kw)
+        gauss_seidel_symbolic(hh, A)
+        gauss_seidel_numeric(hh, A)
+        return hh
+
+    t0 = time.perf_counter()
+    gs = {}
+    for mlabel, A in (("fem2d_30k f64", fem), ("lap1000", lap64)):
+        for alg in (GsAlgorithm.POINT, GsAlgorithm.CLUSTER):
+            t = time.perf_counter()
+            gs[(mlabel, alg.name)] = gs_handle(A, alg)
+            emit("gs_setup", matrix=mlabel, algorithm=alg.name, seconds=time.perf_counter() - t,
+                 colors=len(gs[(mlabel, alg.name)].color_offsets) - 1)
+    emit("gs_handles", seconds=time.perf_counter() - t0)
+
+    def hold_gs(label, blk, x, b, omega):
+        """Block rows: |x - x_plain| <= 20·eps·(|1-ω||x| + |ω·invd|(|b| + |A_off||x|));
+        every other row unchanged, exactly."""
+        plain = kg.gs_color_step_plain(blk, x.clone(), b, omega)
+        got = kg.gs_color_step(blk, x.clone(), b, omega)
+        torch.cuda.synchronize()
+        tol = kg.step_error_bound(blk, x, b, omega)
+        s0, s1 = blk.start, blk.start + blk.nrows
+        err = (got[s0:s1] - plain[s0:s1]).abs()
+        ok = bool((err <= tol).all()) and torch.equal(got[:s0], x[:s0]) \
+            and torch.equal(got[s1:], x[s1:])
+        errs["gs_color_step"] = max(errs["gs_color_step"], float(err.max()))
+        return ok, float(err.max()), float((err / tol.clamp_min(torch.finfo(tol.dtype).tiny)).max())
+
+    before = kg.launch_counts()
+    for (mlabel, alg), hh in gs.items():
+        dts = (torch.float64,) if mlabel.startswith("fem") else (torch.float32, torch.float64)
+        for dt in dts:
+            blocks = [blk.to(dt) for blk in next(iter(hh._blocks.values()))]
+            # a symmetric pattern's POINT blocks are uncoupled: K6 runs them in place
+            require(alg == "CLUSTER" or not any(blk.coupled for blk in blocks),
+                    f"{mlabel} {alg}: a POINT block is coupled")
+            for k in (None, 8):
+                worst = [True, 0.0, 0.0]
+                for blk in blocks:
+                    ok, e, r = hold_gs(f"{mlabel} {alg}", blk, vec(hh.order.shape[0], dt, k),
+                                       vec(hh.order.shape[0], dt, k), 1.0)
+                    worst = [worst[0] and ok, max(worst[1], e), max(worst[2], r)]
+                emit("check", kernel="gs_color_step", case=f"{mlabel} {alg} every block, "
+                     f"k={1 if k is None else k}", dtype=str(dt), blocks=len(blocks),
+                     coupled=sum(b.coupled for b in blocks), max_abs_err=worst[1],
+                     max_err_over_tol=worst[2],
+                     tol="20*eps*(|1-w||x| + |w*invd|(|b| + |A_off||x|))_i", ok=worst[0])
+                require(worst[0], f"gs_color_step {mlabel} {alg} disagrees with its plain version")
+    require(kg.launch_counts()["gs_color_step"] > before["gs_color_step"], "K6 never launched")
+
+    # ---- 3e. the Gauss-Seidel path: coloring, MIS2, sweeps, GsPrec-PCG --------
+    coloring = {}
+    for mlabel, A in (("fem2d_30k", fem), ("lap1000", lap)):
+        for alg in (ColoringAlgorithm.SERIAL, ColoringAlgorithm.VB):
+            c, counts, wall = counted(f"coloring {mlabel} {alg.name}",
+                                      lambda: graph_color(A, alg), ())
+            valid = verify_coloring(A, c)
+            require(valid, f"coloring {mlabel} {alg.name} is not a distance-1 coloring")
+            coloring[f"{mlabel} {alg.name}"] = dict(colors=int(c.max()), seconds=wall,
+                                                    valid=valid, launches=counts)
+    require(coloring["fem2d_30k VB"]["launches"]["csr_spmv"] > 0,
+            "VB coloring of fem2d_30k did not gather through K3")
+    emit("main_coloring", **coloring)
+
+    roots, counts, wall = counted("mis2 fem2d_30k", lambda: graph_mis2(fem), ("csr_spmv",))
+    t = time.perf_counter()
+    labels = graph_mis2_aggregate(fem)
+    agg_s = time.perf_counter() - t
+    pat = fem.to_scipy()
+    pat.data[:] = 1.0
+    A2 = (pat @ pat + pat).tocsr()
+    sub = A2[roots][:, roots]
+    independent = bool(abs(sub - sps.diags(sub.diagonal())).sum() == 0)
+    ind = np.zeros(fem.nrows)
+    ind[roots] = 1.0
+    maximal = bool(((A2 @ ind) > 0).all())
+    require(independent and maximal, "mis2 fem2d_30k: not a maximal distance-2 set")
+    require(labels.min() >= 0 and int(labels.max()) + 1 == len(roots), "mis2 aggregates")
+    # each Luby round is one max and one sum launch of K3
+    emit("main_mis2_fem2d30k", roots=len(roots), aggregates=int(labels.max()) + 1,
+         independent=independent, maximal=maximal, seconds=wall, aggregate_s=agg_s,
+         k3_max_launches=counts["csr_spmv"] // 2, k3_sum_launches=counts["csr_spmv"] // 2,
+         launches=counts)
+
+    # a POINT forward sweep at ω = 1 is GS in the color order: held to scipy's
+    # triangular solve x_p = (D + L_p)⁻¹ (b_p − U_p·x_p)
+    from scipy.sparse.linalg import spsolve_triangular
+
+    hp = gs[("fem2d_30k f64", "POINT")]
+    bs = torch.from_numpy(np.random.default_rng(11).standard_normal(fem.nrows)).to(dev)
+    xs0 = torch.from_numpy(np.random.default_rng(12).standard_normal(fem.nrows)).to(dev)
+    xs, counts, wall = counted("gs forward sweep", lambda: forward_sweep(hp, fem, xs0, bs),
+                               ("gs_color_step", "permute_gather"))
+    o = hp.order
+    Ap = fem.to_scipy()[o][:, o].tocsr()
+    bh, x0h = bs.cpu().numpy(), xs0.cpu().numpy()
+    ref = np.empty(fem.nrows)
+    ref[o] = spsolve_triangular(sps.tril(Ap, k=0).tocsr(), bh[o] - sps.triu(Ap, k=1) @ x0h[o],
+                                lower=True)
+    oracle_err = float(np.abs(xs.cpu().numpy() - ref).max() / np.abs(ref).max())
+    require(oracle_err <= 1e-11, f"gs forward sweep vs the triangular-solve oracle: {oracle_err}")
+    sweeps = dict(point_forward_vs_oracle=oracle_err, oracle_tol="1e-11 relative (max norm)",
+                  point_forward_launches=counts)
+    fem_cpu = CsrMatrix.from_scipy(fem.to_scipy(), device="cpu")
+    sp_fem = fem.to_scipy()
+    for label, alg, kw in (("POINT", GsAlgorithm.POINT, {}),
+                           ("CLUSTER", GsAlgorithm.CLUSTER, {}),
+                           ("CLUSTER_BALLOON", GsAlgorithm.CLUSTER,
+                            dict(clustering=ClusteringAlgorithm.BALLOON)),
+                           ("TWOSTAGE", GsAlgorithm.TWOSTAGE, {})):
+        hh = gs.get(("fem2d_30k f64", label)) or gs_handle(fem, alg, **kw)
+        needs = ("gs_color_step",) if alg != GsAlgorithm.TWOSTAGE else ("csr_spmv",)
+        res, xk = [], None
+        for _ in range(5):
+            xk, counts, wall = counted(f"gs {label} sweep",
+                                       lambda: gauss_seidel_apply(hh, fem, xk, bs, 1), needs)
+            res.append(float(np.linalg.norm(bh - sp_fem @ xk.cpu().numpy()) / np.linalg.norm(bh)))
+        require(all(math.isfinite(r) for r in res), f"gs {label}: non-finite residual")
+        # Balloon clusters (8 vertices, 3 inner Jacobi sweeps) diverge on this
+        # matrix, in tpukk too (0.370, 3.37, 90.3 after 1-3 sweeps on the CPU)
+        if label != "CLUSTER_BALLOON":
+            require(res[-1] < res[0], f"gs {label}: 5 sweeps did not reduce the residual {res}")
+        entry = dict(rel_res_after_1_to_5_sweeps=res, launches_per_sweep=counts)
+        if label == "CLUSTER":
+            # the same sweeps through the plain version on the CPU: catches a race
+            hc = gs_handle(fem_cpu, alg, **kw)
+            require(np.array_equal(hc.order, hh.order), f"gs {label}: CPU order differs")
+            xc = gauss_seidel_apply(hc, fem_cpu, None, bs.cpu(), 5)
+            diff = float((xk.cpu() - xc).abs().max() / xc.abs().max())
+            require(diff <= 1e-12, f"gs {label}: card and plain sweeps differ by {diff}")
+            entry.update(vs_plain_on_cpu=diff, vs_plain_tol="1e-12 relative (max norm)")
+        sweeps[label] = entry
+    emit("main_gs_sweep_fem2d30k", **sweeps)
+
+    def gs_pcg(label, A, key, hh, phase):
+        b_, jac_iters = jacobi[key]
+        st, rel, counts, wall = solve(label, A, b_, GsPrec(hh, A), 2 * jac_iters)
+        require(counts["gs_color_step"] > 0 and counts["permute_gather"] > 0,
+                f"{label}: K6/K5 not launched: {counts}")
+        require(st.num_iters < jac_iters,
+                f"{label}: {st.num_iters} iterations, Jacobi {jac_iters}")
+        emit(phase, iters=st.num_iters, jacobi_iters=jac_iters, rel_res_host=rel,
+             seconds=wall, us_per_iter=wall / st.num_iters * 1e6, colors=len(hh.color_offsets) - 1,
+             launches=counts)
+
+    gs_pcg("pcg gsprec fem2d_30k", fem, "fem2d_30k", hp, "main_pcg_gs_fem2d30k_f64")
+    gs_pcg("pcg gsprec lap1000", lap64, "lap1000", gs[("lap1000", "POINT")],
+           "main_pcg_gs_lap1000_f64")
+
+    Xr = vec(rnd.ncols, torch.float32, 8)
+    hr8 = SpmvHandle(rnd)
+    hr8._plan("csr", torch.float32)
+    Yr, counts, _ = counted("spmm rand100k k=8", lambda: spmm(rnd, Xr), ("csr_spmm",))
+    require(hr8.algorithm == SpmvAlgorithm.ONEHOT, f"rand100k routed to {hr8.algorithm}")
+    errs_mm = [host_check(rnd, Xr[:, j], Yr[:, j], "spmm rand100k") for j in range(8)]
+    emit("main_spmm_rand100k", route="ONEHOT", k=8, launches=counts,
+         max_abs_err_vs_scipy=max(errs_mm))
+
+    htw = gs_handle(fem, GsAlgorithm.TWOSTAGE)
+    Bt = vec(fem.nrows, torch.float64, 8)
+    Xt, counts, wall = counted("gs twostage k=8", lambda: gauss_seidel_apply(htw, fem, None, Bt, 2),
+                               ("csr_spmm",))
+    col_diff = 0.0
+    for j in range(8):
+        xj = gauss_seidel_apply(htw, fem, None, Bt[:, j].contiguous(), 2)
+        col_diff = max(col_diff, float((Xt[:, j] - xj).abs().max() / xj.abs().max()))
+    require(col_diff <= 1e-12, f"twostage k=8: a column differs from its single apply: {col_diff}")
+    emit("main_gs_twostage_multivector", matrix="fem2d_30k f64", k=8, sweeps=2, seconds=wall,
+         max_rel_diff_vs_single_column=col_diff, tol="1e-12 relative (max norm)",
+         launches=counts)
+
     require(all(v > 0 for v in total.values()), f"a kernel of the path never ran: {total}")
     emit("main_path_launches", launches=total)
 
@@ -559,9 +755,66 @@ def main() -> int:
     k5_row("fem2d_30k L level order, f64", trsv_plans["fem2d_30k f64 L"][0].plan.order,
            torch.float64)
 
+    def k6_row(label, blk, n):
+        cp = blk.csr
+        dt, sz = cp.values.dtype, torch.finfo(cp.values.dtype).bits // 8
+        xx, bb = vec(n, dt), vec(n, dt)
+        nnz = cp.entries.shape[0]
+        gathered = int(torch.unique(cp.entries).shape[0])
+        nbytes = (blk.nrows + 1) * 4 + nnz * (4 + sz) + 4 * blk.nrows * sz + gathered * sz
+
+        def make(i):
+            bi = blk if i == 0 else dataclasses.replace(
+                blk, inv_diag=blk.inv_diag.clone(), csr=dataclasses.replace(
+                    cp, row_map=cp.row_map.clone(), entries=cp.entries.clone(),
+                    values=cp.values.clone(), _rows=None))
+            xi, b_i = (xx, bb) if i == 0 else (xx.clone(), bb.clone())
+            # a coupled block writes into a buffer kept across steps, as a sweep does
+            si = torch.empty(blk.nrows, dtype=dt, device=dev) if blk.coupled else None
+            return (lambda: kg.gs_color_step(bi, xi, b_i, 1.0, si)), \
+                (lambda: kg.gs_color_step_plain(bi, xi, b_i, 1.0))
+
+        return timed_kernel(f"K6 gs_color_step {label}", make, nbytes, 2 * nnz + 5 * blk.nrows,
+                            dt, (50, 250), (10, 50), None,
+                            library="none: no single torch call computes the fused step",
+                            rows=blk.nrows, nnz=nnz, lanes=cp.group, in_place=not blk.coupled)
+
+    lap_blocks = next(iter(gs[("lap1000", "POINT")]._blocks.values()))
+    fem_blocks = next(iter(hp._blocks.values()))
+    t_k6 = k6_row("lap1000 f64 POINT color 1 (in place)", lap_blocks[0], lap64.nrows)
+    k6_row("fem2d_30k f64 POINT color 1 (in place)", fem_blocks[0], fem.nrows)
+    cl_blocks = next(iter(gs[("fem2d_30k f64", "CLUSTER")]._blocks.values()))
+    k6_row("fem2d_30k f64 CLUSTER largest color (out of place)",
+           max(cl_blocks, key=lambda b: b.nrows), fem.nrows)
+
+    def k7_row(label, A, dt, k):
+        cp = kc.build_csr_plan(A, dt)
+        sz = torch.finfo(dt).bits // 8
+        XX = vec(A.ncols, dt, k)
+
+        def make(i):
+            c = cp if i == 0 else dataclasses.replace(
+                cp, row_map=cp.row_map.clone(), entries=cp.entries.clone(),
+                values=cp.values.clone(), _rows=None)
+            Xi = XX if i == 0 else XX.clone()
+            S = sparse_csr(A, dt, i > 0)
+            return (lambda: kc.csr_spmm(c, Xi)), (lambda: kc.csr_spmm_plain(c, Xi)), \
+                (lambda: S.matmul(Xi))
+
+        nbytes = (A.nrows + 1) * 4 + A.nnz * (4 + sz) + (A.ncols + A.nrows) * k * sz
+        return timed(f"K7 csr_spmm {label} k={k} G={cp.group}", A, make, nbytes,
+                     2 * A.nnz * k, dt, spmv=False)
+
+    t_k7 = k7_row("rand100k_deg16 f32 (spmm, ONEHOT route)", rnd, torch.float32, 8)
+    k7_row("fem2d_30k f64 (TWOSTAGE multivector)", fem, torch.float64, 4)
+
     # ---- 5. where a PCG and a GMRES iteration's time goes (torch.profiler) -----
-    for label, A, iters in (("lap1000 f64 Jacobi", lap64, 20), ("fem2d_30k f64 Jacobi", fem, 50)):
-        Ah, prec = SpmvHandle(A), JacobiPrec(A)
+    for label, A, iters, prec in (("lap1000 f64 Jacobi", lap64, 20, JacobiPrec(lap64)),
+                                  ("fem2d_30k f64 Jacobi", fem, 50, JacobiPrec(fem)),
+                                  ("fem2d_30k f64 GsPrec", fem, 50, GsPrec(hp, fem)),
+                                  ("lap1000 f64 GsPrec", lap64, 20,
+                                   GsPrec(gs[("lap1000", "POINT")], lap64))):
+        Ah = SpmvHandle(A)
         state = pcg_initial_state(Ah, prec, vec(A.nrows, torch.float64), torch.zeros(
             A.nrows, dtype=torch.float64, device=dev))
         for _ in range(5):
@@ -614,7 +867,8 @@ def main() -> int:
 
     total_k = []
     for name, row in (("dia_spmv", t_k1), ("dia_spmm", t_k2), ("csr_spmv", t_k3),
-                      ("sptrsv_levels", t_k4), ("permute_gather", t_k5)):
+                      ("sptrsv_levels", t_k4), ("permute_gather", t_k5),
+                      ("gs_color_step", t_k6), ("csr_spmm", t_k7)):
         total_k.append(dict(name=name, route="cuda", source=SOURCES[name],
                             replaces=REPLACES[name], launches=total[name],
                             max_abs_err=errs[name], ms=row["ms"], plain_ms=row["plain_ms"],

@@ -1,6 +1,7 @@
 """tpukk_torch's CUDA kernels on a CUDA device: each kernel against its plain
-version, and the SpMV/PCG and ILU(0)-GMRES paths through the kernels.  Every
-test skips without a CUDA device: the kernels have no CPU mode.
+version, and the SpMV/PCG, ILU(0)-GMRES and Gauss-Seidel paths (coloring,
+MIS2, sweeps, GsPrec-PCG) through the kernels.  Every test skips without a
+CUDA device: the kernels have no CPU mode.
 
 This file imports neither JAX nor tpukk, so it runs on a GPU host that has
 neither, without tests/conftest.py (which imports JAX)::
@@ -10,7 +11,10 @@ neither, without tests/conftest.py (which imports JAX)::
 Tolerance: |y - y_plain| <= 20·eps·(|A|·|x|)_i (the products are the same,
 summed in another order); the max reduction and the permutation must agree
 exactly; a triangular solve x must satisfy |T·x - b| <= 20·eps·(|T|·|x|)_i and
-|x - x_plain| <= M(T)⁻¹·(40·eps·|T||x|)_i (M(T) the comparison matrix).
+|x - x_plain| <= M(T)⁻¹·(40·eps·|T||x|)_i (M(T) the comparison matrix); a
+Gauss-Seidel color step is held to gs_cuda.step_error_bound (20·eps of its
+absolute terms) on the block's rows and must leave the other rows exactly as
+they were; whole sweeps (a few color steps in a row) to 1e-12 relative in f64.
 """
 import dataclasses
 
@@ -20,9 +24,13 @@ import scipy.sparse as sps
 import torch
 
 import tpukk_torch.containers as tkc
-from tpukk_torch.sparse import (GmresHandle, JacobiPrec, LUPrec, Ortho, SpilukHandle,
-                                SpmvAlgorithm, SpmvHandle, gmres, pcg, spiluk_numeric,
-                                spiluk_symbolic, spmv, trsv)
+import tpukk_torch.graph as tg
+from tpukk_torch.sparse import (ClusteringAlgorithm, GmresHandle, GsAlgorithm, GsHandle, GsPrec,
+                                JacobiPrec, LUPrec, Ortho, SpilukHandle, SpmvAlgorithm,
+                                SpmvHandle, gauss_seidel_apply, gauss_seidel_numeric,
+                                gauss_seidel_symbolic, gmres, pcg, spiluk_numeric,
+                                spiluk_symbolic, spmm, spmv, trsv)
+from tpukk_torch.sparse import gs_cuda as kg
 from tpukk_torch.sparse import spmv_cuda as kc
 from tpukk_torch.sparse import sptrsv_cuda as ks
 from tpukk_torch.sparse import spmv_impl
@@ -241,3 +249,131 @@ def test_trsv_on_cuda(dev):
             op = Td.T if trans == "T" else Td
             Bh = B.cpu().numpy()
             assert np.abs(op @ X.cpu().numpy() - Bh).max() <= 1e-12 * np.abs(Bh).max()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_csr_spmm_kernel_matches_plain(dev, dtype):
+    cases = [tkc.generate_random_csr(3000, 2500, 12, seed=3, device=dev),
+             tkc.generate_random_csr(300, 300, 70, seed=4, device=dev),  # 32 lanes
+             tkc.generate_structured_laplacian(40, 40, device=dev)]
+    for A in cases:
+        cp = kc.build_csr_plan(A, dtype)
+        acp = dataclasses.replace(cp, values=cp.values.abs())
+        for k in (1, 2, 5, 8, 13, 16):
+            X = _x(A.ncols, dtype, dev, k)
+            n0 = kc.csr_spmm.launches
+            assert _held(kc.csr_spmm(cp, X), kc.csr_spmm_plain(cp, X),
+                         kc.csr_spmm_plain(acp, X.abs()), dtype)
+            assert kc.csr_spmm.launches == n0 + 1
+
+
+def test_onehot_spmm_route_launches_k7(dev):
+    A = tkc.generate_random_csr(5000, 4000, 9, seed=6, dtype=np.float64, device=dev)
+    X = _x(A.ncols, torch.float64, dev, 8)
+    n0 = kc.csr_spmm.launches
+    Y = spmm(A, X)
+    assert kc.csr_spmm.launches == n0 + 1
+    ref = A.to_scipy() @ X.cpu().numpy()
+    assert np.abs(Y.cpu().numpy() - ref).max() <= 1e-12 * np.abs(ref).max()
+
+
+def _gs_handle(A, alg=GsAlgorithm.POINT, **kw):
+    h = GsHandle(alg, **kw)
+    gauss_seidel_symbolic(h, A)
+    gauss_seidel_numeric(h, A, omega=kw.pop("omega", 1.0))
+    return h
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("alg", ["POINT", "CLUSTER"])
+def test_gs_color_step_kernel_matches_plain(dev, alg, dtype):
+    mats = [tkc.generate_structured_laplacian(60, 60, dtype=np.float64, device=dev),
+            tkc.generate_diag_dominant_csr(3000, 9, dtype=np.float64, seed=5, device=dev)]
+    for A in mats:
+        h = _gs_handle(A, GsAlgorithm[alg])
+        blocks = [b.to(dtype) for b in next(iter(h._blocks.values()))]
+        if A is mats[0]:  # symmetric: POINT blocks are uncoupled, CLUSTER ones coupled
+            assert any(b.coupled for b in blocks) == (alg == "CLUSTER")
+        for k in (None, 4, 16):
+            for blk in blocks:
+                x = _x(A.nrows, dtype, dev, k, seed=1)
+                b = _x(A.nrows, dtype, dev, k, seed=2)
+                plain = kg.gs_color_step_plain(blk, x.clone(), b, 1.2)
+                tol = kg.step_error_bound(blk, x, b, 1.2)
+                s, e = blk.start, blk.start + blk.nrows
+                # an uncoupled block also runs out of place when marked coupled,
+                # with a new buffer and with a caller's (larger) scratch buffer
+                cases = [(blk, None)] if blk.coupled else [(blk, None), (
+                    dataclasses.replace(blk, coupled=True), None)]
+                cases.append((dataclasses.replace(blk, coupled=True), torch.full(
+                    (x[s:e].numel() + 3,), float("nan"), dtype=dtype, device=dev)))
+                for bv, scratch in cases:
+                    n0 = kg.gs_color_step.launches
+                    got = kg.gs_color_step(bv, x.clone(), b, 1.2, scratch)
+                    torch.cuda.synchronize()
+                    assert kg.gs_color_step.launches == n0 + 1
+                    assert ((got[s:e] - plain[s:e]).abs() <= tol).all()
+                    assert torch.equal(got[:s], x[:s]) and torch.equal(got[e:], x[e:])
+
+
+def test_coloring_and_mis2_on_the_card_equal_the_cpu(dev):
+    lap = tkc.generate_structured_laplacian(100, 100, device=dev)        # offsets path
+    rnd = tkc.generate_random_csr(5000, 5000, 8, seed=13, device=dev)    # selection path
+    sp = rnd.to_scipy()
+    rnd = tkc.CsrMatrix.from_scipy(((sp + sp.T) * 0.5).tocsr(), device=dev)
+    for A in (lap, rnd):
+        cpu = tkc.CsrMatrix.from_scipy(A.to_scipy(), device="cpu")
+        for alg in (tg.ColoringAlgorithm.VB, tg.ColoringAlgorithm.VBD):
+            kc.reset_launch_counts()
+            c = tg.graph_color(A, alg)
+            assert tg.verify_coloring(A, c)
+            np.testing.assert_array_equal(c, tg.graph_color(cpu, alg))
+        assert (kc.launch_counts()["csr_spmv"] > 0) == (A is rnd)
+        kc.reset_launch_counts()
+        roots = tg.graph_mis2(A)
+        assert kc.launch_counts()["csr_spmv"] >= 2
+        np.testing.assert_array_equal(roots, tg.graph_mis2(cpu))
+
+
+def test_cluster_sweep_matches_its_plain_version(dev):
+    """CLUSTER blocks are coupled; an in-place kernel would race there."""
+    sp = tkc.generate_structured_laplacian(70, 70, dtype=np.float64, device="cpu").to_scipy()
+    sp.setdiag(sp.diagonal() + 0.5)
+    cpu = tkc.CsrMatrix.from_scipy(sp.tocsr(), device="cpu")
+    A = tkc.CsrMatrix.from_scipy(sp.tocsr(), device=dev)
+    b = _x(A.nrows, torch.float64, dev, seed=3)
+    for clustering in (ClusteringAlgorithm.MIS2, ClusteringAlgorithm.BALLOON):
+        h = _gs_handle(A, GsAlgorithm.CLUSTER, clustering=clustering)
+        hc = _gs_handle(cpu, GsAlgorithm.CLUSTER, clustering=clustering)
+        np.testing.assert_array_equal(h.order, hc.order)
+        n0 = kg.gs_color_step.launches
+        x = gauss_seidel_apply(h, A, None, b, 3)
+        assert kg.gs_color_step.launches > n0
+        ref = gauss_seidel_apply(hc, cpu, None, b.cpu(), 3)
+        assert (x.cpu() - ref).abs().max() <= 1e-12 * ref.abs().max()
+
+
+def test_gsprec_pcg_runs_through_k6(dev):
+    A = tkc.generate_structured_laplacian(100, 100, dtype=np.float64, device=dev)
+    b = _x(A.nrows, torch.float64, dev, seed=1)
+    h = _gs_handle(A)
+    n0 = kg.gs_color_step.launches
+    xs, st = pcg(A, b, tol=1e-8, max_iters=2000, prec=GsPrec(h, A))
+    r = b.cpu().numpy() - A.to_scipy() @ xs.cpu().numpy()
+    assert st.converged and np.linalg.norm(r) <= 1e-7 * np.linalg.norm(b.cpu().numpy())
+    ncolors = len(h.color_offsets) - 1
+    assert kg.gs_color_step.launches - n0 >= 2 * ncolors * st.num_iters
+    _, sj = pcg(A, b, tol=1e-8, max_iters=2000, prec=JacobiPrec(A))
+    assert st.num_iters < sj.num_iters
+
+
+def test_twostage_multivector_launches_k7(dev):
+    A = tkc.generate_diag_dominant_csr(4000, 8, dtype=np.float64, seed=7, device=dev)
+    h = _gs_handle(A, GsAlgorithm.TWOSTAGE)
+    B = _x(A.nrows, torch.float64, dev, 8, seed=4)
+    n0 = kc.csr_spmm.launches
+    X = gauss_seidel_apply(h, A, None, B, 2)
+    assert kc.csr_spmm.launches > n0
+    for j in range(8):
+        xj = gauss_seidel_apply(h, A, None, B[:, j].contiguous(), 2)
+        assert (X[:, j] - xj).abs().max() <= 1e-12 * xj.abs().max()

@@ -25,8 +25,9 @@ import tpukk.containers as jkc
 import tpukk.sparse as jsp
 import tpukk_torch.containers as tkc
 from tpukk_torch.interop import csr_from_numpy, csr_pair_from_numpy
-from tpukk_torch.sparse import (GmresHandle, GsPrec, LUPrec, Ortho, SpilukHandle, SpmvAlgorithm,
-                                SpmvHandle, gmres, spiluk_numeric, spiluk_symbolic)
+from tpukk_torch.sparse import (GmresHandle, GsHandle, GsPrec, LUPrec, Ortho, SpilukHandle,
+                                SpmvAlgorithm, SpmvHandle, gauss_seidel_numeric,
+                                gauss_seidel_symbolic, gmres, spiluk_numeric, spiluk_symbolic)
 from tpukk_torch.sparse import sptrsv_cuda as ks
 from tpukk_torch.sparse.gmres import _rcm_reorder
 
@@ -107,6 +108,8 @@ def test_gmres_matches_tpukk(dd120, ortho, prec, rng):
 
 
 def test_gmres_zero_rhs_and_unported_prec():
+    """β = 0 gives x = 0 in both packages; GsPrec (ported with the
+    Gauss-Seidel slice) is a working preconditioner for GMRES too."""
     At = tkc.generate_diag_dominant_csr(30, 3, dtype=np.float64, seed=8, device=CPU)
     b = torch.zeros(At.nrows, dtype=torch.float64)
     x, st = gmres(GmresHandle(m=10, tol=1e-10, max_restarts=3), At, b)
@@ -116,8 +119,15 @@ def test_gmres_zero_rhs_and_unported_prec():
                        jkc.generate_diag_dominant_csr(30, 3, dtype=np.float64, seed=8),
                        jnp.zeros(30))
     assert sj.num_iters == st.num_iters and np.allclose(np.asarray(xj), 0.0)
-    with pytest.raises(NotImplementedError, match="A9"):
-        GsPrec(None, At)
+    h = GsHandle()
+    gauss_seidel_symbolic(h, At)
+    gauss_seidel_numeric(h, At)
+    bg = torch.from_numpy(np.random.default_rng(8).standard_normal(At.nrows))
+    xg, sg = gmres(GmresHandle(m=10, tol=1e-10, max_restarts=5), At, bg, prec=GsPrec(h, At))
+    _, s0 = gmres(GmresHandle(m=10, tol=1e-10, max_restarts=5), At, bg)
+    assert sg.converged and sg.num_iters <= s0.num_iters
+    r = bg.numpy() - At.to_scipy() @ xg.numpy()
+    assert np.linalg.norm(r) <= 1e-9 * np.linalg.norm(bg.numpy())
 
 
 def test_rcm_route_matches_tpukk():

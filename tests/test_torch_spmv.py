@@ -3,7 +3,8 @@
 Kernel modules: each CUDA kernel's plain version (what its wrapper runs on a
 CPU tensor) against the Pallas kernel it replaces, run in interpret mode as
 tests/test_spmv.py runs it, on one matrix handed to both packages; f64
-against scipy.  Slice: SpmvHandle/spmv routes, modes N/T/C/H with alpha/beta,
+against scipy.  K7 (``csr_spmm``) against tpukk's ``spmm`` with a 2-D x and
+against scipy, and the ONEHOT route's choice of K7 up to 16 columns.  Slice: SpmvHandle/spmv routes, modes N/T/C/H with alpha/beta,
 f32/f64 and empty rows against tpukk.sparse.spmv, and the AUTO gate.
 
 Tolerance: |y - y_ref| <= 20·eps·(|A|·|x|)_i, the reference's scaled-eps
@@ -201,6 +202,64 @@ def test_wrappers_refuse_bad_operands(rng):
     for call in bad:
         with pytest.raises(Exception):
             call()
+
+
+# ---------------------------------------------------------------------------
+# K7: CSR SpMM kernel's plain version against tpukk's multi-RHS product
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("k", [2, 8, 16])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64], ids=["f32", "f64"])
+def test_csr_spmm_plain_matches_tpukk_and_scipy(k, dtype, rng, monkeypatch):
+    Aj = jkc.generate_random_csr(2000, 1800, 8, seed=3, dtype=dtype)
+    At = _port(Aj)
+    X = _vec(rng, Aj.ncols, dtype, k)
+    calls = []
+    orig = kc.csr_spmm
+    monkeypatch.setattr(kc, "csr_spmm", lambda p, x: calls.append(x.shape) or orig(p, x))
+    Y = spmm(At, torch.from_numpy(X), algorithm=SpmvAlgorithm.ONEHOT)
+    assert calls == [(Aj.ncols, k)] and Y.dtype == torch.from_numpy(X).dtype
+    assert orig.launches == 0
+    ref = np.asarray(jsp.spmv(Aj, jnp.asarray(X), algorithm=jsp.SpmvAlgorithm.ONEHOT))
+    sp = Aj.to_scipy().astype(np.float64)
+    for j in range(k):
+        _close(Y[:, j].numpy(), ref[:, j], sp, X[:, j], dtype)
+        _close(Y[:, j].numpy(), sp @ X[:, j].astype(np.float64), sp, X[:, j], dtype)
+    # each column equals the single-column K3 product within the same bound
+    plan = kc.build_csr_plan(At, torch.from_numpy(X).dtype)
+    for j in range(k):
+        _close(Y[:, j].numpy(), kc.csr_spmv(plan, torch.from_numpy(X[:, j].copy())).numpy(),
+               sp, X[:, j], dtype)
+
+
+def test_csr_spmm_plain_matches_onehot_spmm_interpret(rng):
+    """The Pallas multi-RHS kernels themselves (onehot_spmm, interpret mode)
+    on the layouts tests/test_spmv.py runs them on."""
+    Aj = jkc.generate_random_csr(500, 700, 4, seed=5, dtype=np.float32)
+    X = _vec(rng, Aj.ncols, np.float32, 4)
+    Y = kc.csr_spmm(kc.build_csr_plan(_port(Aj), torch.float32), torch.from_numpy(X)).numpy()
+    for layout in ("flat", "gt"):
+        pj = jpl.build_onehot_spmv_plan(Aj, layout=layout)
+        ref = np.asarray(jpl.onehot_spmm(pj, jnp.asarray(X), interpret=True))
+        for j in range(4):
+            _close(Y[:, j], ref[:, j], Aj.to_scipy(), X[:, j], np.float32)
+
+
+def test_onehot_route_takes_ell_beyond_16_columns(rng, monkeypatch):
+    Aj = jkc.generate_random_csr(400, 300, 5, seed=2, dtype=np.float64)
+    calls = []
+    orig = kc.csr_spmm
+    monkeypatch.setattr(kc, "csr_spmm", lambda p, x: calls.append(x.shape) or orig(p, x))
+    for k in (1, 17):
+        X = _vec(rng, Aj.ncols, np.float64, k)
+        Y = spmm(_port(Aj), torch.from_numpy(X), algorithm=SpmvAlgorithm.ONEHOT).numpy()
+        ref = np.asarray(jsp.spmm(Aj, jnp.asarray(X), algorithm=jsp.SpmvAlgorithm.ELL))
+        for j in range(k):
+            _close(Y[:, j], ref[:, j], Aj.to_scipy(), X[:, j], np.float64)
+    assert calls == []
+    with pytest.raises(Exception, match="columns"):
+        kc.csr_spmm(kc.build_csr_plan(_port(Aj), torch.float64),
+                    torch.zeros((Aj.ncols, 17), dtype=torch.float64))
 
 
 # ---------------------------------------------------------------------------

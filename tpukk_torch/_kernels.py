@@ -4,8 +4,9 @@ binds their plain C entry points with ctypes.
 
 Nothing is built when the package is imported.  Each source becomes its own
 shared library under ``build/tpukk_torch/`` beside the package, named by a
-hash of the source and the compiler flags, so an edited source rebuilds and
-an unchanged one is reused.  The compiler writes to a temporary name that is
+hash of the source, the shared headers ``csrc/*.cuh`` (for nvcc) and the
+compiler flags, so an edited source or header rebuilds and an unchanged one
+is reused.  The compiler writes to a temporary name that is
 ``os.replace``d into place, so concurrent first uses are safe.  Sources build
 in parallel: one compiler process per source, all started together.
 
@@ -51,6 +52,11 @@ SOURCES = {
     },
     "csr": {
         "tpukk_csr_spmv": [_I, _I, _I, _P, _P, _P, _P, _P, _I, _P],
+        "tpukk_csr_spmm": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _P],
+    },
+    "gs": {
+        "tpukk_gs_color_step": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I,
+                                ctypes.c_double, _P],
     },
     "sptrsv": {
         "tpukk_sptrsv_levels": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
@@ -66,6 +72,9 @@ HOST_SOURCES = {
         "tpukk_ilu_numeric": ([_I64, _P, _P, _P, _P, _P, _P], ctypes.c_int32),
         "tpukk_iluk_depth": ([_I64, _P, _P], ctypes.c_int32),
         "tpukk_rcm": ([_I64, _P, _P, _P], None),
+        "tpukk_d1_greedy_color": ([_I64, _P, _P, _P], ctypes.c_int32),
+        "tpukk_d2_greedy_color": ([_I64, _P, _P, _I64, _P, _P, ctypes.c_int32, _P],
+                                  ctypes.c_int32),
     },
 }
 
@@ -104,7 +113,9 @@ def _command(name: str, out: Path) -> list:
 
 def _target(name: str) -> Path:
     flags = GXX_FLAGS if name in HOST_SOURCES else NVCC_FLAGS
-    digest = hashlib.sha256(_source(name).read_bytes() + " ".join(flags).encode()).hexdigest()
+    headers = [] if name in HOST_SOURCES else sorted(_CSRC.glob("*.cuh"))
+    text = b"".join(f.read_bytes() for f in [_source(name), *headers])
+    digest = hashlib.sha256(text + " ".join(flags).encode()).hexdigest()
     return build_dir() / f"lib{name}-{digest[:16]}.so"
 
 

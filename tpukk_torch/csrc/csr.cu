@@ -1,5 +1,7 @@
-// Unstructured CSR SpMV for Hopper (sm_90a): K3 csr_spmv<T, Reduce>.
+// Unstructured CSR SpMV and SpMM for Hopper (sm_90a): K3 csr_spmv<T, Reduce>
+// and K7 csr_spmm<T>.
 //
+// ---- K3 ----
 // Replaces the TPU kernels (tpukk/sparse/spmv_pallas.py), seven layouts of one
 // product that exist because of Mosaic limits (no fast dynamic gather, no
 // native f64), all reached through onehot_spmv (:1193):
@@ -26,6 +28,24 @@
 // rows, and combine their partial results with a warp-shuffle reduction.  No
 // padding, no atomics, no plan beyond the CSR arrays themselves.
 //
+// ---- K7 ----
+// Replaces the five multi-RHS layouts behind onehot_spmm
+// (tpukk/sparse/spmv_pallas.py:1326): _dl_mm_call (:1074),
+// _dl_mm_call_batched (:1132), _onehot_spmm_call (:1254), _gt_mm_call_batched
+// (:2449) and _pk_mm_call_batched (:2521), which the ONEHOT route runs for a
+// row-major X of shape (ncols, k), 1 < k <= 16 (tpukk/sparse/spmv.py:249).
+//
+// What it computes: Y[r, j] = sum_{p in row r} vals[p] * X[colidx[p], j] for
+// j < k, Y row-major (nrows, k).
+//
+// Bound on the H100: bytes.  The least traffic is rowmap, colidx and vals
+// once (as for one SpMV), X once and Y once; k columns per entry share one
+// read of its value and column id, which is the whole gain over k SpMVs.
+//
+// Design against that bound: K3's vector CSR with k accumulators per lane (K2's
+// idea for CSR), the row panel of csr_panel.cuh, which K6 shares; lane j % G
+// writes column j.
+//
 // C interface (bound with ctypes): returns the cudaError_t of the launch
 // (0 when nothing needed launching); dtype 0 = float, 1 = double; reduce
 // 0 = sum, 1 = max.
@@ -33,9 +53,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include "csr_panel.cuh"
 
-constexpr int kThreads = 256;
+namespace {
 
 template <typename T, int G, bool kMax>
 __global__ void __launch_bounds__(kThreads)
@@ -85,7 +105,49 @@ int launch(int group, const int* rowmap, const int* colidx, const void* vals, co
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int G, int KMAX>
+__global__ void __launch_bounds__(kThreads)
+csr_spmm_kernel(const int* __restrict__ rowmap, const int* __restrict__ colidx,
+                const T* __restrict__ vals, const T* __restrict__ x, T* __restrict__ y,
+                int nrows, int k) {
+  const int64_t row = (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) / G;
+  const int lane = static_cast<int>(threadIdx.x) % G;
+  const bool valid = row < nrows;
+  T acc[KMAX];
+  csr_row_panel<T, G, KMAX, true>(rowmap, colidx, vals, x, row, lane, valid, k, acc);
+  if (valid) {
+    T* yr = y + row * k;
+#pragma unroll
+    for (int j = 0; j < KMAX; ++j)
+      if (j < k && j % G == lane) yr[j] = acc[j];
+  }
+}
+
+template <typename T>
+int launch_spmm(int group, const int* rowmap, const int* colidx, const void* vals,
+                const void* x, void* y, int nrows, int k, cudaStream_t stream) {
+  if (nrows == 0 || k == 0) return 0;
+  const T* v = static_cast<const T*>(vals);
+  const T* xx = static_cast<const T*>(x);
+  T* yy = static_cast<T*>(y);
+  return dispatch_panel(group, k, [&](auto g, auto kmax) {
+    constexpr int G = decltype(g)::value, KMAX = decltype(kmax)::value;
+    csr_spmm_kernel<T, G, KMAX><<<panel_grid(nrows, G), kThreads, 0, stream>>>(
+        rowmap, colidx, v, xx, yy, nrows, k);
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
 }  // namespace
+
+extern "C" int tpukk_csr_spmm(int dtype, int group, const int* rowmap, const int* colidx,
+                              const void* vals, const void* x, void* y, int nrows, int k,
+                              void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_spmm<float>(group, rowmap, colidx, vals, x, y, nrows, k, s);
+  if (dtype == 1) return launch_spmm<double>(group, rowmap, colidx, vals, x, y, nrows, k, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
 
 extern "C" int tpukk_csr_spmv(int dtype, int reduce, int group, const int* rowmap,
                               const int* colidx, const void* vals, const void* x, void* y,

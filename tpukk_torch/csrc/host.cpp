@@ -7,8 +7,13 @@
 //   * tpukk_iluk_depth     entry-dependency DAG depth     (sparse/spiluk.py)
 //   * tpukk_rcm            reverse Cuthill-McKee order    (graph/ordering.py,
 //                          the RCM route of sparse/spmv.py)
+//   * tpukk_d1_greedy_color  distance-1 greedy coloring   (graph/coloring.py,
+//                          the SERIAL algorithm)
+//   * tpukk_d2_greedy_color  distance-2 greedy coloring   (graph/coloring.py,
+//                          graph_color_d2), G² never materialized
 // The Python plain versions beside their callers (_iluk_pattern, the
-// dense-row IKJ numeric, scipy's RCM) are what the tests hold these against.
+// dense-row IKJ numeric, scipy's RCM, the greedy loop serial_greedy_plain)
+// are what the tests hold these against.
 //
 // Build (tpukk_torch/_kernels.py does this at first use):
 //   g++ -O3 -shared -fPIC -std=c++17 -o build/tpukk_torch/libhost.so host.cpp
@@ -252,6 +257,66 @@ void tpukk_rcm(int64_t n, const int32_t* rm, const int32_t* ent,
     }
   }
   for (int64_t i = 0; i < n; ++i) perm[i] = order[n - 1 - i];
+}
+
+// ---------------------------------------------------------------------------
+// Distance-1 greedy coloring. colors are 1-based; returns max color used.
+int32_t tpukk_d1_greedy_color(int64_t n, const int32_t* row_map,
+                              const int32_t* entries, int32_t* colors) {
+  std::vector<int32_t> mark(n + 2, -1);
+  int32_t max_color = 0;
+  for (int64_t v = 0; v < n; ++v) {
+    for (int32_t e = row_map[v]; e < row_map[v + 1]; ++e) {
+      int32_t u = entries[e];
+      if (u == v) continue;
+      int32_t cu = colors[u];
+      if (cu > 0) mark[cu] = (int32_t)v;
+    }
+    int32_t c = 1;
+    while (mark[c] == (int32_t)v) ++c;
+    colors[v] = c;
+    if (c > max_color) max_color = c;
+  }
+  return max_color;
+}
+
+// ---------------------------------------------------------------------------
+// Distance-2 greedy coloring WITHOUT materializing G² (role of
+// graph/impl/KokkosGraph_Distance2Color_impl.hpp's forbidden-array sweep,
+// O(n) memory instead of O(sum deg²) storage).  Two modes:
+//   include_d1 = 1 (square symmetric graph): forbidden(v) = colors of
+//     N(v) ∪ N(N(v)) — pass rm_t/ent_t == rm/ent.
+//   include_d1 = 0 (bipartite/rectangular, rows colored): forbidden(v) =
+//     colors of every row sharing a column with v; rm_t/ent_t is the
+//     column→row transpose (m columns).
+// colors 1-based (the caller passes them zeroed); returns max color used.
+int32_t tpukk_d2_greedy_color(int64_t n, const int32_t* rm, const int32_t* ent,
+                              int64_t m, const int32_t* rm_t,
+                              const int32_t* ent_t, int32_t include_d1,
+                              int32_t* colors) {
+  (void)m;
+  std::vector<int64_t> mark(n + 2, -1);  // mark[c] == v → color c forbidden
+  int32_t max_color = 0;
+  for (int64_t v = 0; v < n; ++v) {
+    for (int32_t e = rm[v]; e < rm[v + 1]; ++e) {
+      int32_t w = ent[e];
+      if (include_d1 && w != (int32_t)v) {
+        int32_t cw = colors[w];
+        if (cw > 0 && cw <= (int32_t)n + 1) mark[cw] = v;
+      }
+      for (int32_t f = rm_t[w]; f < rm_t[w + 1]; ++f) {
+        int32_t u = ent_t[f];
+        if (u == (int32_t)v) continue;
+        int32_t cu = colors[u];
+        if (cu > 0 && cu <= (int32_t)n + 1) mark[cu] = v;
+      }
+    }
+    int32_t c = 1;
+    while (mark[c] == v) ++c;
+    colors[v] = c;
+    if (c > max_color) max_color = c;
+  }
+  return max_color;
 }
 
 }  // extern "C"

@@ -2,8 +2,8 @@
 
 ``tpukk`` keeps host numpy mirrors of its matrices (``A.host_row_map()``,
 ``A.host_entries()``, ``A.host_values_full()``) and of its DIA plans
-(``DiaPlan.diags_host``), of its ILU factors and of its triangular-solve
-levels.  These functions turn such arrays into this package's objects, so one
+(``DiaPlan.diags_host``), of its ILU factors, of its triangular-solve
+levels and of its Gauss-Seidel colorings and clusterings.  These functions turn such arrays into this package's objects, so one
 matrix, one factorization or one level schedule can be given to both
 packages; this module imports neither JAX nor ``tpukk``.
 """
@@ -12,11 +12,12 @@ from __future__ import annotations
 import numpy as np
 
 from .containers import CsrMatrix
+from .sparse.gauss_seidel import GsHandle, set_color_order
 from .sparse.spmv_impl import DiaPlan
 from .sparse.sptrsv_cuda import LevelPlan, build_level_plan
 
 __all__ = ["csr_from_numpy", "dia_plan_from_numpy", "csr_pair_from_numpy",
-           "level_plan_from_numpy"]
+           "level_plan_from_numpy", "gs_symbolic_from_numpy"]
 
 
 def csr_from_numpy(row_map, entries, values, *, nrows: int, ncols: int,
@@ -49,3 +50,20 @@ def level_plan_from_numpy(row_map, entries, values, levels, lower: bool,
     rm = np.asarray(row_map)
     return build_level_plan(rm, np.asarray(entries), np.asarray(values), len(rm) - 1,
                             np.asarray(levels), lower, device)
+
+
+def gs_symbolic_from_numpy(handle: GsHandle, A: CsrMatrix, colors=None,
+                           cluster_labels=None) -> None:
+    """The symbolic phase of a POINT or CLUSTER handle from a coloring (and
+    clustering) computed elsewhere — ``tpukk``'s ``GsHandle.colors`` and
+    ``cluster_labels``, as numpy arrays — so both packages sweep in one
+    order even where a coloring is not unique.  Given labels but no colors,
+    the port colors the cluster graph itself."""
+    from .common import check
+    from .sparse.gauss_seidel import _cluster_colors
+
+    check(colors is not None or cluster_labels is not None,
+          "gs_symbolic_from_numpy: give colors, cluster labels or both")
+    if colors is None:
+        colors = _cluster_colors(handle, A, np.asarray(cluster_labels))
+    set_color_order(handle, A, np.asarray(colors), cluster_labels)

@@ -1,5 +1,5 @@
 """Host planners in C++ — counterpart of ``tpukk/native`` (the subset the
-ILU(k)-GMRES slice uses).
+ILU(k)-GMRES and Gauss-Seidel slices use).
 
 The library is ``csrc/host.cpp``, built with g++ at first use into
 ``build/tpukk_torch/`` (``_kernels.py``), never beside the source.  Unlike
@@ -7,7 +7,8 @@ The library is ``csrc/host.cpp``, built with g++ at first use into
 build raises, so the solve path never drops silently to the Python planners.
 Those stay beside their callers as the plain versions the tests hold these
 against (``sparse/spiluk.py``: ``_iluk_pattern``, ``_ilu_numeric_plain``;
-``graph/ordering.py``: ``rcm_plain``).
+``graph/ordering.py``: ``rcm_plain``; ``graph/coloring.py``:
+``serial_greedy_plain``).
 """
 from __future__ import annotations
 
@@ -16,7 +17,8 @@ import numpy as np
 from . import _kernels
 from .common import TpuKKError
 
-__all__ = ["iluk_symbolic", "ilu_numeric", "iluk_depth", "rcm"]
+__all__ = ["iluk_symbolic", "ilu_numeric", "iluk_depth", "rcm", "d1_greedy_color",
+           "d2_greedy_color"]
 
 
 def _lib():
@@ -67,3 +69,28 @@ def rcm(row_map, entries, n: int) -> np.ndarray:
     perm = np.empty(n, np.int32)
     _lib().tpukk_rcm(n, rm.ctypes.data, ent.ctypes.data, perm.ctypes.data)
     return perm
+
+
+def d1_greedy_color(row_map, entries, n: int) -> np.ndarray:
+    """1-based distance-1 greedy colors in vertex order (self loops ignored)."""
+    rm, ent = _i32(row_map), _i32(entries)
+    colors = np.zeros(n, np.int32)
+    _lib().tpukk_d1_greedy_color(n, rm.ctypes.data, ent.ctypes.data, colors.ctypes.data)
+    return colors
+
+
+def d2_greedy_color(row_map, entries, n: int, row_map_t=None, entries_t=None, m=None,
+                    include_d1: bool = True) -> np.ndarray:
+    """1-based distance-2 greedy colors without forming G².  With no
+    transpose given the graph is square and symmetric; otherwise rows that
+    share a column conflict, through the column→row transpose (m columns)."""
+    rm, ent = _i32(row_map), _i32(entries)
+    if row_map_t is None:
+        rm_t, ent_t, m = rm, ent, n
+    else:
+        rm_t, ent_t = _i32(row_map_t), _i32(entries_t)
+    colors = np.zeros(n, np.int32)
+    _lib().tpukk_d2_greedy_color(n, rm.ctypes.data, ent.ctypes.data, m, rm_t.ctypes.data,
+                                 ent_t.ctypes.data, 1 if include_d1 else 0,
+                                 colors.ctypes.data)
+    return colors

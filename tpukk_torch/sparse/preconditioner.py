@@ -4,8 +4,9 @@ KokkosSparse_LUPrec.hpp).
 
 A preconditioner is apply(x) ≈ M⁻¹x.  ``LUPrec`` applies two level-scheduled
 triangular solves (K5, K4, K5 each), or with ``jacobi_sweeps`` a fixed number
-of Jacobi-Richardson sweeps on the SpMV kernels.  ``GsPrec`` needs the
-Gauss-Seidel module and is not ported yet (ROADMAP queue A, item A9).
+of Jacobi-Richardson sweeps on the SpMV kernels.  ``GsPrec`` applies
+symmetric Gauss-Seidel sweeps from a zero guess (K5, one K6 launch per color
+and direction, K5 for POINT and CLUSTER).
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import numpy as np
 import torch
 
 from ..containers import CsrMatrix
+from .gauss_seidel import GsHandle, gauss_seidel_apply
 from .spmv import SpmvHandle
 from .sptrsv import SptrsvHandle, sptrsv_solve, sptrsv_symbolic
 
@@ -109,9 +111,15 @@ class LUPrec(Preconditioner):
 
 
 class GsPrec(Preconditioner):
-    """Gauss-Seidel sweeps as a preconditioner: not ported yet."""
+    """Gauss-Seidel sweeps as a preconditioner (the pcg use of
+    perf_test/sparse/KokkosSparse_pcg.cpp): ``sweeps`` symmetric sweeps from
+    x = 0 with a handle that has been through the numeric phase.  Symmetric
+    sweeps on a symmetric matrix make a symmetric operator, so CG stays
+    valid."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "GsPrec needs the Gauss-Seidel module, which is not ported yet "
-            "(ROADMAP queue A, item A9)")
+    def __init__(self, handle: GsHandle, A: CsrMatrix, sweeps: int = 1):
+        self._h, self._A, self._sweeps = handle, A, sweeps
+
+    def apply(self, x):
+        return gauss_seidel_apply(self._h, self._A, None, x, num_sweeps=self._sweeps,
+                                  direction="symmetric")

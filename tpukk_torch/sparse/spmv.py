@@ -17,8 +17,9 @@ Routes (``SpmvHandle.algorithm``), the same on every device:
 route              on CUDA                               on the CPU
 =================  ====================================  =====================
 DIA, PALLAS        K1 ``dia_spmv`` / K2 ``dia_spmm``     their plain version
-ONEHOT             K3 ``csr_spmv`` (2-D x: ELL until     its plain version
-                   B4 is ported)
+ONEHOT             K3 ``csr_spmv``; a 2-D x with         their plain versions
+                   1 < k ≤ 16: K7 ``csr_spmm``; wider:
+                   ELL, as in ``tpukk``
 RCM                K5 ``permute_gather``, the AUTO       their plain versions
                    route of P·A·Pᵀ, K5 back
 ELL/SEGSUM/DENSE   torch ops                             torch ops
@@ -157,7 +158,9 @@ class SpmvHandle:
         if alg == SpmvAlgorithm.ONEHOT:
             if x.ndim == 1:
                 return spmv_cuda.csr_spmv(self._plan("csr", dt), x)
-            # multi-RHS CSR kernel is B4 (ROADMAP queue B); ELL amortises gathers
+            if 1 < x.shape[1] <= spmv_cuda.SPMM_MAX_K:
+                return spmv_cuda.csr_spmm(self._plan("csr", dt), x)
+            # wider than K7's panel (or k = 1): ELL, as tpukk does (spmv.py:249-251)
             return spmv_impl.apply_ell(self._plan("ell", dt), x)
         if alg == SpmvAlgorithm.ELL:
             return spmv_impl.apply_ell(self._plan("ell", dt), x)

@@ -1,8 +1,8 @@
 """CUDA kernel wrappers for SpMV — counterpart of ``tpukk/sparse/spmv_pallas.py``.
 
-Three hand-written kernels (``tpukk_torch/csrc``) close the 11 Pallas kernels
-of the SpMV main path; the others of ``spmv_pallas.py`` wait in ROADMAP
-queue B:
+Four hand-written kernels (``tpukk_torch/csrc``) close the 16 Pallas kernels
+of the SpMV and SpMM paths; the Gauss-Seidel color step of ``spmv_pallas.py``
+is K6 (``gs_cuda.py``):
 
 * ``dia_spmv`` (K1, ``csrc/dia.cu``): banded SpMV in f32 and f64 — replaces
   ``_dia_call`` and the double-single ``_dia_ds_call``.
@@ -11,10 +11,15 @@ queue B:
 * ``csr_spmv`` (K3, ``csrc/csr.cu``): unstructured vector-CSR SpMV, sum or
   max, f32 and f64 — replaces the seven one-hot/gather-table layouts behind
   ``onehot_spmv`` and the double-single ``_gi4_ds_call_batched``.
+* ``csr_spmm`` (K7, ``csrc/csr.cu``): unstructured CSR SpMM for row-major X
+  of shape (ncols, k), 1 ≤ k ≤ 16, one pass over A for all k columns, f32 and
+  f64 — replaces the five multi-RHS layouts behind ``onehot_spmm``
+  (``_dl_mm_call``, ``_dl_mm_call_batched``, ``_onehot_spmm_call``,
+  ``_gt_mm_call_batched``, ``_pk_mm_call_batched``).
 
 Each wrapper checks device, dtype, shape and contiguity and raises on
 anything else.  On a CPU tensor it runs the kernel's plain version, which
-lives beside it (``dia_plain``, ``csr_plain``).  On a CUDA tensor it launches
+lives beside it (``dia_plain``, ``csr_plain``, ``csr_spmm_plain``).  On a CUDA tensor it launches
 the kernel on the current stream or raises: there is no fallback.  It adds one
 to its ``launches`` count each time it launches its kernel, and nowhere else.
 """
@@ -36,8 +41,11 @@ __all__ = [
     "dia_spmv",
     "dia_spmm",
     "csr_spmv",
+    "csr_spmm",
     "dia_plain",
     "csr_plain",
+    "csr_spmm_plain",
+    "SPMM_MAX_K",
     "KERNELS",
     "launch_counts",
     "reset_launch_counts",
@@ -178,10 +186,49 @@ def csr_spmv(plan: CsrPlan, x: torch.Tensor, reduce: str = "sum") -> torch.Tenso
 
 
 # ----------------------------------------------------------------------
+# K7: CSR SpMM
+# ----------------------------------------------------------------------
+
+SPMM_MAX_K = 16  # columns of K7's register panel
+
+
+def csr_spmm_plain(plan: CsrPlan, X: torch.Tensor) -> torch.Tensor:
+    """Plain version of K7: ``index_add_`` of the per-entry row products."""
+    prod = plan.values[:, None] * X[plan.entries.long()]
+    Y = torch.zeros((plan.nrows, X.shape[1]), dtype=prod.dtype, device=X.device)
+    return Y.index_add_(0, plan.rows(), prod)
+
+
+def csr_spmm(plan: CsrPlan, X: torch.Tensor) -> torch.Tensor:
+    """K7: Y = A·X for row-major X of shape (ncols, k), 1 ≤ k ≤ 16."""
+    check(X.ndim == 2, f"csr_spmm: X must be rank-2, got rank {X.ndim}")
+    check(X.shape[0] == plan.ncols, f"csr_spmm: X has {X.shape[0]} rows, plan {plan.ncols} cols")
+    check(1 <= X.shape[1] <= SPMM_MAX_K,
+          f"csr_spmm: X must have 1 to {SPMM_MAX_K} columns, got {X.shape[1]}")
+    _check_operand(X, "csr_spmm", plan.values.dtype, plan.values.device)
+    check(plan.row_map.device == X.device and plan.entries.device == X.device,
+          "csr_spmm: plan arrays must be on X's device")
+    if not _on_cuda(X, "csr_spmm"):
+        return csr_spmm_plain(plan, X)
+    check(plan.row_map.dtype == torch.int32 and plan.entries.dtype == torch.int32
+          and plan.row_map.is_contiguous() and plan.entries.is_contiguous(),
+          "csr_spmm: row_map/entries must be contiguous int32")
+    Y = torch.empty((plan.nrows, X.shape[1]), dtype=X.dtype, device=X.device)
+    if plan.nrows == 0:
+        return Y
+    err = _kernels.library("csr").tpukk_csr_spmm(
+        _DTYPE_CODE[X.dtype], plan.group, plan.row_map.data_ptr(), plan.entries.data_ptr(),
+        plan.values.data_ptr(), X.data_ptr(), Y.data_ptr(), plan.nrows, X.shape[1], _stream(X))
+    _check_launch(err, "csr_spmm")
+    csr_spmm.launches += 1
+    return Y
+
+
+# ----------------------------------------------------------------------
 # launch counts
 # ----------------------------------------------------------------------
 
-KERNELS = (dia_spmv, dia_spmm, csr_spmv)
+KERNELS = (dia_spmv, dia_spmm, csr_spmv, csr_spmm)
 for _k in KERNELS:
     _k.launches = 0
 

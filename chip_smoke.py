@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Drive tpukk_torch's main paths once on one CUDA GPU: SpMV + PCG,
-ILU(0)-preconditioned GMRES with the RCM route, and the Gauss-Seidel path
-(coloring, MIS2, sweeps, GsPrec-PCG).
+ILU(0)-preconditioned GMRES with the RCM route, the Gauss-Seidel path
+(coloring, MIS2, sweeps, GsPrec-PCG) and the SpGEMM path (SpgemmHandle
+symbolic/numeric with reuse, banded DIA SpGEMM, a smoothed-aggregation set-up
+through spgemm_jacobi, SpADD, triangle counting).
 
     python3 chip_smoke.py
 
@@ -13,7 +15,10 @@ random 100k-row CSR, PCG on the Laplacian and on the FEM matrix; SpILUK →
 LUPrec → GMRES on the FEM matrix to convergence and two restart cycles on the
 Laplacian; GMRES with reorder="rcm" / "none" / "auto"; SERIAL and VB coloring,
 MIS2, POINT / CLUSTER / TWOSTAGE sweeps, GsPrec-PCG on both matrices, SpMM
-on the ONEHOT route), checks every result on the host with scipy, times each kernel, its plain version and the torch
+on the ONEHOT route; A·A through SpgemmHandle(KK) on the Laplacian, the random
+matrix and the FEM matrix, DIA SpGEMM on a 1M-row band, P = (I - ωD⁻¹A)·P_tent
+and Pᵀ·A·P on the FEM matrix, SpADD, triangles of the FEM graph), checks every
+result on the host with scipy, times each kernel, its plain version and the torch
 call that computes the same function, profiles one PCG and one GMRES
 iteration, and prints one JSON line per phase.  The last two lines are the
 card's name and power limit as nvidia-smi reports them, and the result line.  Any failed check exits
@@ -41,14 +46,16 @@ L2_BYTES = 50e6
 SOURCES = {"dia_spmv": "tpukk_torch/csrc/dia.cu", "dia_spmm": "tpukk_torch/csrc/dia.cu",
            "csr_spmv": "tpukk_torch/csrc/csr.cu", "sptrsv_levels": "tpukk_torch/csrc/sptrsv.cu",
            "permute_gather": "tpukk_torch/csrc/permute.cu",
-           "gs_color_step": "tpukk_torch/csrc/gs.cu", "csr_spmm": "tpukk_torch/csrc/csr.cu"}
+           "gs_color_step": "tpukk_torch/csrc/gs.cu", "csr_spmm": "tpukk_torch/csrc/csr.cu",
+           "spgemm_pairs": "tpukk_torch/csrc/spgemm.cu"}
 REPLACES = {"dia_spmv": "tpukk/sparse/spmv_pallas.py:41",
             "dia_spmm": "tpukk/sparse/spmv_pallas.py:180",
             "csr_spmv": "tpukk/sparse/spmv_pallas.py:2053",
             "sptrsv_levels": "tpukk/sparse/sptrsv_pallas.py:515",
             "permute_gather": "tpukk/common/permute.py:91",
             "gs_color_step": "tpukk/sparse/spmv_pallas.py:2125",
-            "csr_spmm": "tpukk/sparse/spmv_pallas.py:1074"}
+            "csr_spmm": "tpukk/sparse/spmv_pallas.py:1074",
+            "spgemm_pairs": "tpukk/sparse/spgemm_pallas.py:1063"}
 
 
 def emit(phase: str, **fields) -> None:
@@ -99,17 +106,22 @@ def main() -> int:
 
     from tpukk_torch import _kernels
     from tpukk_torch.common import chain_time_slope
-    from tpukk_torch.containers import (CsrMatrix, generate_random_csr,
-                                        generate_structured_laplacian, read_mtx)
-    from tpukk_torch.graph import (ColoringAlgorithm, graph_color, graph_mis2,
-                                   graph_mis2_aggregate, verify_coloring)
+    from tpukk_torch.containers import (CsrMatrix, generate_banded_csr, generate_random_csr,
+                                        generate_structured_laplacian, read_mtx, transpose)
+    from tpukk_torch.graph import (ColoringAlgorithm, build_triangle_plan, graph_color,
+                                   graph_mis2, graph_mis2_aggregate, triangle_count,
+                                   triangle_count_device, verify_coloring)
     from tpukk_torch.sparse import (ClusteringAlgorithm, GmresHandle, GsAlgorithm, GsHandle,
                                     GsPrec, JacobiPrec, LUPrec, Ortho, SpilukHandle,
                                     SpmvAlgorithm, SpmvHandle, SptrsvHandle, forward_sweep,
                                     gauss_seidel_apply, gauss_seidel_numeric,
                                     gauss_seidel_symbolic, gmres, pcg, spiluk_numeric,
-                                    spiluk_symbolic, spmm, sptrsv_solve, sptrsv_symbolic)
+                                    spiluk_symbolic, spmm, sptrsv_solve, sptrsv_symbolic,
+                                    SpaddHandle, SpgemmAlgorithm, SpgemmHandle, spadd_numeric,
+                                    spadd_symbolic, spgemm_jacobi, spgemm_numeric,
+                                    spgemm_symbolic)
     from tpukk_torch.sparse import gs_cuda as kg
+    from tpukk_torch.sparse import spgemm_cuda as ksg
     from tpukk_torch.sparse import spmv_cuda as kc
     from tpukk_torch.sparse import sptrsv_cuda as ks
     from tpukk_torch.sparse.gmres import _arnoldi_cycle, _rcm_reorder
@@ -132,12 +144,12 @@ def main() -> int:
         return torch.from_numpy(rng2.standard_normal(n)).to(dev, dtype)
 
     def launch_counts() -> dict:
-        return {**kc.launch_counts(), **ks.launch_counts(), **kg.launch_counts()}
+        return {**kc.launch_counts(), **ks.launch_counts(), **kg.launch_counts(),
+                **ksg.launch_counts()}
 
     def reset_launch_counts() -> None:
-        kc.reset_launch_counts()
-        ks.reset_launch_counts()
-        kg.reset_launch_counts()
+        for mod in (kc, ks, kg, ksg):
+            mod.reset_launch_counts()
 
     # ---- 1. device and build ------------------------------------------------
     build_s = _kernels.build_all()
@@ -156,7 +168,7 @@ def main() -> int:
          rand100k=[rnd.nrows, rnd.nnz])
 
     # ---- 2. each kernel against its plain version, on the card ----------------
-    errs = {k.__name__: 0.0 for k in (*kc.KERNELS, *ks.KERNELS, *kg.KERNELS)}
+    errs = {k.__name__: 0.0 for k in (*kc.KERNELS, *ks.KERNELS, *kg.KERNELS, *ksg.KERNELS)}
 
     def hold(kernel: str, label: str, got, plain, bound, dtype) -> None:
         """|got - plain| <= 20·eps·(|A|·|x|) elementwise."""
@@ -572,6 +584,186 @@ def main() -> int:
          max_rel_diff_vs_single_column=col_diff, tol="1e-12 relative (max norm)",
          launches=counts)
 
+    # ---- 3f. the SpGEMM path: K8, SpgemmHandle with reuse, DIA, SA-AMG set-up,
+    # SpADD, triangles; every product held to scipy in f64 on the host -------------
+    def abs_product(sa, sb):
+        """|A|·|B| in f64: C's exact structural pattern (scipy drops entries that
+        cancel to 0 in A·B, never in |A|·|B|) and each entry's Σ|a·b|."""
+        m = (abs(sa) @ abs(sb)).tocsr()
+        m.sort_indices()
+        return m
+
+    def hold_scipy(label, C, ref, bound, k, dtype):
+        """C's pattern equals bound's exactly; |C - ref| <= k·eps·bound per entry
+        (k an array over C's entries, or a scalar)."""
+        rm, ent = C.host_row_map(), C.host_entries()
+        pattern = bool(np.array_equal(rm, bound.indptr) and np.array_equal(ent, bound.indices))
+        require(pattern, f"{label}: pattern differs from scipy's structural product")
+        Cs = sps.csr_matrix((C.values.double().cpu().numpy(), ent, rm), shape=C.shape)
+        diff = abs(Cs - ref).tocsr()
+        inv_tol = bound.copy()
+        inv_tol.data = 1.0 / np.maximum(k * torch.finfo(dtype).eps * bound.data, 1e-300)
+        ratio = diff.multiply(inv_tol).tocsr()
+        worst = float(ratio.data.max(initial=0.0))
+        require(ratio.nnz == diff.nnz and worst <= 1.0,
+                f"{label}: values differ from scipy beyond the tolerance ({worst})")
+        return dict(pattern_equal=pattern, max_abs_err_vs_scipy=float(diff.data.max(initial=0.0)),
+                    max_err_over_tol=worst)
+
+    def n_pairs(plan):
+        return torch.diff(plan.c_ptr).cpu().numpy()
+
+    def hold_k8(label, plan, a, b):
+        """|C - C_plain| <= (n_c + 1)·eps·Σ_p|a_p·b_p| per C entry."""
+        got, plain = ksg.spgemm_pairs(plan, a, b), ksg.spgemm_pairs_plain(plan, a, b)
+        torch.cuda.synchronize()
+        bound = ksg.spgemm_pairs_plain(plan, a.abs(), b.abs())
+        tol = (torch.diff(plan.c_ptr).to(a.dtype) + 1) * torch.finfo(a.dtype).eps * bound
+        err = (got - plain).abs()
+        ok = bool((err <= tol).all())
+        errs["spgemm_pairs"] = max(errs["spgemm_pairs"], float(err.max()))
+        emit("check", kernel="spgemm_pairs", case=label, dtype=str(a.dtype), lanes=plan.group,
+             max_abs_err=float(err.max()), max_err_over_tol=float(
+                 (err / tol.clamp_min(torch.finfo(a.dtype).tiny)).max()),
+             tol="(n_c+1)*eps*sum_p|a_p*b_p|", ok=ok)
+        require(ok, f"spgemm_pairs {label} disagrees with its plain version")
+
+    spgemm_cases = {}
+    oracles = {}
+    t0 = time.perf_counter()
+    for label, A, okey in (("lap1000 f32", lap, "lap1000"), ("lap1000 f64", lap64, "lap1000"),
+                           ("rand100k_deg16 f32", rnd, "rand100k"),
+                           ("fem2d_30k f64", fem, "fem2d_30k")):
+        t = time.perf_counter()
+        hh = SpgemmHandle(SpgemmAlgorithm.KK)
+        spgemm_symbolic(hh, A, A)
+        sym_s = time.perf_counter() - t
+        plan = hh.pair_plan
+        require(plan is not None and hh.dia_plan is None, f"spgemm {label}: not on the pair plan")
+        C, counts, wall = counted(f"spgemm_numeric {label}", lambda: spgemm_numeric(hh, A, A),
+                                  ("spgemm_pairs",))
+        if okey not in oracles:
+            sa = A.to_scipy().astype(np.float64)
+            ab = (sa @ sa).tocsr()
+            ab.sort_indices()
+            oracles[okey] = (ab, abs_product(sa, sa))
+        ref, bound = oracles[okey]
+        vs = hold_scipy(f"spgemm {label}", C, ref, bound, n_pairs(plan) + 1, A.dtype)
+        hold_k8(label, plan, A.values, A.values)
+        A2 = A.with_values(2 * A.values)
+        C2, counts2, wall2 = counted(f"spgemm_numeric reuse {label}",
+                                     lambda: spgemm_numeric(hh, A2, A2), ("spgemm_pairs",))
+        exact = bool(torch.equal(C2.values, 4 * C.values))
+        require(exact, f"spgemm {label}: numeric reuse with 2A is not exactly 4C")
+        spgemm_cases[label] = (hh, A, C)
+        emit("main_spgemm", case=label, symbolic_s=sym_s, nnz_c=plan.nnz_c, pairs=plan.npairs,
+             max_pairs_per_entry=int(n_pairs(plan).max()), lanes=plan.group, numeric_ms=wall * 1e3,
+             numeric_reuse_ms=wall2 * 1e3, reuse_2A_gives_exactly_4C=exact,
+             tol="(n_c+1)*eps*(|A||A|)_c", launches=counts, launches_reuse=counts2, **vs)
+    emit("main_spgemm_total", seconds=time.perf_counter() - t0)
+
+    band = generate_banded_csr(1_000_000, 3, dtype=np.float64, seed=5, device=dev)
+    t = time.perf_counter()
+    hd = SpgemmHandle(SpgemmAlgorithm.KK)
+    spgemm_symbolic(hd, band, band)
+    sym_s = time.perf_counter() - t
+    require(hd.dia_plan is not None, "banded A·A did not route to DIA")
+    Cd, counts, wall = counted("spgemm dia", lambda: spgemm_numeric(hd, band, band), ())
+    band2 = band.with_values(2 * band.values)
+    Cd2, _, wall2 = counted("spgemm dia reuse", lambda: spgemm_numeric(hd, band2, band2), ())
+    require(torch.equal(Cd2.values, 4 * Cd.values), "spgemm dia: reuse with 2A is not 4C")
+    sb = band.to_scipy()
+    ref = (sb @ sb).tocsr()
+    ref.sort_indices()
+    vs = hold_scipy("spgemm dia", Cd, ref, abs_product(sb, sb), 8, torch.float64)
+    emit("main_spgemm_dia", matrix="generate_banded_csr(1_000_000, 3) f64, A·A",
+         route="DIA (AUTO from KK)", symbolic_s=sym_s, numeric_ms=wall * 1e3,
+         numeric_reuse_ms=wall2 * 1e3, reuse_2A_gives_exactly_4C=True, nnz_c=Cd.nnz,
+         tol="8*eps*(|A||A|)_c", launches=counts, **vs)
+
+    # smoothed aggregation: P = (I - ω D⁻¹ A)·P_tent, then A_c = Pᵀ·(A·P)
+    t = time.perf_counter()
+    agg = graph_mis2_aggregate(fem)
+    n_agg = int(agg.max()) + 1
+    size = np.bincount(agg, minlength=n_agg)
+    pt_sp = sps.csr_matrix((1.0 / np.sqrt(size[agg]), agg, np.arange(fem.nrows + 1)),
+                           shape=(fem.nrows, n_agg))
+    P_tent = CsrMatrix.from_scipy(pt_sp, device=dev)
+    sa = fem.to_scipy()
+    dinv = 1.0 / sa.diagonal()
+    omega = 2.0 / 3.0
+
+    def sa_setup():
+        hj = SpgemmHandle()
+        spgemm_symbolic(hj, fem, P_tent)
+        P = spgemm_jacobi(hj, fem, P_tent, omega, dinv)
+        hap = SpgemmHandle()
+        spgemm_symbolic(hap, fem, P)
+        AP = spgemm_numeric(hap, fem, P)
+        Pt = transpose(P)
+        hc = SpgemmHandle()
+        spgemm_symbolic(hc, Pt, AP)
+        return P, AP, Pt, spgemm_numeric(hc, Pt, AP), hap, hc
+
+    (P, AP, Pt, Ac, hap, hc), counts, wall = counted("sa-amg setup", sa_setup, ("spgemm_pairs",))
+    dsa = sps.diags(dinv)
+    p_ref = (pt_sp - omega * (dsa @ (sa @ pt_sp))).tocsr()
+    p_bound = (abs(pt_sp) + omega * (abs(dsa) @ abs_product(sa, pt_sp))).tocsr()
+    p_bound.sort_indices()
+    max_pairs = int(np.diff(sa.indptr).max())
+    checks = {"P": hold_scipy("sa P", P, p_ref, p_bound, max_pairs + 3, torch.float64)}
+    sp_p = P.to_scipy()
+    checks["A·P"] = hold_scipy("sa A·P", AP, sa @ sp_p, abs_product(sa, sp_p),
+                               n_pairs(hap.pair_plan) + 1, torch.float64)
+    sp_pt, sp_ap = Pt.to_scipy(), AP.to_scipy()
+    checks["Pt·(A·P)"] = hold_scipy("sa Pt·(A·P)", Ac, sp_pt @ sp_ap, abs_product(sp_pt, sp_ap),
+                                    n_pairs(hc.pair_plan) + 1, torch.float64)
+    emit("main_sa_amg_setup", matrix="fem2d_30k f64", aggregates=n_agg, omega=omega,
+         P_shape=list(P.shape), P_nnz=P.nnz, Ac_shape=list(Ac.shape), Ac_nnz=Ac.nnz,
+         seconds=wall, seconds_with_aggregation=time.perf_counter() - t, launches=counts,
+         checks=checks)
+
+    rb = generate_random_csr(fem.nrows, fem.ncols, 7, seed=5, dtype=np.float64, device=dev)
+    t = time.perf_counter()
+    hadd = SpaddHandle()
+    spadd_symbolic(hadd, fem, rb)
+    add_sym_s = time.perf_counter() - t
+    Cadd, counts, wall = counted("spadd", lambda: spadd_numeric(hadd, 2.0, fem, -0.5, rb), ())
+    _, _, wall2 = counted("spadd reuse", lambda: spadd_numeric(hadd, 2.0, fem, -0.5, rb), ())
+    sr = rb.to_scipy()
+    add_bound = (2.0 * abs(sa) + 0.5 * abs(sr)).tocsr()
+    add_bound.sort_indices()
+    vs = hold_scipy("spadd", Cadd, (2.0 * sa - 0.5 * sr).tocsr(), add_bound, 1, torch.float64)
+    emit("main_spadd", case="2*fem2d_30k - 0.5*random(30000, 7/row) f64", symbolic_s=add_sym_s,
+         numeric_ms=wall * 1e3, numeric_reuse_ms=wall2 * 1e3, nnz_c=Cadd.nnz, tol="eps*(2|A| + 0.5|B|)_c", launches=counts, **vs)
+
+    t = time.perf_counter()
+    n_host = triangle_count(fem)
+    host_s = time.perf_counter() - t
+    t = time.perf_counter()
+    tplan = build_triangle_plan(fem)
+    plan_s = time.perf_counter() - t
+    n_dev, counts, wall = counted("triangles on the card", lambda: triangle_count_device(tplan), ())
+    unit = sa.copy()
+    unit.data[:] = 1.0
+    Lu = sps.tril(unit, k=-1).tocsr()
+    n_scipy = int(round(float((Lu @ Lu).multiply(Lu).sum())))
+    counts_agree = n_host == tplan.num_triangles == n_scipy == int(round(float(n_dev)))
+    require(counts_agree, f"triangles: host {n_host}, plan {tplan.num_triangles}, "
+            f"card {float(n_dev)}, scipy {n_scipy}")
+    Lw = Lu.copy()
+    Lw.sort_indices()
+    Lw.data = np.random.default_rng(13).uniform(0.5, 2.0, Lw.nnz)
+    per_row, _, wall_w = counted("weighted triangles", lambda: triangle_count_device(
+        tplan, torch.from_numpy(Lw.data).to(dev), per_row=True), ())
+    ref_w = np.asarray((Lw @ Lw).multiply(Lw).sum(axis=1)).ravel()
+    w_err = float(np.abs(per_row.cpu().numpy() - ref_w).max() / np.abs(ref_w).max())
+    require(w_err <= 1e-13, f"weighted triangles per row differ from scipy by {w_err}")
+    emit("main_triangle", graph="fem2d_30k", triangles=n_host, host_cpp_s=host_s,
+         plan_s=plan_s, device_count_ms=wall * 1e3, weighted_per_row_ms=wall_w * 1e3,
+         host_plan_scipy_card_agree=counts_agree, weighted_per_row_rel_err=w_err,
+         weighted_tol="1e-13 relative (max norm) vs ((W@W).*W)·1 in scipy")
+
     require(all(v > 0 for v in total.values()), f"a kernel of the path never ran: {total}")
     emit("main_path_launches", launches=total)
 
@@ -808,6 +1000,42 @@ def main() -> int:
     t_k7 = k7_row("rand100k_deg16 f32 (spmm, ONEHOT route)", rnd, torch.float32, 8)
     k7_row("fem2d_30k f64 (TWOSTAGE multivector)", fem, torch.float64, 4)
 
+    def k8_row(key, kk, plain_kk):
+        """Bound: the compulsory bytes of C = A·A (A's CSR read once, C's row map
+        and columns read once, C's values written once); plan_MB: what K8
+        itself moves (the pair plan, A's values, C's values)."""
+        hh, A, C = spgemm_cases[key]
+        plan, dt = hh.pair_plan, A.dtype
+        sz = torch.finfo(dt).bits // 8
+        nbytes = (A.nrows + 1) * 4 + A.nnz * (4 + sz) + (C.nrows + 1) * 4 + C.nnz * (4 + sz)
+        plan_bytes = (plan.nnz_c + 1) * 8 + plan.npairs * 8 + A.nnz * sz + plan.nnz_c * sz
+
+        def make(i):
+            p = plan if i == 0 else dataclasses.replace(
+                plan, c_ptr=plan.c_ptr.clone(), a_idx=plan.a_idx.clone(),
+                b_idx=plan.b_idx.clone(), _c_idx=None)
+            ai = A.values if i == 0 else A.values.clone()
+            return (lambda: ksg.spgemm_pairs(p, ai, ai)), (lambda: ksg.spgemm_pairs_plain(p, ai, ai))
+
+        S = sparse_csr(A, dt, False)
+        try:
+            lib_ms, lib_err = event_ms(lambda: S @ S, 3), None
+        except (RuntimeError, NotImplementedError) as e:  # the yardstick only
+            lib_ms, lib_err = None, str(e)[:200]
+        return timed_kernel(f"K8 spgemm_pairs {key} A·A", make, nbytes, 2 * plan.npairs, dt, kk,
+                            plain_kk, lib_ms,
+                            library="torch.sparse_csr_tensor(A) @ torch.sparse_csr_tensor(A) "
+                                    "(cuSPARSE SpGEMM, its symbolic phase included)",
+                            library_error=lib_err, compulsory_MB=nbytes / 1e6,
+                            plan_MB=plan_bytes / 1e6, plan_bound_ms=plan_bytes / bw * 1e3,
+                            nnz_c=plan.nnz_c, pairs=plan.npairs, lanes=plan.group)
+
+    t_k8 = k8_row("lap1000 f32", (10, 50), (2, 6))
+    k8_row("lap1000 f64", (10, 50), (2, 6))
+    k8_row("rand100k_deg16 f32", (10, 50), (2, 6))
+    k8_row("fem2d_30k f64", (50, 250), (5, 25))
+    del spgemm_cases
+
     # ---- 5. where a PCG and a GMRES iteration's time goes (torch.profiler) -----
     for label, A, iters, prec in (("lap1000 f64 Jacobi", lap64, 20, JacobiPrec(lap64)),
                                   ("fem2d_30k f64 Jacobi", fem, 50, JacobiPrec(fem)),
@@ -868,7 +1096,7 @@ def main() -> int:
     total_k = []
     for name, row in (("dia_spmv", t_k1), ("dia_spmm", t_k2), ("csr_spmv", t_k3),
                       ("sptrsv_levels", t_k4), ("permute_gather", t_k5),
-                      ("gs_color_step", t_k6), ("csr_spmm", t_k7)):
+                      ("gs_color_step", t_k6), ("csr_spmm", t_k7), ("spgemm_pairs", t_k8)):
         total_k.append(dict(name=name, route="cuda", source=SOURCES[name],
                             replaces=REPLACES[name], launches=total[name],
                             max_abs_err=errs[name], ms=row["ms"], plain_ms=row["plain_ms"],

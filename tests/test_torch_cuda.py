@@ -1,7 +1,8 @@
 """tpukk_torch's CUDA kernels on a CUDA device: each kernel against its plain
 version, and the SpMV/PCG, ILU(0)-GMRES and Gauss-Seidel paths (coloring,
-MIS2, sweeps, GsPrec-PCG) through the kernels.  Every test skips without a
-CUDA device: the kernels have no CPU mode.
+MIS2, sweeps, GsPrec-PCG) and SpGEMM (K8, DIA, spgemm_jacobi, SpADD,
+triangles) through the kernels.  Every test skips without a CUDA device: the
+kernels have no CPU mode.
 
 This file imports neither JAX nor tpukk, so it runs on a GPU host that has
 neither, without tests/conftest.py (which imports JAX)::
@@ -14,7 +15,8 @@ exactly; a triangular solve x must satisfy |T·x - b| <= 20·eps·(|T|·|x|)_i a
 |x - x_plain| <= M(T)⁻¹·(40·eps·|T||x|)_i (M(T) the comparison matrix); a
 Gauss-Seidel color step is held to gs_cuda.step_error_bound (20·eps of its
 absolute terms) on the block's rows and must leave the other rows exactly as
-they were; whole sweeps (a few color steps in a row) to 1e-12 relative in f64.
+they were; whole sweeps (a few color steps in a row) to 1e-12 relative in f64;
+a SpGEMM entry c to (n_c + 1)·eps·Σ_p|a_p·b_p| (n_c its pair count).
 """
 import dataclasses
 
@@ -377,3 +379,142 @@ def test_twostage_multivector_launches_k7(dev):
     for j in range(8):
         xj = gauss_seidel_apply(h, A, None, B[:, j].contiguous(), 2)
         assert (X[:, j] - xj).abs().max() <= 1e-12 * xj.abs().max()
+
+
+def _arrow(n, seed, dev):
+    """A random sparse matrix with one dense row and one dense column: C = A·A
+    has an entry (the dense row times the dense column) with n products."""
+    rng = np.random.default_rng(seed)
+    S = sps.random(n, n, density=4.0 / n, random_state=seed, format="lil")
+    S[0, :] = rng.standard_normal(n)
+    S[:, 0] = rng.standard_normal((n, 1))
+    return tkc.CsrMatrix.from_scipy(S.tocsr(), device=dev)
+
+
+def _pair_cases(dev):
+    d = np.zeros((80, 60))
+    d[::4, ::3] = 1.5  # rows with and without entries
+    d[1::4, 5] = -2.0
+    E = tkc.CsrMatrix.from_dense(d, device=dev)
+    dense = tkc.CsrMatrix.from_dense(np.random.default_rng(8).standard_normal((40, 40)), device=dev)
+    return [("rectangular", tkc.generate_random_csr(600, 400, 4, seed=9, device=dev),
+             tkc.generate_random_csr(400, 300, 3, seed=10, device=dev)),
+            ("empty rows", E, tkc.CsrMatrix.from_dense(d.T.copy(), device=dev)),
+            ("one dense row and column", _arrow(3000, 1, dev), None),
+            ("40 pairs per entry, 32 lanes", dense, dense)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_spgemm_pairs_kernel_matches_plain(dev, dtype):
+    """K8 against its plain version: |C - C_plain| <= (n_c + 1)·eps·Σ_p|a_p·b_p|
+    per C entry, n_c the entry's pair count (the plain version's index_add_
+    adds in another order)."""
+    from tpukk_torch.sparse import SpgemmHandle, spgemm_symbolic
+    from tpukk_torch.sparse import spgemm_cuda as ksg
+
+    for label, A, B in _pair_cases(dev):
+        B = A if B is None else B
+        h = SpgemmHandle()
+        spgemm_symbolic(h, A, B)
+        plan = h.pair_plan
+        a, b = A.values.to(dtype), B.values.to(dtype)
+        n0 = ksg.spgemm_pairs.launches
+        got = ksg.spgemm_pairs(plan, a, b)
+        assert ksg.spgemm_pairs.launches == n0 + 1, label
+        plain = ksg.spgemm_pairs_plain(plan, a, b)
+        torch.cuda.synchronize()
+        bound = ksg.spgemm_pairs_plain(plan, a.abs(), b.abs())
+        tol = (torch.diff(plan.c_ptr).to(dtype) + 1) * torch.finfo(dtype).eps * bound
+        assert bool(((got - plain).abs() <= tol).all()), label
+        if label.startswith("one dense"):
+            assert int(torch.diff(plan.c_ptr).max()) == 3000
+        if label.startswith("40 pairs"):
+            assert plan.group == 32
+
+
+def test_spgemm_numeric_reuse_is_exact(dev):
+    """Doubling every value of A multiplies every product by exactly 4, and K8
+    sums in plan order: numeric reuse with 2·A gives exactly 4·C."""
+    from tpukk_torch.sparse import SpgemmHandle, spgemm_numeric, spgemm_symbolic
+
+    for dtype in (np.float32, np.float64):
+        for A in (tkc.generate_random_csr(2000, 2000, 8, seed=2, dtype=dtype, device=dev),
+                  tkc.generate_structured_laplacian(50, 50, dtype=dtype, device=dev)):
+            h = SpgemmHandle()
+            spgemm_symbolic(h, A, A)
+            C = spgemm_numeric(h, A, A)
+            A2 = A.with_values(2 * A.values)
+            assert torch.equal(spgemm_numeric(h, A2, A2).values, 4 * C.values)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64], ids=["f32", "f64"])
+def test_spgemm_numeric_on_cuda_matches_scipy(dev, dtype):
+    """SpgemmHandle(KK) on the card: C's pattern equals scipy's |A|·|B|
+    exactly; values within (n_c + 1)·eps·(|A||B|) of A·B in f64."""
+    from tpukk_torch.sparse import SpgemmHandle, spgemm_numeric, spgemm_symbolic
+    from tpukk_torch.sparse import spgemm_cuda as ksg
+
+    for A, B in ((tkc.generate_structured_laplacian(60, 60, dtype=dtype, device=dev), None),
+                 (tkc.generate_random_csr(600, 400, 4, seed=9, dtype=dtype, device=dev),
+                  tkc.generate_random_csr(400, 300, 3, seed=10, dtype=dtype, device=dev))):
+        B = A if B is None else B
+        h = SpgemmHandle()
+        spgemm_symbolic(h, A, B)
+        n0 = ksg.spgemm_pairs.launches
+        C = spgemm_numeric(h, A, B)
+        assert ksg.spgemm_pairs.launches == n0 + 1 and C.device == A.device
+        sa, sb = A.to_scipy().astype(np.float64), B.to_scipy().astype(np.float64)
+        bound = (abs(sa) @ abs(sb)).tocsr()
+        bound.sort_indices()
+        np.testing.assert_array_equal(C.host_row_map(), bound.indptr)
+        np.testing.assert_array_equal(C.host_entries(), bound.indices)
+        ref = (sa @ sb).toarray()[np.repeat(np.arange(C.nrows), np.diff(bound.indptr)),
+                                  bound.indices]
+        n_c = np.diff(h.pair_plan.c_ptr.cpu().numpy())
+        err = np.abs(C.values.double().cpu().numpy() - ref)
+        assert (err <= (n_c + 1) * np.finfo(dtype).eps * bound.data).all()
+
+
+def test_spgemm_routes_on_cuda(dev):
+    """DIA SpGEMM, spgemm_jacobi, SpADD and the device triangle count run on
+    the card and match scipy; a CUDA operand never falls back to the plain
+    version."""
+    from tpukk_torch.sparse import (SpgemmHandle, spadd, spgemm_jacobi, spgemm_numeric,
+                                    spgemm_symbolic)
+    from tpukk_torch.sparse import spgemm_cuda as ksg
+
+    band = tkc.generate_banded_csr(5000, 3, dtype=np.float64, seed=2, device=dev)
+    h = SpgemmHandle()
+    spgemm_symbolic(h, band, band)
+    assert h.dia_plan is not None
+    C = spgemm_numeric(h, band, band)
+    assert C.device == band.device
+    ref = band.to_scipy() @ band.to_scipy()
+    assert abs(C.to_scipy() - ref).max() <= 1e-12 * abs(ref).max()
+
+    L = tkc.generate_structured_laplacian(12, 10, dtype=np.float64, device=dev)
+    B = tkc.generate_random_csr(120, 40, 3, seed=9, dtype=np.float64, device=dev)
+    hj = SpgemmHandle()
+    spgemm_symbolic(hj, L, B)
+    dinv = 1.0 / L.to_scipy().diagonal()
+    n0 = ksg.spgemm_pairs.launches
+    P = spgemm_jacobi(hj, L, B, 0.7, dinv)
+    assert ksg.spgemm_pairs.launches == n0 + 1
+    ref = B.to_scipy() - 0.7 * sps.diags(dinv) @ L.to_scipy() @ B.to_scipy()
+    assert abs(P.to_scipy() - ref).max() <= 1e-12 * abs(ref).max()
+
+    A = tkc.generate_random_csr(500, 400, 4, seed=5, dtype=np.float64, device=dev)
+    B2 = tkc.generate_random_csr(500, 400, 6, seed=6, dtype=np.float64, device=dev)
+    S = spadd(2.0, A, -0.5, B2)
+    assert S.device == A.device
+    ref = 2.0 * A.to_scipy() - 0.5 * B2.to_scipy()
+    assert abs(S.to_scipy() - ref).max() <= 1e-15 * abs(ref).max()
+
+    G = tkc.generate_fem2d_csr(3000, device=dev)
+    plan = tg.build_triangle_plan(G)
+    n = tg.triangle_count(G)
+    assert n == plan.num_triangles == int(tg.triangle_count_device(plan))
+
+    plan_cpu = ksg.build_pair_plan(np.array([0, 1]), np.array([0]), np.array([0]), 1, 1, "cpu")
+    with pytest.raises(Exception):
+        ksg.spgemm_pairs(plan_cpu, torch.ones(1, device=dev), torch.ones(1, device=dev))

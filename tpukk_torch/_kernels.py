@@ -64,6 +64,9 @@ SOURCES = {
     "permute": {
         "tpukk_permute_gather": [_I, _P, _P, _P, _I64, _I64, _P],
     },
+    "spgemm": {
+        "tpukk_spgemm_pair_sum": [_I, _I, _P, _P, _P, _P, _P, _P, _I64, _P],
+    },
 }
 # C signatures and return types of the host planners (csrc/host.cpp)
 HOST_SOURCES = {
@@ -75,6 +78,9 @@ HOST_SOURCES = {
         "tpukk_d1_greedy_color": ([_I64, _P, _P, _P], ctypes.c_int32),
         "tpukk_d2_greedy_color": ([_I64, _P, _P, _I64, _P, _P, ctypes.c_int32, _P],
                                   ctypes.c_int32),
+        "tpukk_spgemm_symbolic_count": ([_I64, _P, _P, _I64, _P, _P, _P], ctypes.c_int64),
+        "tpukk_spgemm_pairs": ([_I64, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _P], None),
+        "tpukk_triangle_count": ([_I64, _P, _P, _P], ctypes.c_int64),
     },
 }
 

@@ -91,6 +91,21 @@ class StaticCrsGraph(_HostMirrors):
     def nnz(self) -> int:
         return int(self.entries.shape[0])
 
+    @classmethod
+    def from_arrays(cls, row_map, entries, nrows: int, ncols: int,
+                    device=None) -> "StaticCrsGraph":
+        """From host (numpy) index arrays, with the host mirrors filled."""
+        dev = default_device(device)
+        rm = _host_index(row_map, "row_map")
+        en = _host_index(entries, "entries")
+        check(rm.shape[0] == nrows + 1, "StaticCrsGraph: row_map must have nrows+1 entries")
+        check(en.shape[0] == (int(rm[-1]) if rm.size else 0),
+              "StaticCrsGraph: entries length differs from row_map[-1]")
+        g = cls(torch.from_numpy(rm).to(dev), torch.from_numpy(en).to(dev), int(nrows),
+                int(ncols))
+        g._prefill(row_map=rm, entries=en)
+        return g
+
 
 @dataclasses.dataclass(eq=False)
 class CsrMatrix(_HostMirrors):
@@ -126,6 +141,17 @@ class CsrMatrix(_HostMirrors):
         obj = cls(torch.from_numpy(rm).to(dev), torch.from_numpy(en).to(dev),
                   vals, int(nrows), int(ncols))
         obj._prefill(row_map=rm, entries=en, values=vals_h)
+        return obj
+
+    @classmethod
+    def from_graph(cls, graph: StaticCrsGraph, values: torch.Tensor) -> "CsrMatrix":
+        """Values on a graph's pattern, sharing its arrays and host mirrors
+        (the output of a numeric phase whose symbolic phase made the graph)."""
+        check(values.shape == (graph.nnz,) and values.device == graph.row_map.device,
+              "CsrMatrix.from_graph: values must be (nnz,) on the graph's device")
+        obj = cls(graph.row_map, graph.entries, values, graph.nrows, graph.ncols)
+        cache = graph.__dict__.get("_hcache", {})
+        obj._prefill(row_map=cache.get("row_map"), entries=cache.get("entries"))
         return obj
 
     @classmethod

@@ -11,9 +11,13 @@
 //                          the SERIAL algorithm)
 //   * tpukk_d2_greedy_color  distance-2 greedy coloring   (graph/coloring.py,
 //                          graph_color_d2), G² never materialized
+//   * tpukk_spgemm_symbolic_count, tpukk_spgemm_pairs  C's pattern and the
+//                          pair plan of C = A·B       (sparse/spgemm.py)
+//   * tpukk_triangle_count  triangles per row          (graph/triangle.py)
 // The Python plain versions beside their callers (_iluk_pattern, the
-// dense-row IKJ numeric, scipy's RCM, the greedy loop serial_greedy_plain)
-// are what the tests hold these against.
+// dense-row IKJ numeric, scipy's RCM, the greedy loop serial_greedy_plain,
+// the numpy SpGEMM symbolic symbolic_plain, the numpy wedge count) are what
+// the tests hold these against.
 //
 // Build (tpukk_torch/_kernels.py does this at first use):
 //   g++ -O3 -shared -fPIC -std=c++17 -o build/tpukk_torch/libhost.so host.cpp
@@ -317,6 +321,146 @@ int32_t tpukk_d2_greedy_color(int64_t n, const int32_t* rm, const int32_t* ent,
     if (c > max_color) max_color = c;
   }
   return max_color;
+}
+
+// ---------------------------------------------------------------------------
+// SpGEMM host symbolic (sparse/spgemm.py::_symbolic_host; role of the
+// reference's StructureC hashmap symbolic, KokkosSparse_spgemm_impl_symbolic
+// .hpp:528-577).  A dense-marker pattern count, then a pass that emits C's
+// sorted columns and the pair plan: one (a_idx, b_idx) per scalar product,
+// grouped by C entry (c_ptr, int64 offsets, so the plan has no 2^31 limit
+// on the number of pairs), within a C entry in (a entry, b entry) order.
+// The pair order is tpukk's tpukk_spgemm_pairs'; where tpukk writes c_idx
+// per pair this writes c_ptr per C entry.
+int64_t tpukk_spgemm_symbolic_count(int64_t n, const int32_t* rmA,
+                                    const int32_t* ciA, int64_t bcols,
+                                    const int32_t* rmB, const int32_t* ciB,
+                                    int32_t* row_map_c) {
+  std::vector<int64_t> marker(bcols, -1);
+  int64_t nnz_c = 0;
+  row_map_c[0] = 0;
+  for (int64_t i = 0; i < n; ++i) {
+    int64_t cnt = 0;
+    for (int32_t ap = rmA[i]; ap < rmA[i + 1]; ++ap) {
+      int32_t k = ciA[ap];
+      for (int32_t bp = rmB[k]; bp < rmB[k + 1]; ++bp) {
+        int32_t c = ciB[bp];
+        if (marker[c] != i) {
+          marker[c] = i;
+          ++cnt;
+        }
+      }
+    }
+    nnz_c += cnt;
+    row_map_c[i + 1] = (int32_t)nnz_c;  // the caller refuses nnz_c >= 2^31
+  }
+  return nnz_c;
+}
+
+void tpukk_spgemm_pairs(int64_t n, const int32_t* rmA, const int32_t* ciA,
+                        int64_t bcols, const int32_t* rmB, const int32_t* ciB,
+                        const int32_t* row_map_c, int32_t* entries_c,
+                        int32_t* a_idx, int32_t* b_idx, int64_t* c_ptr) {
+  // O(1) column -> local slot map; the sorted unique row pattern is
+  // extracted from a per-row column bitmap (epoch-reset words + ctz scan)
+  std::vector<int64_t> loc_of(bcols, 0);
+  const int64_t nwords = (bcols + 63) >> 6;
+  std::vector<uint64_t> bits(nwords, 0);
+  std::vector<int64_t> wepoch(nwords, -1);
+  std::vector<int32_t> touched;
+  touched.reserve(nwords);
+  std::vector<int64_t> cnt, off, cur;
+  std::vector<int64_t> pair_base(n + 1, 0);
+  for (int64_t i = 0; i < n; ++i) {
+    int64_t p = 0;
+    for (int32_t ap = rmA[i]; ap < rmA[i + 1]; ++ap)
+      p += rmB[ciA[ap] + 1] - rmB[ciA[ap]];
+    pair_base[i + 1] = pair_base[i] + p;
+  }
+  for (int64_t i = 0; i < n; ++i) {
+    touched.clear();
+    int64_t npairs_row = pair_base[i + 1] - pair_base[i];
+    for (int32_t ap = rmA[i]; ap < rmA[i + 1]; ++ap) {
+      int32_t k = ciA[ap];
+      for (int32_t bp = rmB[k]; bp < rmB[k + 1]; ++bp) {
+        int32_t c = ciB[bp];
+        int64_t w = c >> 6;
+        if (wepoch[w] != i) {
+          wepoch[w] = i;
+          bits[w] = 0;
+          touched.push_back((int32_t)w);
+        }
+        bits[w] |= (uint64_t)1 << (c & 63);
+      }
+    }
+    // sorted unique columns: scan all words when the row is dense enough,
+    // else sort the (much shorter) touched-word list
+    int64_t r0 = row_map_c[i];
+    size_t w_out = 0;
+    auto emit_word = [&](int64_t w) {
+      uint64_t m = bits[w];
+      while (m) {
+        int b = __builtin_ctzll(m);
+        m &= m - 1;
+        int32_t col = (int32_t)((w << 6) | b);
+        entries_c[r0 + w_out] = col;
+        loc_of[col] = (int64_t)w_out;
+        ++w_out;
+      }
+    };
+    if (npairs_row * 8 >= nwords) {
+      for (int64_t w = 0; w < nwords; ++w)
+        if (wepoch[w] == i) emit_word(w);
+    } else {
+      std::sort(touched.begin(), touched.end());
+      for (int32_t w : touched) emit_word(w);
+    }
+    // per-entry pair counts -> offsets of each C entry's pair range
+    cnt.assign(w_out, 0);
+    for (int32_t ap = rmA[i]; ap < rmA[i + 1]; ++ap) {
+      int32_t k = ciA[ap];
+      for (int32_t bp = rmB[k]; bp < rmB[k + 1]; ++bp) cnt[loc_of[ciB[bp]]]++;
+    }
+    off.assign(w_out + 1, 0);
+    for (size_t t = 0; t < w_out; ++t) off[t + 1] = off[t] + cnt[t];
+    int64_t base = pair_base[i];
+    for (size_t t = 0; t < w_out; ++t) c_ptr[r0 + t] = base + off[t];
+    cur.assign(off.begin(), off.end() - 1);
+    for (int32_t ap = rmA[i]; ap < rmA[i + 1]; ++ap) {
+      int32_t k = ciA[ap];
+      for (int32_t bp = rmB[k]; bp < rmB[k + 1]; ++bp) {
+        int64_t slot = base + cur[(size_t)loc_of[ciB[bp]]]++;
+        a_idx[slot] = ap;
+        b_idx[slot] = bp;
+      }
+    }
+  }
+  c_ptr[row_map_c[n]] = pair_base[n];
+}
+
+// ---------------------------------------------------------------------------
+// Triangle counting on the strict lower triangle (graph/triangle.py):
+// mark-based row intersection (the serial analog of the reference's
+// mergeAnd/TriangleCount hashmap inserts, HashmapAccumulator.hpp:167-272).
+// For each row i: mark N_L(i); for each k in N_L(i), count marked members of
+// N_L(k).  Writes per-row counts; returns the total.
+int64_t tpukk_triangle_count(int64_t n, const int32_t* row_map,
+                             const int32_t* entries, int64_t* per_row) {
+  std::vector<int64_t> stamp(n, -1);
+  int64_t total = 0;
+  for (int64_t i = 0; i < n; ++i) {
+    int32_t s = row_map[i], e = row_map[i + 1];
+    for (int32_t p = s; p < e; ++p) stamp[entries[p]] = i;
+    int64_t cnt = 0;
+    for (int32_t p = s; p < e; ++p) {
+      int32_t k = entries[p];
+      for (int32_t q = row_map[k]; q < row_map[k + 1]; ++q)
+        if (stamp[entries[q]] == i) ++cnt;
+    }
+    per_row[i] = cnt;
+    total += cnt;
+  }
+  return total;
 }
 
 }  // extern "C"

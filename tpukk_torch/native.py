@@ -1,5 +1,5 @@
 """Host planners in C++ — counterpart of ``tpukk/native`` (the subset the
-ILU(k)-GMRES and Gauss-Seidel slices use).
+ILU(k)-GMRES, Gauss-Seidel and SpGEMM slices use).
 
 The library is ``csrc/host.cpp``, built with g++ at first use into
 ``build/tpukk_torch/`` (``_kernels.py``), never beside the source.  Unlike
@@ -8,7 +8,8 @@ build raises, so the solve path never drops silently to the Python planners.
 Those stay beside their callers as the plain versions the tests hold these
 against (``sparse/spiluk.py``: ``_iluk_pattern``, ``_ilu_numeric_plain``;
 ``graph/ordering.py``: ``rcm_plain``; ``graph/coloring.py``:
-``serial_greedy_plain``).
+``serial_greedy_plain``; ``sparse/spgemm.py``: ``symbolic_plain``;
+``graph/triangle.py``: ``count_plain``).
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ from . import _kernels
 from .common import TpuKKError
 
 __all__ = ["iluk_symbolic", "ilu_numeric", "iluk_depth", "rcm", "d1_greedy_color",
-           "d2_greedy_color"]
+           "d2_greedy_color", "spgemm_symbolic", "triangle_count"]
 
 
 def _lib():
@@ -94,3 +95,40 @@ def d2_greedy_color(row_map, entries, n: int, row_map_t=None, entries_t=None, m=
                                  ent_t.ctypes.data, 1 if include_d1 else 0,
                                  colors.ctypes.data)
     return colors
+
+
+def spgemm_symbolic(rmA, ciA, n: int, bcols: int, rmB, ciB):
+    """C = A·B's pattern and pair plan: (row_map_c int32, entries_c int32,
+    a_idx int32, b_idx int32, c_ptr int64).  The pairs of C entry c are
+    c_ptr[c] .. c_ptr[c+1]-1, in (A entry, B entry) order; a_idx and b_idx
+    index A's and B's values."""
+    rmA, ciA, rmB, ciB = _i32(rmA), _i32(ciA), _i32(rmB), _i32(ciB)
+    # the C++ loops index B's rows by A's columns and C's columns by B's
+    for name, ci, bound in (("A", ciA, len(rmB) - 1), ("B", ciB, bcols)):
+        if ci.size and (int(ci.min()) < 0 or int(ci.max()) >= bound):
+            raise TpuKKError(f"spgemm_symbolic: a column id of {name} lies outside [0, {bound})")
+    lib = _lib()
+    row_map_c = np.empty(n + 1, np.int32)
+    nnz_c = int(lib.tpukk_spgemm_symbolic_count(n, rmA.ctypes.data, ciA.ctypes.data, bcols,
+                                                rmB.ctypes.data, ciB.ctypes.data,
+                                                row_map_c.ctypes.data))
+    if nnz_c >= 2**31:
+        raise TpuKKError(f"spgemm_symbolic: nnz(C) = {nnz_c} does not fit the int32 row map")
+    P = int((rmB[1:] - rmB[:-1]).astype(np.int64)[ciA].sum())
+    entries_c = np.empty(nnz_c, np.int32)
+    a_idx = np.empty(P, np.int32)
+    b_idx = np.empty(P, np.int32)
+    c_ptr = np.empty(nnz_c + 1, np.int64)
+    lib.tpukk_spgemm_pairs(n, rmA.ctypes.data, ciA.ctypes.data, bcols, rmB.ctypes.data,
+                           ciB.ctypes.data, row_map_c.ctypes.data, entries_c.ctypes.data,
+                           a_idx.ctypes.data, b_idx.ctypes.data, c_ptr.ctypes.data)
+    return row_map_c, entries_c, a_idx, b_idx, c_ptr
+
+
+def triangle_count(row_map, entries, n: int):
+    """(total, per-row counts int64) of the triangles of a strict lower
+    triangle given as CSR with sorted columns."""
+    rm, ent = _i32(row_map), _i32(entries)
+    per_row = np.zeros(n, np.int64)
+    total = _lib().tpukk_triangle_count(n, rm.ctypes.data, ent.ctypes.data, per_row.ctypes.data)
+    return int(total), per_row

@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Drive tpukk_torch's main paths once on one CUDA GPU: SpMV + PCG,
 ILU(0)-preconditioned GMRES with the RCM route, the Gauss-Seidel path
-(coloring, MIS2, sweeps, GsPrec-PCG) and the SpGEMM path (SpgemmHandle
+(coloring, MIS2, sweeps, GsPrec-PCG), the SpGEMM path (SpgemmHandle
 symbolic/numeric with reuse, banded DIA SpGEMM, a smoothed-aggregation set-up
-through spgemm_jacobi, SpADD, triangle counting).
+through spgemm_jacobi, SpADD, triangle counting), the factor-and-solve path
+(supernodal and imported-factor triangular solves, PAR_ILUT, MDF, the ILU(k)
+device refresh) and the gather-table probe.
 
     python3 chip_smoke.py
 
@@ -17,7 +19,10 @@ Laplacian; GMRES with reorder="rcm" / "none" / "auto"; SERIAL and VB coloring,
 MIS2, POINT / CLUSTER / TWOSTAGE sweeps, GsPrec-PCG on both matrices, SpMM
 on the ONEHOT route; A·A through SpgemmHandle(KK) on the Laplacian, the random
 matrix and the FEM matrix, DIA SpGEMM on a 1M-row band, P = (I - ωD⁻¹A)·P_tent
-and Pᵀ·A·P on the FEM matrix, SpADD, triangles of the FEM graph), checks every
+and Pᵀ·A·P on the FEM matrix, SpADD, triangles of the FEM graph; SUPERNODAL
+against SEQLVLSCHD solves of the FEM matrix's SuperLU factors, superlu_import
+in GMRES, an imported CHOLMOD-format Cholesky factor in PCG, PAR_ILUT and MDF
+factors in GMRES, the ILU(1) refresh; the probe's three variants), checks every
 result on the host with scipy, times each kernel, its plain version and the torch
 call that computes the same function, profiles one PCG and one GMRES
 iteration, and prints one JSON line per phase.  The last two lines are the
@@ -47,7 +52,8 @@ SOURCES = {"dia_spmv": "tpukk_torch/csrc/dia.cu", "dia_spmm": "tpukk_torch/csrc/
            "csr_spmv": "tpukk_torch/csrc/csr.cu", "sptrsv_levels": "tpukk_torch/csrc/sptrsv.cu",
            "permute_gather": "tpukk_torch/csrc/permute.cu",
            "gs_color_step": "tpukk_torch/csrc/gs.cu", "csr_spmm": "tpukk_torch/csrc/csr.cu",
-           "spgemm_pairs": "tpukk_torch/csrc/spgemm.cu"}
+           "spgemm_pairs": "tpukk_torch/csrc/spgemm.cu",
+           "probe_gather_acc": "tpukk_torch/csrc/probe.cu"}
 REPLACES = {"dia_spmv": "tpukk/sparse/spmv_pallas.py:41",
             "dia_spmm": "tpukk/sparse/spmv_pallas.py:180",
             "csr_spmv": "tpukk/sparse/spmv_pallas.py:2053",
@@ -55,11 +61,16 @@ REPLACES = {"dia_spmv": "tpukk/sparse/spmv_pallas.py:41",
             "permute_gather": "tpukk/common/permute.py:91",
             "gs_color_step": "tpukk/sparse/spmv_pallas.py:2125",
             "csr_spmm": "tpukk/sparse/spmv_pallas.py:1074",
-            "spgemm_pairs": "tpukk/sparse/spgemm_pallas.py:1063"}
+            "spgemm_pairs": "tpukk/sparse/spgemm_pallas.py:1063",
+            "probe_gather_acc": "scripts/probe_ss_cost.py:40"}
+
+
+_T0 = time.perf_counter()
 
 
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line; t_s is the run's host seconds so far (where the time goes)."""
+    print(json.dumps({"phase": phase, **fields, "t_s": time.perf_counter() - _T0}), flush=True)
 
 
 def fail(msg: str) -> None:
@@ -106,6 +117,7 @@ def main() -> int:
 
     from tpukk_torch import _kernels
     from tpukk_torch.common import chain_time_slope
+    from tpukk_torch.common import probe_cuda as kp
     from tpukk_torch.containers import (CsrMatrix, generate_banded_csr, generate_random_csr,
                                         generate_structured_laplacian, read_mtx, transpose)
     from tpukk_torch.graph import (ColoringAlgorithm, build_triangle_plan, graph_color,
@@ -119,7 +131,10 @@ def main() -> int:
                                     spiluk_symbolic, spmm, sptrsv_solve, sptrsv_symbolic,
                                     SpaddHandle, SpgemmAlgorithm, SpgemmHandle, spadd_numeric,
                                     spadd_symbolic, spgemm_jacobi, spgemm_numeric,
-                                    spgemm_symbolic)
+                                    spgemm_symbolic, SptrsvAlgorithm, build_iluk_refresh,
+                                    cholmod_import, mdf_numeric, mdf_symbolic, MdfHandle,
+                                    ParIlutHandle, par_ilut_numeric, par_ilut_symbolic,
+                                    refresh_to_csr, spiluk_refresh, superlu_import)
     from tpukk_torch.sparse import gs_cuda as kg
     from tpukk_torch.sparse import spgemm_cuda as ksg
     from tpukk_torch.sparse import spmv_cuda as kc
@@ -145,10 +160,10 @@ def main() -> int:
 
     def launch_counts() -> dict:
         return {**kc.launch_counts(), **ks.launch_counts(), **kg.launch_counts(),
-                **ksg.launch_counts()}
+                **ksg.launch_counts(), **kp.launch_counts()}
 
     def reset_launch_counts() -> None:
-        for mod in (kc, ks, kg, ksg):
+        for mod in (kc, ks, kg, ksg, kp):
             mod.reset_launch_counts()
 
     # ---- 1. device and build ------------------------------------------------
@@ -168,7 +183,8 @@ def main() -> int:
          rand100k=[rnd.nrows, rnd.nnz])
 
     # ---- 2. each kernel against its plain version, on the card ----------------
-    errs = {k.__name__: 0.0 for k in (*kc.KERNELS, *ks.KERNELS, *kg.KERNELS, *ksg.KERNELS)}
+    errs = {k.__name__: 0.0 for k in (*kc.KERNELS, *ks.KERNELS, *kg.KERNELS, *ksg.KERNELS,
+                                       *kp.KERNELS)}
 
     def hold(kernel: str, label: str, got, plain, bound, dtype) -> None:
         """|got - plain| <= 20·eps·(|A|·|x|) elementwise."""
@@ -314,6 +330,18 @@ def main() -> int:
              tol="M(T)^-1 (40*eps*|T||x|)_i", ok=ok)
         require(ok, f"sptrsv_levels {label} disagrees with its plain version")
 
+    def hold_perm(label, src, xv):
+        """K5 against its plain version (index_select): exactly equal."""
+        got, ref = ks.permute_gather(src, xv), ks.permute_plain(src, xv)
+        torch.cuda.synchronize()
+        ok = torch.equal(got, ref)
+        err = float((got - ref).abs().max())
+        errs["permute_gather"] = max(errs["permute_gather"], err)
+        emit("check", kernel="permute_gather", case=label, dtype=str(xv.dtype), max_abs_err=err,
+             tol="exact", ok=ok)
+        require(ok, f"permute_gather {label} disagrees with its plain version")
+        return got
+
     def residual_check(label, T, x, b):
         """|T·x - b| <= 20·eps·(|T|·|x|) elementwise, f64 product by scipy."""
         sp = T.to_scipy().astype(np.float64)
@@ -340,13 +368,7 @@ def main() -> int:
             residual_check(f"sptrsv_solve {label} ILU(0) {tri}", T, sptrsv_solve(hs, T, b), b)
     perm1m = torch.from_numpy(rng2.permutation(1_000_000).astype(np.int32)).to(dev)
     for dt in (torch.float32, torch.float64):
-        xv = vec2(1_000_000, dt)
-        got, ref = ks.permute_gather(perm1m, xv), ks.permute_plain(perm1m, xv)
-        torch.cuda.synchronize()
-        ok = torch.equal(got, ref)
-        emit("check", kernel="permute_gather", case="random permutation of 1,000,000",
-             dtype=str(dt), max_abs_err=float((got - ref).abs().max()), tol="exact", ok=ok)
-        require(ok, "permute_gather disagrees with its plain version")
+        hold_perm("random permutation of 1,000,000", perm1m, vec2(1_000_000, dt))
     after = ks.launch_counts()
     require(all(after[k] > before[k] for k in after), f"a launch counter did not rise: {after}")
     emit("kernels_checked_trsv", launches=after)
@@ -764,6 +786,297 @@ def main() -> int:
          host_plan_scipy_card_agree=counts_agree, weighted_per_row_rel_err=w_err,
          weighted_tol="1e-13 relative (max norm) vs ((W@W).*W)·1 in scipy")
 
+    # ---- 3g. the factor-and-solve path: SUPERNODAL and imported factors on K4
+    # and K5, PAR_ILUT, MDF, the ILU(k) refresh; every solve held to scipy --------
+    def event_ms(fn, iters: int) -> float:
+        """Mean ms per call over a host loop, bracketed by CUDA events: for a
+        call that is not graph-capturable, or slow enough that the host loop
+        does not matter."""
+        fn()
+        torch.cuda.synchronize()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(iters):
+            fn()
+        e1.record()
+        e1.synchronize()
+        return e0.elapsed_time(e1) / iters
+
+    import scipy.sparse.linalg as spla
+
+    from tpukk_torch.graph import permute_matrix
+    from tpukk_torch.sparse import cholmod_raw_to_csr
+    from tpukk_torch.sparse.sptrsv_supernodal import (FusedSupernodalPlan, _detect_supernodes,
+                                                      build_supernodal_fused_plan,
+                                                      supernodal_solve)
+
+    def solve_vs_scipy(label, Tsp, x, b, lower):
+        """|x - x_scipy| <= M(T)⁻¹·(40·eps·|T||x|) elementwise (M(T) the
+        comparison matrix), in f64 on the host; x_scipy = spsolve_triangular."""
+        T64 = Tsp.astype(np.float64).tocsr()
+        xh, bh = x.double().cpu().numpy(), b.double().cpu().numpy()
+        ref = spla.spsolve_triangular(T64, bh, lower=lower)
+        Ta = abs(T64).tocsr()
+        M = -Ta                      # the diagonal is stored: setdiag keeps the pattern
+        M.setdiag(Ta.diagonal())
+        tol = spla.spsolve_triangular(M, 40 * torch.finfo(x.dtype).eps * (Ta @ np.abs(xh)),
+                                      lower=lower)
+        ratio = float((np.abs(xh - ref) / np.maximum(tol, 1e-300)).max())
+        require(ratio <= 1.0, f"{label}: x differs from scipy's beyond M(T)^-1(40 eps |T||x|)"
+                f" ({ratio})")
+        return dict(max_abs_err_vs_scipy=float(np.abs(xh - ref).max()), max_err_over_tol=ratio,
+                    tol="M(T)^-1 (40*eps*|T||x|)_i vs spsolve_triangular in f64")
+
+    def hold_dag(label, fp, b):
+        """A fused supernodal solve's three launches, each against its plain
+        version on the same inputs: K5 feeds b and the zero slot n into the
+        DAG's z-rows, K4 solves the 2n-row DAG, K5 reads x from the x-rows."""
+        bext = torch.nn.functional.pad(b.to(fp.dtype), (0, 1))
+        bdag = hold_perm(f"{label}: b into the DAG, {fp.n + 1} -> {fp.num_rows_dag}",
+                         fp.src_in, bext)
+        xdag = ks.sptrsv_levels(fp.plan, bdag)
+        hold_trsv(f"{label}: supernodal DAG, {fp.num_rows_dag} rows, {fp.num_levels} levels",
+                  fp.plan, bdag, xdag, ks.sptrsv_plain(fp.plan, bdag))
+        hold_perm(f"{label}: x from the DAG, {fp.num_rows_dag} -> {fp.n}", fp.src_out, xdag)
+
+    t = time.perf_counter()
+    lu = spla.splu(fem.to_scipy().tocsc())
+    splu_s = time.perf_counter() - t
+    sn_handles = {}
+    for dt in (np.float32, np.float64):
+        for tri, lower, F in (("L", True, lu.L), ("U", False, lu.U)):
+            Tsp = F.tocsr().astype(dt)
+            Tsp.sort_indices()
+            Tsn = CsrMatrix.from_scipy(Tsp, device=dev)
+            hs = SptrsvHandle(lower=lower)
+            sptrsv_symbolic(hs, Tsn)
+            t = time.perf_counter()
+            hn = SptrsvHandle(lower=lower, algorithm=SptrsvAlgorithm.SUPERNODAL)
+            sptrsv_symbolic(hn, Tsn)
+            plan_s = time.perf_counter() - t
+            fused = isinstance(hn.sn_plan, FusedSupernodalPlan)
+            require(fused == (dt == np.float32), f"supernodal {tri} {dt}: wrong route")
+            case = f"fem2d_30k SuperLU {tri} {dt.__name__}"
+            bp = vec2(Tsn.nrows, Tsn.dtype)
+            hold_trsv(f"{case} SEQLVLSCHD, {hs.num_levels} levels", hs.plan, bp,
+                      ks.sptrsv_levels(hs.plan, bp), ks.sptrsv_plain(hs.plan, bp))
+            if fused:
+                hold_dag(case, hn.sn_plan, vec2(Tsn.nrows, Tsn.dtype))
+            bsn = vec2(Tsn.nrows, Tsn.dtype)
+            xsn, counts, wall = counted(f"supernodal {tri} {dt.__name__}",
+                                        lambda: sptrsv_solve(hn, Tsn, bsn),
+                                        ("sptrsv_levels", "permute_gather") if fused else ())
+            if fused:
+                require(counts["sptrsv_levels"] == 1 and counts["permute_gather"] == 2,
+                        f"supernodal {tri}: {counts}, not K5, K4, K5")
+            vs = solve_vs_scipy(f"supernodal {tri} {dt.__name__}", Tsp, xsn, bsn, lower)
+            vq = solve_vs_scipy(f"seqlvlschd {tri} {dt.__name__}", Tsp,
+                                sptrsv_solve(hs, Tsn, bsn), bsn, lower)
+            sp = hn.sn_plan
+            entry = dict(case=case, nnz=Tsn.nnz,
+                         point_levels=hs.num_levels, supernodes=sp.num_supernodes,
+                         supernode_levels=sp.num_levels_sn, max_block=sp.max_block,
+                         route="fused DAG on K5, K4, K5" if fused else "batched torch ops",
+                         plan_host_s=plan_s, splu_s=splu_s,
+                         us_per_solve=event_ms(lambda: sptrsv_solve(hn, Tsn, bsn),
+                                               20 if fused else 3) * 1e3,
+                         seqlvlschd_us_per_solve=event_ms(lambda: sptrsv_solve(hs, Tsn, bsn), 20)
+                         * 1e3, seqlvlschd_max_err_over_tol=vq["max_err_over_tol"],
+                         launches=counts, **vs)
+            if fused:
+                entry.update(dag_rows=sp.num_rows_dag, dag_k4_levels=sp.num_levels,
+                             dag_nnz_strict=int(sp.plan.cols.shape[0]))
+            else:
+                # the same DAG with f64 values, beside the batched route (not on
+                # the main path: SUPERNODAL sends f64 to the batched plan)
+                t = time.perf_counter()
+                fp64 = build_supernodal_fused_plan(Tsp.indptr, Tsp.indices, Tsp.data, Tsn.nrows,
+                                                   lower, 32, device=dev)
+                dag64_s = time.perf_counter() - t
+                require(fp64.dtype == torch.float64, f"f64 DAG {tri}: {fp64.dtype}")
+                hold_dag(f"{case} f64 DAG", fp64, vec2(Tsn.nrows, torch.float64))
+                v64 = solve_vs_scipy(f"f64 DAG {tri}", Tsp, supernodal_solve(fp64, bsn), bsn, lower)
+                entry.update(f64_dag_plan_host_s=dag64_s, f64_dag_k4_levels=fp64.num_levels,
+                             f64_dag_us_per_solve=event_ms(lambda: supernodal_solve(fp64, bsn),
+                                                           20) * 1e3,
+                             f64_dag_max_err_over_tol=v64["max_err_over_tol"])
+            emit("main_supernodal_fem2d30k", **entry)
+            sn_handles[(tri, dt)] = (hn, Tsn)
+
+    t = time.perf_counter()
+    slu = superlu_import(lu, SptrsvAlgorithm.SUPERNODAL, device=dev)
+    import_s = time.perf_counter() - t
+    hg2 = GmresHandle(m=2, tol=1e-8, max_restarts=5)
+    (xs_, st_), counts, wall = counted("gmres superlu", lambda: gmres(hg2, fem, bg, prec=slu),
+                                       ("csr_spmv", "permute_gather"))
+    rel = host_rel(fem, xs_, bg)
+    require(st_.converged and st_.num_iters <= 2 and rel <= 1e-8,
+            f"gmres with superlu_import: {st_}, host residual {rel}")
+    emit("main_supernodal_superlu_gmres", matrix="fem2d_30k f64", algorithm="SUPERNODAL",
+         m=2, iters=st_.num_iters, rel_res_host=rel, import_s=import_s, seconds=wall,
+         launches=counts)
+
+    # a Cholesky factor L·√D of P·A·Pᵀ (SuperLU without pivoting, P a minimum
+    # degree order of A + Aᵀ), packed in CHOLMOD's supernodal raw arrays on its
+    # exact supernodes; (P·b)[i] = b[p_chol[i]], CHOLMOD's Perm
+    t = time.perf_counter()
+    sym = dict(diag_pivot_thresh=0.0, options=dict(SymmetricMode=True))
+    p_chol = np.argsort(spla.splu(fem.to_scipy().tocsc(), permc_spec="MMD_AT_PLUS_A",
+                                  **sym).perm_c)
+    luc = spla.splu(fem.to_scipy()[p_chol][:, p_chol].tocsc(), permc_spec="NATURAL", **sym)
+    n = fem.nrows
+    require(np.array_equal(luc.perm_r, np.arange(n)) and np.array_equal(luc.perm_c, np.arange(n)),
+            "cholesky: SuperLU pivoted")
+    dpiv = luc.U.diagonal()
+    require(bool((dpiv > 0).all()), "cholesky: a pivot is not positive")
+    Lc = (luc.L @ sps.diags(np.sqrt(dpiv))).tocsc()
+    Lc.sort_indices()
+    chol_s = time.perf_counter() - t
+    ccols = np.repeat(np.arange(n), np.diff(Lc.indptr))
+    strict = Lc.indices > ccols
+    sn_c = _detect_supernodes(Lc.indices[strict].astype(np.int64), ccols[strict], n, 64)
+    super_ = np.r_[np.nonzero(np.r_[True, sn_c[1:] != sn_c[:-1]])[0], n]
+    s_parts, x_parts, pi, px = [], [], [0], [0]
+    for c0, c1 in zip(super_[:-1], super_[1:]):
+        tail = Lc.indices[Lc.indptr[c0]:Lc.indptr[c0 + 1]]
+        rows_k = np.r_[np.arange(c0, c1), tail[tail >= c1]]
+        panel = np.zeros((c1 - c0, len(rows_k)))
+        e0, e1 = Lc.indptr[c0], Lc.indptr[c1]
+        panel[ccols[e0:e1] - c0, np.searchsorted(rows_k, Lc.indices[e0:e1])] = Lc.data[e0:e1]
+        s_parts.append(rows_k)
+        x_parts.append(panel.ravel())
+        pi.append(pi[-1] + len(rows_k))
+        px.append(px[-1] + panel.size)
+    raw = dict(n=n, super_=super_, pi=np.array(pi), px=np.array(px),
+               s=np.concatenate(s_parts), x=np.concatenate(x_parts))
+    Lback, _ = cholmod_raw_to_csr(**raw)
+    require(abs(Lback - Lc).max() == 0, "cholesky: the raw arrays do not give L back")
+    for dt in (np.float32, np.float64):
+        t = time.perf_counter()
+        chol = cholmod_import(**raw, perm=p_chol, algorithm=SptrsvAlgorithm.SUPERNODAL,
+                              value_dtype=dt, device=dev)
+        import_s = time.perf_counter() - t
+        fused = isinstance(chol.Lh.sn_plan, FusedSupernodalPlan)
+        if fused:
+            for which, hh in (("L", chol.Lh), ("L^T", chol.Lth)):
+                hold_dag(f"fem2d_30k Cholesky {which} {dt.__name__}", hh.sn_plan,
+                         vec2(n, torch.float32))
+        st, rel, counts, wall = solve(f"pcg cholmod {dt.__name__}", fem, bf, chol, 200)
+        require(counts["permute_gather"] > 0 and (counts["sptrsv_levels"] > 0) == fused,
+                f"pcg cholmod {dt.__name__}: {counts}")
+        emit("main_cholmod_fem2d30k", case=f"MMD(A+A^T) + Cholesky L·sqrt(D), {dt.__name__}",
+             nnz_L=Lc.nnz, supernodes=len(super_) - 1,
+             supernode_levels=[chol.Lh.sn_plan.num_levels_sn, chol.Lth.sn_plan.num_levels_sn],
+             route="fused DAG on K4" if fused else "batched torch ops", factor_s=chol_s,
+             import_s=import_s, pcg_iters=st.num_iters, jacobi_iters=jacobi["fem2d_30k"][1],
+             rel_res_host=rel, seconds=wall, launches=counts)
+
+    # PAR_ILUT's synchronous Chow sweeps do not converge on this matrix (not
+    # diagonally dominant), in tpukk as here, so GMRES says nothing of the
+    # factors: the card's are held to the same numeric phase on the CPU (the
+    # path the tests hold to tpukk), pattern exactly and values and residual
+    # within 1e-8 (the card's segment sums add their terms in another order),
+    # and the residual the device reports to the host's ‖A - L·U‖ on A's
+    # pattern; two GMRES(50) cycles report that the factors do not precondition
+    hpi = ParIlutHandle(fill_factor=2.0)
+    t = time.perf_counter()
+    par_ilut_symbolic(hpi, fem)
+    Lp, Up = par_ilut_numeric(hpi, fem)
+    ilut_s = time.perf_counter() - t
+    hpc = ParIlutHandle(fill_factor=2.0)
+    par_ilut_symbolic(hpc, fem_cpu)
+    Lpc, Upc = par_ilut_numeric(hpc, fem_cpu)
+    vs_cpu = {}
+    for which, G, W in (("L", Lp, Lpc), ("U", Up, Upc)):
+        g, w = G.to_scipy(), W.to_scipy()
+        same = bool(np.array_equal(g.indptr, w.indptr) and np.array_equal(g.indices, w.indices))
+        rel_v = float(abs(g - w).max() / abs(w).max())
+        require(same and rel_v <= 1e-8,
+                f"par_ilut {which}: card and CPU differ (pattern equal {same}, values {rel_v})")
+        vs_cpu[which] = dict(nnz=g.nnz, pattern_equal=same, max_rel_err=rel_v)
+    res_rel = abs(hpi.final_residual - hpc.final_residual) / hpc.final_residual
+    require(hpi.num_iters == hpc.num_iters and res_rel <= 1e-8,
+            f"par_ilut: card residual {hpi.final_residual} after {hpi.num_iters}, "
+            f"CPU {hpc.final_residual} after {hpc.num_iters}")
+    sa_ = fem.to_scipy()
+    pat_ = sa_.copy()
+    pat_.data[:] = 1.0
+    res_host = float(sps.linalg.norm((sa_ - Lp.to_scipy() @ Up.to_scipy()).multiply(pat_))
+                     / sps.linalg.norm(sa_))
+    require(abs(res_host - hpi.final_residual) <= 1e-8 * hpi.final_residual,
+            f"par_ilut: device residual {hpi.final_residual}, host {res_host}")
+    hp2 = GmresHandle(m=50, tol=1e-8, max_restarts=2)
+    (xp_, stp), counts, wall = counted("gmres par_ilut", lambda: gmres(hp2, fem, bg, prec=LUPrec(
+        Lp, Up)), ("csr_spmv", *gmres_needs))
+    rel = host_rel(fem, xp_, bg)
+    require(math.isfinite(rel), f"gmres par_ilut: residual {rel}")
+    emit("main_ilut_mdf_fem2d30k", part="PAR_ILUT fill_factor 2 -> LUPrec -> GMRES(50), 2 cycles",
+         nnz_L=Lp.nnz, nnz_U=Up.nnz, factor_s=ilut_s, ilut_iters=hpi.num_iters,
+         ilut_residual_device=hpi.final_residual, ilut_residual_host=res_host,
+         ilut_residual_cpu=hpc.final_residual, residual_rel_err_vs_cpu=res_rel,
+         factors_vs_cpu=vs_cpu, vs_cpu_tol="patterns equal, 1e-8 relative (max norm)",
+         gmres_converged=stp.converged, iters=stp.num_iters, ilu0_iters=stg.num_iters,
+         rel_res_host=rel, seconds=wall, us_per_iter=wall / stp.num_iters * 1e6,
+         launches=counts)
+
+    t = time.perf_counter()
+    hm = MdfHandle()
+    mdf_symbolic(hm, fem)
+    order_s = time.perf_counter() - t
+    Lm, Um = mdf_numeric(hm, fem)
+    Bm = permute_matrix(fem, hm.permutation)
+    bm = bg[torch.from_numpy(hm.permutation.astype(np.int64)).to(dev)]
+    hm2 = GmresHandle(m=50, tol=1e-8, max_restarts=200)
+    (xm_, stm), counts, wall = counted("gmres mdf", lambda: gmres(hm2, Bm, bm, prec=LUPrec(
+        Lm, Um)), ("csr_spmv", *gmres_needs))
+    rel = host_rel(Bm, xm_, bm)
+    require(stm.converged and rel <= 2e-8, f"gmres mdf: {stm}, host residual {rel}")
+    emit("main_ilut_mdf_fem2d30k", part="MDF order -> ILU(0) of A[p][:, p] -> LUPrec -> GMRES(50)",
+         order_host_s=order_s, iters=stm.num_iters, ilu0_iters=stg.num_iters, rel_res_host=rel,
+         seconds=wall, us_per_iter=wall / stm.num_iters * 1e6, launches=counts)
+
+    h1 = SpilukHandle(1)
+    spiluk_symbolic(h1, fem)
+    t = time.perf_counter()
+    rplan = build_iluk_refresh(h1, fem)
+    rbuild_s = time.perf_counter() - t
+    fem2 = fem.with_values(2 * fem.values)
+    (lv, uv), counts, wall = counted("iluk refresh", lambda: spiluk_refresh(rplan, fem2.values),
+                                     ("permute_gather",))
+    Lr, Ur = refresh_to_csr(rplan, lv, uv)
+    L2, U2 = spiluk_numeric(h1, fem2)
+    rerr = max(float(abs(Lr.to_scipy() - L2.to_scipy()).max() / abs(L2.to_scipy()).max()),
+               float(abs(Ur.to_scipy() - U2.to_scipy()).max() / abs(U2.to_scipy()).max()))
+    require(rerr <= 1e-12, f"iluk refresh differs from spiluk_numeric(2A) by {rerr}")
+    emit("main_ilut_mdf_fem2d30k", part="spiluk_refresh of ILU(1) with 2A", depth=h1.depth,
+         level_schedule=rplan.levels is not None, build_s=rbuild_s, refresh_ms=wall * 1e3,
+         refresh_ms_again=event_ms(lambda: spiluk_refresh(rplan, fem2.values), 5),
+         max_rel_err_vs_spiluk_numeric=rerr, tol="1e-12 relative (max norm)", launches=counts)
+
+    # ---- 3h. the gather-table probe (K9) ----------------------------------------
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("probe_ss_cost_torch",
+                                                  ROOT / "scripts" / "probe_ss_cost_torch.py")
+    probe_drv = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe_drv)
+    res, counts, wall = counted("probe", lambda: probe_drv.probe(device=dev), ("probe_gather_acc",))
+    emit("main_probe_ss_cost", n_ss=probe_drv.N_SS, B=list(probe_drv.BS),
+         chain_steps=list(probe_drv.KS), seconds=wall, launches=counts, **res)
+    probe_plans = {}
+    for variant in probe_drv.VARIANTS:
+        for B in probe_drv.BS:
+            plan, x0 = probe_drv.make_plan(variant, probe_drv.N_SS, B, dev)
+            got, plain = kp.probe_gather_acc(plan, x0), kp.probe_plain(plan, x0)
+            torch.cuda.synchronize()
+            err = float((got - plain).abs().max())
+            errs["probe_gather_acc"] = max(errs["probe_gather_acc"], err)
+            emit("check", kernel="probe_gather_acc", case=f"{variant} B={B} n_ss={probe_drv.N_SS}",
+                 dtype="torch.float32", max_abs_err=err, max_abs_y=float(plain.abs().max()),
+                 tol="1e-5 absolute", ok=err <= 1e-5)
+            require(err <= 1e-5, f"probe_gather_acc {variant} B={B} disagrees with its plain version")
+            probe_plans[(variant, B)] = (plan, x0)
+
     require(all(v > 0 for v in total.values()), f"a kernel of the path never ran: {total}")
     emit("main_path_launches", launches=total)
 
@@ -862,20 +1175,6 @@ def main() -> int:
 
     # K4 / K5: CUDA-event slope over CUDA graphs like K1-K3; K4's plain version
     # launches a few kernels per level, so its graphs hold fewer calls
-    def event_ms(fn, iters: int) -> float:
-        """Mean ms per call over a host loop, bracketed by CUDA events: for a
-        call that is not graph-capturable, or slow enough that the host loop
-        does not matter."""
-        fn()
-        torch.cuda.synchronize()
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        e0.record()
-        for _ in range(iters):
-            fn()
-        e1.record()
-        e1.synchronize()
-        return e0.elapsed_time(e1) / iters
-
     def timed_kernel(label, make, nbytes, flops, dt, kk, plain_kk, library_ms, **extra):
         """make(i) -> (kernel, plain) calls on copy i of the inputs; L2-warm
         on copy 0, L2-cold on a ring of copies three times the L2."""
@@ -927,6 +1226,38 @@ def main() -> int:
     k4_row("lap1000 f32 L", (2, 6), (1, 3))
     k4_row("fem2d_30k f64 L", (20, 100), (5, 25))
     k4_row("fem2d_30k f64 U", (20, 100), (5, 25))
+
+    def k4_dag_row():
+        """K4 on the expanded supernodal DAG of fem2d_30k's SuperLU L (f32)."""
+        hn, T = sn_handles[("L", np.float32)]
+        plan = hn.sn_plan.plan
+        n, nnz = plan.n, plan.cols.shape[0]
+        bp = vec2(n, torch.float32)
+
+        def make(i):
+            p = plan if i == 0 else dataclasses.replace(
+                plan, rowptr=plan.rowptr.clone(), cols=plan.cols.clone(),
+                vals=plan.vals.clone(), invd=plan.invd.clone(), flags=plan.flags.clone(),
+                state=plan.state.clone(), _rows=None)
+            bi = bp if i == 0 else bp.clone()
+            return (lambda: ks.sptrsv_levels(p, bi)), (lambda: ks.sptrsv_plain(p, bi))
+
+        tri = torch.sparse_csr_tensor(T.row_map, T.entries, T.values, T.shape)
+        b2 = vec2(T.nrows, torch.float32).reshape(-1, 1)
+        try:
+            lib_ms, lib_err = event_ms(lambda: torch.triangular_solve(b2, tri, upper=False), 5), None
+        except (RuntimeError, NotImplementedError) as e:  # the yardstick only
+            lib_ms, lib_err = None, str(e)[:200]
+        bn = b2.reshape(-1)
+        return timed_kernel("K4 sptrsv_levels fem2d_30k SuperLU L f32, supernodal DAG", make,
+                            (n + 1) * 4 + nnz * 8 + 3 * n * 4, 2 * nnz + 2 * n, torch.float32,
+                            (20, 100), (2, 6), lib_ms, levels=plan.num_levels, dag_rows=n,
+                            nnz_strict=nnz, supernode_levels=hn.sn_plan.num_levels_sn,
+                            library="torch.triangular_solve(b, L_csr), natural order, L itself",
+                            library_error=lib_err,
+                            sptrsv_solve_ms=event_ms(lambda: sptrsv_solve(hn, T, bn), 20))
+
+    k4_dag_row()
 
     def k5_row(label, src, dt):
         n, sz = src.shape[0], torch.finfo(dt).bits // 8
@@ -1036,6 +1367,31 @@ def main() -> int:
     k8_row("fem2d_30k f64", (50, 250), (5, 25))
     del spgemm_cases
 
+    def k9_row(variant, B):
+        """Bound: the streamed index and value rows, src, dst and first read
+        once, x read once and y written once."""
+        plan, x0 = probe_plans[(variant, B)]
+        nbytes = (plan.stream_bytes() + 4 * (plan.src.numel() + 2 * plan.n_ss)
+                  + 4 * x0.numel() + 4 * plan.out_rows * 128)
+
+        def make(i):
+            p = plan if i == 0 else dataclasses.replace(
+                plan, gt=plan.gt.clone(), lo=None if plan.lo is None else plan.lo.clone(),
+                v=plan.v.clone(), src=plan.src.clone())
+            xi = x0 if i == 0 else x0.clone()
+            return (lambda: kp.probe_gather_acc(p, xi)), (lambda: kp.probe_plain(p, xi))
+
+        return timed_kernel(f"K9 probe_gather_acc {variant} B={B} n_ss={plan.n_ss}", make, nbytes,
+                            2 * plan.v.numel() + plan.n_ss * plan.tiles * 1024, torch.float32,
+                            (20, 100), (1, 3), None,
+                            library="none: no single torch call computes the probe's "
+                                    "gather-accumulate", stream_MB=plan.stream_bytes() / 1e6)
+
+    t_k9 = k9_row("base", 4)
+    for variant, B in (("base", 16), ("packed_opt", 4), ("packed_opt", 16), ("mt4", 4),
+                       ("mt4", 16)):
+        k9_row(variant, B)
+
     # ---- 5. where a PCG and a GMRES iteration's time goes (torch.profiler) -----
     for label, A, iters, prec in (("lap1000 f64 Jacobi", lap64, 20, JacobiPrec(lap64)),
                                   ("fem2d_30k f64 Jacobi", fem, 50, JacobiPrec(fem)),
@@ -1096,7 +1452,8 @@ def main() -> int:
     total_k = []
     for name, row in (("dia_spmv", t_k1), ("dia_spmm", t_k2), ("csr_spmv", t_k3),
                       ("sptrsv_levels", t_k4), ("permute_gather", t_k5),
-                      ("gs_color_step", t_k6), ("csr_spmm", t_k7), ("spgemm_pairs", t_k8)):
+                      ("gs_color_step", t_k6), ("csr_spmm", t_k7), ("spgemm_pairs", t_k8),
+                      ("probe_gather_acc", t_k9)):
         total_k.append(dict(name=name, route="cuda", source=SOURCES[name],
                             replaces=REPLACES[name], launches=total[name],
                             max_abs_err=errs[name], ms=row["ms"], plain_ms=row["plain_ms"],

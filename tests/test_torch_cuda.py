@@ -1,7 +1,9 @@
 """tpukk_torch's CUDA kernels on a CUDA device: each kernel against its plain
 version, and the SpMV/PCG, ILU(0)-GMRES and Gauss-Seidel paths (coloring,
-MIS2, sweeps, GsPrec-PCG) and SpGEMM (K8, DIA, spgemm_jacobi, SpADD,
-triangles) through the kernels.  Every test skips without a CUDA device: the
+MIS2, sweeps, GsPrec-PCG), SpGEMM (K8, DIA, spgemm_jacobi, SpADD,
+triangles) and the factor-and-solve slice (SUPERNODAL on K4 and K5, SuperLU
+and CHOLMOD imports, PAR_ILUT, MDF, the ILU(k) refresh) through the kernels,
+and the probe kernel K9.  Every test skips without a CUDA device: the
 kernels have no CPU mode.
 
 This file imports neither JAX nor tpukk, so it runs on a GPU host that has
@@ -16,7 +18,12 @@ exactly; a triangular solve x must satisfy |T·x - b| <= 20·eps·(|T|·|x|)_i a
 Gauss-Seidel color step is held to gs_cuda.step_error_bound (20·eps of its
 absolute terms) on the block's rows and must leave the other rows exactly as
 they were; whole sweeps (a few color steps in a row) to 1e-12 relative in f64;
-a SpGEMM entry c to (n_c + 1)·eps·Σ_p|a_p·b_p| (n_c its pair count).
+a SpGEMM entry c to (n_c + 1)·eps·Σ_p|a_p·b_p| (n_c its pair count); K9
+to 1e-6 absolute (its products and sums are the plain version's, in the same
+order, on values below 0.05); a supernodal solve to scipy's within 1e-5 of
+max|x| in f32 and 1e-12 in f64; the ILU(k) refresh to 1e-12 of spiluk_numeric;
+PAR_ILUT's factors to the CPU's with equal patterns and values within 1e-8 of
+max|·| (its device segment sums add their terms in another order).
 """
 import dataclasses
 
@@ -518,3 +525,161 @@ def test_spgemm_routes_on_cuda(dev):
     plan_cpu = ksg.build_pair_plan(np.array([0, 1]), np.array([0]), np.array([0]), 1, 1, "cpu")
     with pytest.raises(Exception):
         ksg.spgemm_pairs(plan_cpu, torch.ones(1, device=dev), torch.ones(1, device=dev))
+
+
+def test_probe_kernel_matches_plain(dev):
+    """K9 against its plain version for the three variants, with more steps
+    than output blocks (accumulation after a first step) and at B = 1, 3."""
+    import importlib.util
+    from pathlib import Path
+
+    from tpukk_torch.common import probe_cuda as kp
+
+    path = Path(__file__).resolve().parent.parent / "scripts" / "probe_ss_cost_torch.py"
+    spec = importlib.util.spec_from_file_location("probe_ss_cost_torch", path)
+    drv = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(drv)
+    for variant in drv.VARIANTS:
+        for n_ss, B in ((80, 3), (200, 1)):
+            plan, x = drv.make_plan(variant, n_ss, B, dev)
+            n0 = kp.probe_gather_acc.launches
+            y = kp.probe_gather_acc(plan, x)
+            assert kp.probe_gather_acc.launches == n0 + 1
+            plain = kp.probe_plain(plan, x)
+            torch.cuda.synchronize()
+            assert float((y - plain).abs().max()) <= 1e-6, (variant, n_ss, B)
+    with pytest.raises(Exception):
+        kp.probe_gather_acc(plan, x.double())
+
+
+def _splu_factors(n_side, dtype):
+    import scipy.sparse.linalg as spla
+
+    A = tkc.generate_structured_laplacian(n_side, n_side, dtype=np.float64, device="cpu")
+    lu = spla.splu(A.to_scipy().tocsc())
+    return [(lower, (lu.L if lower else lu.U).tocsr().astype(dtype)) for lower in (True, False)]
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64], ids=["f32", "f64"])
+def test_supernodal_solve_on_cuda(dev, dtype):
+    """SUPERNODAL f32 runs K5, K4, K5 on the expanded DAG; f64 the batched
+    plan (no K4).  Both match scipy's triangular solve."""
+    import scipy.sparse.linalg as spla
+
+    from tpukk_torch.sparse import SptrsvAlgorithm, sptrsv_solve
+
+    for lower, T in _splu_factors(30, dtype):
+        T.sort_indices()
+        Tm = tkc.CsrMatrix.from_scipy(T, device=dev)
+        h = SptrsvHandle(lower=lower, algorithm=SptrsvAlgorithm.SUPERNODAL)
+        sptrsv_symbolic(h, Tm)
+        b = _x(T.shape[0], torch.float32 if dtype == np.float32 else torch.float64, dev, seed=4)
+        ks.reset_launch_counts()
+        x = sptrsv_solve(h, Tm, b)
+        counts = ks.launch_counts()
+        assert counts == ({"sptrsv_levels": 1, "permute_gather": 2} if dtype == np.float32
+                          else {"sptrsv_levels": 0, "permute_gather": 0})
+        ref = spla.spsolve_triangular(T.astype(np.float64), b.double().cpu().numpy(), lower=lower)
+        tol = 1e-5 if dtype == np.float32 else 1e-12
+        assert np.abs(x.double().cpu().numpy() - ref).max() <= tol * np.abs(ref).max()
+
+
+def test_imported_factors_and_ilut_mdf_on_cuda(dev):
+    """superlu_import and cholmod_import (SUPERNODAL) as preconditioners,
+    PAR_ILUT and MDF factors in LUPrec, the ILU(k) refresh against
+    spiluk_numeric: all on the card."""
+    import scipy.sparse.linalg as spla
+
+    from tpukk_torch.sparse import (SptrsvAlgorithm, build_iluk_refresh, cholmod_import,
+                                    mdf_numeric, mdf_symbolic, MdfHandle, par_ilut,
+                                    refresh_to_csr, spiluk_refresh, superlu_import)
+
+    A = tkc.generate_diag_dominant_csr(600, 6, dtype=np.float64, seed=3, device=dev)
+    b = _x(A.nrows, torch.float64, dev, seed=8)
+    prec = superlu_import(spla.splu(A.to_scipy().tocsc()), SptrsvAlgorithm.SUPERNODAL,
+                          device=dev)
+    # an exact factorization: one restart cycle of 2 steps (iterations count in cycles)
+    x, st = gmres(GmresHandle(m=2, tol=1e-10, max_restarts=5), A, b, prec=prec)
+    assert st.converged and st.num_iters <= 2
+    S = tkc.generate_structured_laplacian(20, 20, dtype=np.float64, device="cpu").to_scipy()
+    Ld = np.linalg.cholesky(S.toarray() + 0.5 * np.eye(S.shape[0]))
+    Ls = sps.csr_matrix(Ld)
+    n = Ls.shape[0]
+    super_, pi, px, s_, xv = [0], [0], [0], [], []
+    for c0 in range(0, n, 4):        # supernodes of 4 columns, full lower panels
+        ridx = np.arange(c0, n)
+        s_.extend(ridx.tolist())
+        xv.extend(Ld[c0:, c0:c0 + 4].T.ravel().tolist())
+        super_.append(c0 + 4)
+        pi.append(len(s_))
+        px.append(len(xv))
+    for dt in (np.float32, np.float64):
+        solver = cholmod_import(n=n, super_=super_, pi=pi, px=px, s=s_, x=xv,
+                                algorithm=SptrsvAlgorithm.SUPERNODAL, value_dtype=dt, device=dev)
+        bb = _x(n, torch.float64, dev, seed=9)
+        ref = np.linalg.solve(S.toarray() + 0.5 * np.eye(n), bb.cpu().numpy())
+        got = solver(bb).cpu().numpy()
+        assert np.abs(got - ref).max() <= (1e-4 if dt == np.float32 else 1e-10) * np.abs(ref).max()
+    L, U = par_ilut(A, max_iters=5, fill_factor=2.0)
+    assert L.device == A.device
+    _, sp0 = gmres(GmresHandle(m=10, tol=1e-10, max_restarts=50), A, b)
+    _, sp1 = gmres(GmresHandle(m=10, tol=1e-10, max_restarts=50), A, b, prec=LUPrec(L, U))
+    assert sp1.converged and sp1.num_iters <= sp0.num_iters
+    hm = MdfHandle()
+    mdf_symbolic(hm, A)
+    Lm, Um = mdf_numeric(hm, A)
+    assert Lm.device == A.device and sorted(hm.permutation.tolist()) == list(range(A.nrows))
+    h = SpilukHandle(1)
+    spiluk_symbolic(h, A)
+    plan = build_iluk_refresh(h, A)
+    A2 = A.with_values(2 * A.values)
+    Lr, Ur = refresh_to_csr(plan, *spiluk_refresh(plan, A2.values))
+    L2, U2 = spiluk_numeric(h, A2)
+    for got, want in ((Lr, L2), (Ur, U2)):
+        w = want.to_scipy()
+        assert abs(got.to_scipy() - w).max() <= 1e-12 * abs(w).max()
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64], ids=["f32", "f64"])
+def test_supernodal_dag_kernels_match_plain(dev, dtype):
+    """The three launches of a fused supernodal solve, each on the inputs the
+    solve gives it: K5 feeds b and the zero slot into the DAG (exact), K4
+    solves the 2n-row DAG (M(T)⁻¹ bound), K5 reads x from the x-rows (exact);
+    for the DAG built from f32 and from f64 values."""
+    from tpukk_torch.sparse.sptrsv_supernodal import build_supernodal_fused_plan
+
+    tdt = torch.float32 if dtype == np.float32 else torch.float64
+    for lower, T in _splu_factors(30, dtype):
+        T.sort_indices()
+        n = T.shape[0]
+        fp = build_supernodal_fused_plan(T.indptr, T.indices, T.data, n, lower, 32, device=dev)
+        assert fp.dtype == tdt and fp.num_rows_dag == 2 * n
+        bext = torch.nn.functional.pad(_x(n, tdt, dev, seed=5), (0, 1))
+        bdag = ks.permute_gather(fp.src_in, bext)
+        assert torch.equal(bdag, ks.permute_plain(fp.src_in, bext))
+        xdag = ks.sptrsv_levels(fp.plan, bdag)
+        plain = ks.sptrsv_plain(fp.plan, bdag)
+        torch.cuda.synchronize()
+        assert bool(((xdag - plain).abs().double() <= ks.solve_error_bound(fp.plan, xdag)).all())
+        assert torch.equal(ks.permute_gather(fp.src_out, xdag), ks.permute_plain(fp.src_out, xdag))
+
+
+def test_par_ilut_on_the_card_equals_the_cpu(dev):
+    """PAR_ILUT's sweeps, prune and residual on the card against the same
+    numeric phase on the CPU: equal patterns, values within 1e-8."""
+    from tpukk_torch.sparse import ParIlutHandle, par_ilut_numeric, par_ilut_symbolic
+
+    Ac = tkc.generate_diag_dominant_csr(600, 6, dtype=np.float64, seed=3, device="cpu")
+    out = {}
+    for d in (dev, "cpu"):
+        h = ParIlutHandle(max_iters=5, residual_tol=1e-12, fill_factor=2.0)
+        A = tkc.CsrMatrix.from_scipy(Ac.to_scipy(), device=d)
+        par_ilut_symbolic(h, A)
+        out[str(d)] = (h, *par_ilut_numeric(h, A))
+    (hg, Lg, Ug), (hc, Lc, Uc) = out[str(dev)], out["cpu"]
+    assert hg.num_iters == hc.num_iters
+    assert abs(hg.final_residual - hc.final_residual) <= 1e-8 * hc.final_residual
+    for G, W in ((Lg, Lc), (Ug, Uc)):
+        g, w = G.to_scipy(), W.to_scipy()
+        assert np.array_equal(g.indptr, w.indptr) and np.array_equal(g.indices, w.indices)
+        assert abs(g - w).max() <= 1e-8 * abs(w).max()

@@ -138,12 +138,24 @@ def test_levels_and_level_plan_from_tpukk(lower, rng):
 
 
 def test_sptrsv_refuses_zero_diagonal_and_supernodal():
+    """A zero pivot is refused by both algorithms; SUPERNODAL solves a
+    well-posed triangle (tests/test_torch_supernodal.py holds it to tpukk)."""
     T = sps.csr_matrix(np.array([[1.0, 0, 0], [1.0, 0.0, 0], [0, 2.0, 3.0]]))
     T.eliminate_zeros()
     with pytest.raises(TpuKKError, match="zero diagonal in level 1"):
         sptrsv_symbolic(SptrsvHandle(lower=True), tkc.CsrMatrix.from_scipy(T, device=CPU))
-    with pytest.raises(NotImplementedError, match="A10"):
-        SptrsvHandle(algorithm=SptrsvAlgorithm.SUPERNODAL)
+    with pytest.raises(TpuKKError, match="diagonal"):
+        sptrsv_symbolic(SptrsvHandle(algorithm=SptrsvAlgorithm.SUPERNODAL),
+                        tkc.CsrMatrix.from_scipy(T, device=CPU))
+    T.setdiag([1.0, 2.0, 3.0])
+    b = np.array([1.0, 2.0, 3.0])
+    for dt in (np.float32, np.float64):
+        h = SptrsvHandle(algorithm=SptrsvAlgorithm.SUPERNODAL)
+        Tt = tkc.CsrMatrix.from_scipy(T.astype(dt), device=CPU)
+        sptrsv_symbolic(h, Tt)
+        assert h.sn_plan is not None and h.num_levels >= 1
+        x = sptrsv_solve(h, Tt, torch.from_numpy(b.astype(dt)))
+        assert _rel(x.numpy(), spla.spsolve_triangular(T.tocsr(), b, lower=True)) <= 1e-6
 
 
 # ---------------------------------------------------------------------------
@@ -249,6 +261,9 @@ def test_spiluk_factors_match_tpukk(k):
 
 
 def test_spiluk_f32_casts_and_refresh_is_not_ported():
+    """f32 factors stay f32; the device refresh (ported: the name is kept)
+    refactors new f32 values as spiluk_numeric does (1e-5 of max|U|: f32
+    against the host's f64 factorization cast to f32)."""
     Aj = jkc.generate_diag_dominant_csr(40, 4, dtype=np.float32, seed=5)
     At = _port(Aj)
     h = SpilukHandle(0)
@@ -256,10 +271,15 @@ def test_spiluk_f32_casts_and_refresh_is_not_ported():
     L, U = spiluk_numeric(h, At)
     assert L.dtype == U.dtype == torch.float32
     assert np.allclose(L.to_scipy().diagonal(), 1.0)
-    with pytest.raises(NotImplementedError, match="A12"):
-        tspiluk.build_iluk_refresh(h, At)
-    with pytest.raises(NotImplementedError, match="A12"):
-        tspiluk.spiluk_refresh(None, None)
+    plan = tspiluk.build_iluk_refresh(h, At)
+    A2 = At.with_values(1.5 * At.values)
+    lv, uv = tspiluk.spiluk_refresh(plan, A2.values)
+    assert lv.dtype == uv.dtype == torch.float32
+    Lr, Ur = tspiluk.refresh_to_csr(plan, lv, uv)
+    L2, U2 = spiluk_numeric(h, A2)
+    scale = np.abs(U2.to_scipy().data).max()
+    assert abs(Lr.to_scipy() - L2.to_scipy()).max() <= 1e-5 * scale
+    assert abs(Ur.to_scipy() - U2.to_scipy()).max() <= 1e-5 * scale
 
 
 # ---------------------------------------------------------------------------

@@ -67,6 +67,9 @@ SOURCES = {
     "spgemm": {
         "tpukk_spgemm_pair_sum": [_I, _I, _P, _P, _P, _P, _P, _P, _I64, _P],
     },
+    "probe": {
+        "tpukk_probe_gather_acc": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    },
 }
 # C signatures and return types of the host planners (csrc/host.cpp)
 HOST_SOURCES = {
@@ -81,6 +84,7 @@ HOST_SOURCES = {
         "tpukk_spgemm_symbolic_count": ([_I64, _P, _P, _I64, _P, _P, _P], ctypes.c_int64),
         "tpukk_spgemm_pairs": ([_I64, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _P], None),
         "tpukk_triangle_count": ([_I64, _P, _P, _P], ctypes.c_int64),
+        "tpukk_mdf_order": ([_I64, _P, _P, _P, _P], None),
     },
 }
 

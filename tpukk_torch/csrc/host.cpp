@@ -14,10 +14,11 @@
 //   * tpukk_spgemm_symbolic_count, tpukk_spgemm_pairs  C's pattern and the
 //                          pair plan of C = A·B       (sparse/spgemm.py)
 //   * tpukk_triangle_count  triangles per row          (graph/triangle.py)
+//   * tpukk_mdf_order      minimum-discarded-fill order  (sparse/mdf.py)
 // The Python plain versions beside their callers (_iluk_pattern, the
 // dense-row IKJ numeric, scipy's RCM, the greedy loop serial_greedy_plain,
-// the numpy SpGEMM symbolic symbolic_plain, the numpy wedge count) are what
-// the tests hold these against.
+// the numpy SpGEMM symbolic symbolic_plain, the numpy wedge count, the heap
+// loop mdf_order_plain) are what the tests hold these against.
 //
 // Build (tpukk_torch/_kernels.py does this at first use):
 //   g++ -O3 -shared -fPIC -std=c++17 -o build/tpukk_torch/libhost.so host.cpp
@@ -27,6 +28,8 @@
 #include <cstdint>
 #include <cstring>
 #include <limits>
+#include <queue>
+#include <tuple>
 #include <vector>
 
 extern "C" {
@@ -461,6 +464,117 @@ int64_t tpukk_triangle_count(int64_t n, const int32_t* row_map,
     total += cnt;
   }
   return total;
+}
+
+// ---------------------------------------------------------------------------
+// MDF (minimum discarded fill) greedy elimination order (sparse/mdf.py;
+// role of sparse/impl/KokkosSparse_mdf_impl.hpp).  Pattern-restricted
+// incomplete elimination: scores cached in a lazy-invalidation min-heap,
+// recomputed only for the eliminated vertex's live row/column neighbors.
+// Matches the plain version's order (sparse/mdf.py: mdf_order_plain)
+// exactly (same (score, stamp, vertex) tie-breaking).
+void tpukk_mdf_order(int64_t n, const int32_t* rm, const int32_t* ci,
+                     const double* vals_in, int32_t* order_out) {
+  const int64_t nnz = rm[n];
+  std::vector<double> vals(vals_in, vals_in + nnz);
+  // CSC pattern
+  std::vector<int64_t> cc(n + 1, 0);
+  std::vector<int32_t> ri(nnz);
+  for (int64_t p = 0; p < nnz; ++p) cc[ci[p] + 1]++;
+  for (int64_t j = 0; j < n; ++j) cc[j + 1] += cc[j];
+  {
+    std::vector<int64_t> w(cc.begin(), cc.end() - 1);
+    for (int64_t i = 0; i < n; ++i)
+      for (int32_t p = rm[i]; p < rm[i + 1]; ++p) ri[w[ci[p]]++] = (int32_t)i;
+  }
+  auto pos = [&](int32_t i, int32_t j) -> int64_t {
+    const int32_t* b = ci + rm[i];
+    const int32_t* e = ci + rm[i + 1];
+    const int32_t* it = std::lower_bound(b, e, j);
+    return (it != e && *it == j) ? (int64_t)(it - ci) : -1;
+  };
+  std::vector<int64_t> diag(n);
+  for (int64_t i = 0; i < n; ++i) diag[i] = pos((int32_t)i, (int32_t)i);
+  std::vector<char> alive(n, 1);
+  std::vector<int64_t> stamp(n, 0);
+  std::vector<int32_t> R, C;
+  std::vector<double> rv;
+  auto gather = [&](int32_t v) {
+    R.clear(); C.clear(); rv.clear();
+    for (int64_t p = cc[v]; p < cc[v + 1]; ++p) {
+      int32_t r = ri[p];
+      if (alive[r] && r != v) R.push_back(r);
+    }
+    for (int32_t p = rm[v]; p < rm[v + 1]; ++p) {
+      int32_t c = ci[p];
+      if (alive[c] && c != v) { C.push_back(c); rv.push_back(vals[p]); }
+    }
+  };
+  auto score = [&](int32_t v) -> double {
+    int64_t dp = diag[v];
+    double piv = dp >= 0 ? vals[dp] : 0.0;
+    if (piv == 0.0) return std::numeric_limits<double>::infinity();
+    gather(v);
+    if (R.empty() || C.empty()) return 0.0;
+    double s = 0.0;
+    for (int32_t r : R) {
+      double cv = vals[pos(r, v)];
+      for (size_t t = 0; t < C.size(); ++t) {
+        if (pos(r, C[t]) < 0) {
+          double u = cv * rv[t] / piv;
+          s += u * u;
+        }
+      }
+    }
+    return s;
+  };
+  using Item = std::tuple<double, int64_t, int32_t>;
+  std::priority_queue<Item, std::vector<Item>, std::greater<Item>> heap;
+  for (int64_t v = 0; v < n; ++v) heap.emplace(score((int32_t)v), 0, (int32_t)v);
+  std::vector<int32_t> Rv, Cv;
+  std::vector<double> rvv;
+  std::vector<char> bumped(n, 0);
+  for (int64_t step = 0; step < n; ++step) {
+    int32_t v = -1;
+    while (!heap.empty()) {
+      Item it = heap.top();
+      heap.pop();
+      int32_t u = std::get<2>(it);
+      if (alive[u] && std::get<1>(it) == stamp[u]) { v = u; break; }
+    }
+    if (v < 0)
+      for (int64_t u = 0; u < n; ++u)
+        if (alive[u]) { v = (int32_t)u; break; }
+    order_out[step] = v;
+    int64_t dp = diag[v];
+    double piv = (dp >= 0 && vals[dp] != 0.0) ? vals[dp] : 1.0;
+    gather(v);
+    Rv = R; Cv = C; rvv = rv;
+    for (int32_t r : Rv) {
+      double cv = vals[pos(r, v)];
+      for (size_t t = 0; t < Cv.size(); ++t) {
+        int64_t pc = pos(r, Cv[t]);
+        if (pc >= 0) vals[pc] -= cv * rvv[t] / piv;
+      }
+    }
+    alive[v] = 0;
+    for (int32_t u : Rv) {
+      if (alive[u] && !bumped[u]) {
+        bumped[u] = 1;
+        stamp[u]++;
+        heap.emplace(score(u), stamp[u], u);
+      }
+    }
+    for (int32_t u : Cv) {
+      if (alive[u] && !bumped[u]) {
+        bumped[u] = 1;
+        stamp[u]++;
+        heap.emplace(score(u), stamp[u], u);
+      }
+    }
+    for (int32_t u : Rv) bumped[u] = 0;
+    for (int32_t u : Cv) bumped[u] = 0;
+  }
 }
 
 }  // extern "C"

@@ -1,5 +1,5 @@
 """Host planners in C++ — counterpart of ``tpukk/native`` (the subset the
-ILU(k)-GMRES, Gauss-Seidel and SpGEMM slices use).
+ILU(k)-GMRES, Gauss-Seidel, SpGEMM and factor-and-solve slices use).
 
 The library is ``csrc/host.cpp``, built with g++ at first use into
 ``build/tpukk_torch/`` (``_kernels.py``), never beside the source.  Unlike
@@ -9,7 +9,7 @@ Those stay beside their callers as the plain versions the tests hold these
 against (``sparse/spiluk.py``: ``_iluk_pattern``, ``_ilu_numeric_plain``;
 ``graph/ordering.py``: ``rcm_plain``; ``graph/coloring.py``:
 ``serial_greedy_plain``; ``sparse/spgemm.py``: ``symbolic_plain``;
-``graph/triangle.py``: ``count_plain``).
+``graph/triangle.py``: ``count_plain``; ``sparse/mdf.py``: ``mdf_order_plain``).
 """
 from __future__ import annotations
 
@@ -19,7 +19,7 @@ from . import _kernels
 from .common import TpuKKError
 
 __all__ = ["iluk_symbolic", "ilu_numeric", "iluk_depth", "rcm", "d1_greedy_color",
-           "d2_greedy_color", "spgemm_symbolic", "triangle_count"]
+           "d2_greedy_color", "spgemm_symbolic", "triangle_count", "mdf_order"]
 
 
 def _lib():
@@ -132,3 +132,14 @@ def triangle_count(row_map, entries, n: int):
     per_row = np.zeros(n, np.int64)
     total = _lib().tpukk_triangle_count(n, rm.ctypes.data, ent.ctypes.data, per_row.ctypes.data)
     return int(total), per_row
+
+
+def mdf_order(indptr, indices, values, n: int) -> np.ndarray:
+    """The minimum-discarded-fill greedy elimination order (int32, order[step]
+    = the vertex eliminated at that step) of a square CSR matrix with sorted
+    columns, f64 values."""
+    rm, ci = _i32(indptr), _i32(indices)
+    vals = np.ascontiguousarray(values, np.float64)
+    order = np.empty(n, np.int32)
+    _lib().tpukk_mdf_order(n, rm.ctypes.data, ci.ctypes.data, vals.ctypes.data, order.ctypes.data)
+    return order

@@ -8,6 +8,11 @@ CSR plan of the strict triangle (``sptrsv_cuda.build_level_plan``).  Solve is
 three launches: K5 puts b in level order, K4 solves the whole triangle in one
 launch, K5 puts x back in natural order — the steps of ``tpukk``'s
 ``fused_sptrsv_solve`` (sptrsv_pallas.py:646-680).  f32 and f64, 1-D b.
+
+SUPERNODAL builds a supernodal plan instead (``sptrsv_supernodal``): for f32
+values the expanded supernodal DAG on the same three launches, for f64 the
+batched per-level plan.  A handle's ``sn_partition`` (set by
+``sptrsv_cholmod``) imports the supernode partition.
 """
 from __future__ import annotations
 
@@ -20,14 +25,16 @@ from ..common import check
 from ..common.tracing import annotate
 from ..containers import CsrMatrix
 from .sptrsv_cuda import LevelPlan, build_level_plan, permute_gather, sptrsv_levels
+from .sptrsv_supernodal import build_supernodal_plan, supernodal_solve
 
 __all__ = ["SptrsvHandle", "SptrsvAlgorithm", "sptrsv_symbolic", "sptrsv_solve"]
 
 
 class SptrsvAlgorithm(enum.Enum):
     """cf. SPTRSVAlgorithm, sptrsv_handle.hpp:42-51.  SEQLVLSCHD covers the
-    SEQLVLSCHD_RP/TP1/TP1CHAIN family; SUPERNODAL (the supernode-blocked
-    solves) is not ported yet (ROADMAP queue A, item A10)."""
+    SEQLVLSCHD_RP/TP1/TP1CHAIN family; SUPERNODAL covers
+    SUPERNODAL_NAIVE/ETREE/DAG/SPMV (supernode-blocked solves,
+    ``sptrsv_supernodal``)."""
     SEQLVLSCHD = "lvlsched"
     SUPERNODAL = "supernodal"
 
@@ -38,9 +45,6 @@ class SptrsvHandle:
     def __init__(self, lower: bool = True,
                  algorithm: SptrsvAlgorithm = SptrsvAlgorithm.SEQLVLSCHD,
                  supernode_max_size: int = 64):
-        if algorithm is SptrsvAlgorithm.SUPERNODAL:
-            raise NotImplementedError(
-                "the supernodal triangular solve is not ported yet (ROADMAP queue A, item A10)")
         self.lower = lower
         self.algorithm = algorithm
         self.supernode_max_size = supernode_max_size
@@ -50,6 +54,8 @@ class SptrsvHandle:
         self.order = None       # host (n,) int32: level-order position -> row
         self.inv_order = None   # host (n,) int32: row -> level-order position
         self._plans: dict = {}  # compute dtype -> LevelPlan
+        self.sn_plan = None     # SUPERNODAL: SupernodalPlan or FusedSupernodalPlan
+        self.sn_partition = None  # SUPERNODAL: imported supernode id per column
 
     def plan_for(self, dtype: torch.dtype) -> LevelPlan:
         """The plan with values in ``dtype`` (built from the symbolic plan
@@ -103,6 +109,13 @@ def sptrsv_symbolic(handle: SptrsvHandle, A: CsrMatrix):
     rm, ent, vals = A.host_row_map(), A.host_entries(), A.host_values()
     if vals.dtype not in (np.float32, np.float64):
         vals = vals.astype(np.float32)  # bf16 widens, as at tpukk's plan time
+    if handle.algorithm is SptrsvAlgorithm.SUPERNODAL:
+        handle.sn_plan = build_supernodal_plan(
+            rm, ent, vals, A.nrows, lower=handle.lower, max_size=handle.supernode_max_size,
+            sn_of_col=handle.sn_partition, device=A.device)
+        handle.num_levels = handle.sn_plan.num_levels_sn
+        handle.is_symbolic_called = True
+        return
     levels = _compute_levels(rm, ent, A.nrows, handle.lower)
     plan = build_level_plan(rm, ent, vals, A.nrows, levels, handle.lower, A.device)
     handle.plan = plan
@@ -122,6 +135,8 @@ def sptrsv_solve(handle: SptrsvHandle, A: CsrMatrix, b: torch.Tensor) -> torch.T
     check(handle.is_symbolic_called, "sptrsv_solve: symbolic first")
     check(isinstance(b, torch.Tensor) and b.ndim == 1,
           "sptrsv_solve: b must be a rank-1 torch tensor")
+    if handle.algorithm is SptrsvAlgorithm.SUPERNODAL:
+        return supernodal_solve(handle.sn_plan, b)
     check(b.shape[0] == handle.plan.n, f"sptrsv_solve: b has {b.shape[0]} rows, "
           f"the matrix {handle.plan.n}")
     check(b.device == handle.plan.vals.device,

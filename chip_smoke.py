@@ -20,12 +20,15 @@ MIS2, POINT / CLUSTER / TWOSTAGE sweeps, GsPrec-PCG on both matrices, SpMM
 on the ONEHOT route; A·A through SpgemmHandle(KK) on the Laplacian, the random
 matrix and the FEM matrix, DIA SpGEMM on a 1M-row band, P = (I - ωD⁻¹A)·P_tent
 and Pᵀ·A·P on the FEM matrix, SpADD, triangles of the FEM graph; SUPERNODAL
-against SEQLVLSCHD solves of the FEM matrix's SuperLU factors, superlu_import
-in GMRES, an imported CHOLMOD-format Cholesky factor in PCG, PAR_ILUT and MDF
-factors in GMRES, the ILU(1) refresh; the probe's three variants), checks every
-result on the host with scipy, times each kernel, its plain version and the torch
-call that computes the same function, profiles one PCG and one GMRES
-iteration, and prints one JSON line per phase.  The last two lines are the
+(the DAG, f32 and f64, held in f64 to the batched plan) against SEQLVLSCHD
+solves of the FEM matrix's SuperLU factors, superlu_import in GMRES, an
+imported CHOLMOD-format Cholesky factor in PCG, PAR_ILUT and MDF factors in
+GMRES, the ILU(1) refresh; the probe's three variants), checks every result
+on the host with scipy, asserts that a triangular solve is one K4 launch and
+an LUPrec apply two, times each kernel, its plain version and the torch call
+that computes the same function (K4 also per level, beside the chain's floor
+on a bidiagonal triangle), profiles one PCG and one GMRES iteration, and
+prints one JSON line per phase.  The last two lines are the
 card's name and power limit as nvidia-smi reports them, and the result line.  Any failed check exits
 non-zero.  Without a CUDA device it exits 1 and prints no result.  It imports
 nothing of JAX or of tpukk.
@@ -316,12 +319,18 @@ def main() -> int:
     emit("ilu0_factors", seconds=time.perf_counter() - t0,
          nnz={k: [L.nnz, U.nnz] for k, (L, U) in ilu.items()})
 
-    def hold_trsv(label, plan, b, got, plain):
-        """|x - x_plain| <= M(T)⁻¹·(40·eps·|T||x|) elementwise, M(T) the
-        comparison matrix (ks.solve_error_bound)."""
+    def hold_trsv(label, plan, b, src=None, dst=None):
+        """K4 through the folded call a solve makes (b read through src, x
+        written through dst) against its plain version on the same inputs:
+        |x - x_plain| <= M(T)⁻¹·(40·eps·|T||x|) elementwise, M(T) the
+        comparison matrix (ks.solve_error_bound of the plain version's
+        level-order x, carried through dst)."""
+        got = ks.sptrsv_levels(plan, b, src, dst)
+        xl = ks.sptrsv_plain(plan, b, src)
         torch.cuda.synchronize()
         dt = b.dtype
-        tol = ks.solve_error_bound(plan, got)
+        plain = ks.scatter_dst(xl, dst, b.shape[0])
+        tol = ks.scatter_dst(ks.solve_error_bound(plan, xl), dst, b.shape[0])
         err = (got - plain).abs().double()
         ok = bool((err <= tol).all())
         errs["sptrsv_levels"] = max(errs["sptrsv_levels"], float(err.max()))
@@ -362,16 +371,22 @@ def main() -> int:
             sptrsv_symbolic(hs, T)
             trsv_plans[f"{label} {tri}"] = (hs, T)
             bp = vec2(T.nrows, T.dtype)
-            hold_trsv(f"{label} ILU(0) {tri}, {hs.num_levels} levels", hs.plan, bp,
-                      ks.sptrsv_levels(hs.plan, bp), ks.sptrsv_plain(hs.plan, bp))
-            b = vec2(T.nrows, T.dtype)
-            residual_check(f"sptrsv_solve {label} ILU(0) {tri}", T, sptrsv_solve(hs, T, b), b)
+            hold_trsv(f"{label} ILU(0) {tri}, {hs.num_levels} levels, src = dst = order",
+                      hs.plan, bp, hs.plan.order, hs.plan.order)
     perm1m = torch.from_numpy(rng2.permutation(1_000_000).astype(np.int32)).to(dev)
     for dt in (torch.float32, torch.float64):
         hold_perm("random permutation of 1,000,000", perm1m, vec2(1_000_000, dt))
     after = ks.launch_counts()
     require(all(after[k] > before[k] for k in after), f"a launch counter did not rise: {after}")
     emit("kernels_checked_trsv", launches=after)
+    # a triangular solve is one K4 launch: b and x go through the level order in it
+    for key, (hs, T) in trsv_plans.items():
+        bt = vec2(T.nrows, T.dtype)
+        xt_, counts, _ = counted(f"sptrsv_solve {key}", lambda: sptrsv_solve(hs, T, bt),
+                                 ("sptrsv_levels",))
+        require(counts["sptrsv_levels"] == 1 and sum(counts.values()) == 1,
+                f"sptrsv_solve {key}: {counts}, not one K4 launch")
+        residual_check(f"sptrsv_solve {key} ILU(0)", T, xt_, bt)
 
     # ---- 3c. the ILU(0)-GMRES path and the RCM route ---------------------------
     def host_rel(A, x, b):
@@ -379,16 +394,23 @@ def main() -> int:
         bh = b.double().cpu().numpy()
         return float(np.linalg.norm(bh - sp @ x.double().cpu().numpy()) / np.linalg.norm(bh))
 
-    gmres_needs = ("sptrsv_levels", "permute_gather")
+    gmres_needs = ("sptrsv_levels",)
     t = time.perf_counter()
     prec_f = LUPrec(*ilu["fem2d_30k f64"])
     setup_s = time.perf_counter() - t
+    # one apply is two K4 launches (L, then U), the level orders folded in
+    _, counts, _ = counted("LUPrec apply", lambda: prec_f.apply(vec2(fem.nrows, torch.float64)),
+                           ("sptrsv_levels",))
+    require(counts["sptrsv_levels"] == 2 and sum(counts.values()) == 2,
+            f"LUPrec apply: {counts}, not two K4 launches")
+    emit("main_luprec_apply", matrix="fem2d_30k f64 ILU(0)", launches=counts)
     bg = torch.from_numpy(np.random.default_rng(0).standard_normal(fem.nrows)).to(dev)
     hg = GmresHandle(m=50, tol=1e-8, max_restarts=150)
     (xg, stg), counts, wall = counted("gmres fem2d_30k", lambda: gmres(hg, fem, bg, prec=prec_f),
                                       ("csr_spmv", *gmres_needs))
     rel = host_rel(fem, xg, bg)
     require(stg.converged and rel <= 2e-8, f"gmres fem2d_30k: {stg}, host residual {rel}")
+    require(counts["permute_gather"] == 0, f"gmres fem2d_30k: K5 launched {counts}")
     emit("main_gmres_ilu0_fem2d_30k", iters=stg.num_iters, tpukk_cpu_iters=3950,
          within_one_cycle_of_tpukk=abs(stg.num_iters - 3950) <= 50,
          rel_res_reported=stg.end_rel_res, rel_res_host=rel, seconds=wall,
@@ -807,37 +829,35 @@ def main() -> int:
     from tpukk_torch.graph import permute_matrix
     from tpukk_torch.sparse import cholmod_raw_to_csr
     from tpukk_torch.sparse.sptrsv_supernodal import (FusedSupernodalPlan, _detect_supernodes,
-                                                      build_supernodal_fused_plan,
-                                                      supernodal_solve)
+                                                      build_supernodal_plan, supernodal_solve)
 
-    def solve_vs_scipy(label, Tsp, x, b, lower):
-        """|x - x_scipy| <= M(T)⁻¹·(40·eps·|T||x|) elementwise (M(T) the
-        comparison matrix), in f64 on the host; x_scipy = spsolve_triangular."""
+    def solve_vs_scipy(label, Tsp, x, b, lower, ref=None, c=40):
+        """|x - x_ref| <= M(T)⁻¹·(c·eps·|T||x|) elementwise (M(T) the
+        comparison matrix), in f64 on the host; x_ref = spsolve_triangular
+        (c = 40), or another solve, each within 40 of the exact one (c = 80)."""
         T64 = Tsp.astype(np.float64).tocsr()
         xh, bh = x.double().cpu().numpy(), b.double().cpu().numpy()
-        ref = spla.spsolve_triangular(T64, bh, lower=lower)
+        against = "spsolve_triangular in f64" if ref is None else "the batched plan"
+        ref = spla.spsolve_triangular(T64, bh, lower=lower) if ref is None \
+            else ref.double().cpu().numpy()
         Ta = abs(T64).tocsr()
         M = -Ta                      # the diagonal is stored: setdiag keeps the pattern
         M.setdiag(Ta.diagonal())
-        tol = spla.spsolve_triangular(M, 40 * torch.finfo(x.dtype).eps * (Ta @ np.abs(xh)),
+        tol = spla.spsolve_triangular(M, c * torch.finfo(x.dtype).eps * (Ta @ np.abs(xh)),
                                       lower=lower)
         ratio = float((np.abs(xh - ref) / np.maximum(tol, 1e-300)).max())
-        require(ratio <= 1.0, f"{label}: x differs from scipy's beyond M(T)^-1(40 eps |T||x|)"
+        require(ratio <= 1.0, f"{label}: x differs from {against} beyond M(T)^-1({c} eps |T||x|)"
                 f" ({ratio})")
-        return dict(max_abs_err_vs_scipy=float(np.abs(xh - ref).max()), max_err_over_tol=ratio,
-                    tol="M(T)^-1 (40*eps*|T||x|)_i vs spsolve_triangular in f64")
+        return dict(max_abs_err=float(np.abs(xh - ref).max()), max_err_over_tol=ratio,
+                    tol=f"M(T)^-1 ({c}*eps*|T||x|)_i vs {against}")
 
     def hold_dag(label, fp, b):
-        """A fused supernodal solve's three launches, each against its plain
-        version on the same inputs: K5 feeds b and the zero slot n into the
-        DAG's z-rows, K4 solves the 2n-row DAG, K5 reads x from the x-rows."""
-        bext = torch.nn.functional.pad(b.to(fp.dtype), (0, 1))
-        bdag = hold_perm(f"{label}: b into the DAG, {fp.n + 1} -> {fp.num_rows_dag}",
-                         fp.src_in, bext)
-        xdag = ks.sptrsv_levels(fp.plan, bdag)
-        hold_trsv(f"{label}: supernodal DAG, {fp.num_rows_dag} rows, {fp.num_levels} levels",
-                  fp.plan, bdag, xdag, ks.sptrsv_plain(fp.plan, bdag))
-        hold_perm(f"{label}: x from the DAG, {fp.num_rows_dag} -> {fp.n}", fp.src_out, xdag)
+        """A fused supernodal solve's one K4 launch against its plain version
+        on the same inputs: b read through src into the z-rows (the x-rows
+        read the zero slot, src -1), x written from the x-rows through dst."""
+        hold_trsv(f"{label}: supernodal DAG, {fp.num_rows_dag} rows, {fp.num_levels} levels, "
+                  f"b through src (zero slot), x through dst", fp.plan, b.to(fp.dtype),
+                  fp.src, fp.dst)
 
     t = time.perf_counter()
     lu = spla.splu(fem.to_scipy().tocsc())
@@ -854,58 +874,55 @@ def main() -> int:
             hn = SptrsvHandle(lower=lower, algorithm=SptrsvAlgorithm.SUPERNODAL)
             sptrsv_symbolic(hn, Tsn)
             plan_s = time.perf_counter() - t
-            fused = isinstance(hn.sn_plan, FusedSupernodalPlan)
-            require(fused == (dt == np.float32), f"supernodal {tri} {dt}: wrong route")
+            sp = hn.sn_plan
+            require(isinstance(sp, FusedSupernodalPlan) and sp.dtype == Tsn.dtype,
+                    f"supernodal {tri} {dt}: not the DAG in {dt.__name__}")
             case = f"fem2d_30k SuperLU {tri} {dt.__name__}"
             bp = vec2(Tsn.nrows, Tsn.dtype)
-            hold_trsv(f"{case} SEQLVLSCHD, {hs.num_levels} levels", hs.plan, bp,
-                      ks.sptrsv_levels(hs.plan, bp), ks.sptrsv_plain(hs.plan, bp))
-            if fused:
-                hold_dag(case, hn.sn_plan, vec2(Tsn.nrows, Tsn.dtype))
+            hold_trsv(f"{case} SEQLVLSCHD, {hs.num_levels} levels, src = dst = order", hs.plan, bp,
+                      hs.plan.order, hs.plan.order)
+            hold_dag(case, sp, vec2(Tsn.nrows, Tsn.dtype))
             bsn = vec2(Tsn.nrows, Tsn.dtype)
             xsn, counts, wall = counted(f"supernodal {tri} {dt.__name__}",
-                                        lambda: sptrsv_solve(hn, Tsn, bsn),
-                                        ("sptrsv_levels", "permute_gather") if fused else ())
-            if fused:
-                require(counts["sptrsv_levels"] == 1 and counts["permute_gather"] == 2,
-                        f"supernodal {tri}: {counts}, not K5, K4, K5")
+                                        lambda: sptrsv_solve(hn, Tsn, bsn), ("sptrsv_levels",))
+            require(counts["sptrsv_levels"] == 1 and sum(counts.values()) == 1,
+                    f"supernodal {tri}: {counts}, not one K4 launch")
             vs = solve_vs_scipy(f"supernodal {tri} {dt.__name__}", Tsp, xsn, bsn, lower)
             vq = solve_vs_scipy(f"seqlvlschd {tri} {dt.__name__}", Tsp,
                                 sptrsv_solve(hs, Tsn, bsn), bsn, lower)
-            sp = hn.sn_plan
             entry = dict(case=case, nnz=Tsn.nnz,
                          point_levels=hs.num_levels, supernodes=sp.num_supernodes,
                          supernode_levels=sp.num_levels_sn, max_block=sp.max_block,
-                         route="fused DAG on K5, K4, K5" if fused else "batched torch ops",
-                         plan_host_s=plan_s, splu_s=splu_s,
-                         us_per_solve=event_ms(lambda: sptrsv_solve(hn, Tsn, bsn),
-                                               20 if fused else 3) * 1e3,
+                         route="fused DAG, one K4 launch", plan_host_s=plan_s, splu_s=splu_s,
+                         dag_rows=sp.num_rows_dag, dag_k4_levels=sp.num_levels,
+                         dag_nnz_strict=int(sp.plan.cols.shape[0]),
+                         us_per_solve=event_ms(lambda: sptrsv_solve(hn, Tsn, bsn), 20) * 1e3,
                          seqlvlschd_us_per_solve=event_ms(lambda: sptrsv_solve(hs, Tsn, bsn), 20)
                          * 1e3, seqlvlschd_max_err_over_tol=vq["max_err_over_tol"],
-                         launches=counts, **vs)
-            if fused:
-                entry.update(dag_rows=sp.num_rows_dag, dag_k4_levels=sp.num_levels,
-                             dag_nnz_strict=int(sp.plan.cols.shape[0]))
-            else:
-                # the same DAG with f64 values, beside the batched route (not on
-                # the main path: SUPERNODAL sends f64 to the batched plan)
+                         launches=counts, vs_scipy=vs)
+            if dt == np.float64:
+                # the batched plan (fused=False): the plain reference the f64 DAG is held to
                 t = time.perf_counter()
-                fp64 = build_supernodal_fused_plan(Tsp.indptr, Tsp.indices, Tsp.data, Tsn.nrows,
-                                                   lower, 32, device=dev)
-                dag64_s = time.perf_counter() - t
-                require(fp64.dtype == torch.float64, f"f64 DAG {tri}: {fp64.dtype}")
-                hold_dag(f"{case} f64 DAG", fp64, vec2(Tsn.nrows, torch.float64))
-                v64 = solve_vs_scipy(f"f64 DAG {tri}", Tsp, supernodal_solve(fp64, bsn), bsn, lower)
-                entry.update(f64_dag_plan_host_s=dag64_s, f64_dag_k4_levels=fp64.num_levels,
-                             f64_dag_us_per_solve=event_ms(lambda: supernodal_solve(fp64, bsn),
-                                                           20) * 1e3,
-                             f64_dag_max_err_over_tol=v64["max_err_over_tol"])
+                bpl = build_supernodal_plan(Tsp.indptr, Tsp.indices, Tsp.data, Tsn.nrows, lower,
+                                            device=dev, fused=False)
+                batched_s = time.perf_counter() - t
+                xb = supernodal_solve(bpl, bsn)
+                entry.update(batched_plan_host_s=batched_s, batched_levels=bpl.num_levels_sn,
+                             batched_us_per_solve=event_ms(lambda: supernodal_solve(bpl, bsn), 3)
+                             * 1e3,
+                             batched_vs_scipy=solve_vs_scipy(f"batched {tri}", Tsp, xb, bsn, lower),
+                             vs_batched=solve_vs_scipy(f"supernodal {tri} vs batched", Tsp, xsn,
+                                                       bsn, lower, ref=xb, c=80))
+                del bpl
             emit("main_supernodal_fem2d30k", **entry)
             sn_handles[(tri, dt)] = (hn, Tsn)
 
     t = time.perf_counter()
     slu = superlu_import(lu, SptrsvAlgorithm.SUPERNODAL, device=dev)
     import_s = time.perf_counter() - t
+    # K5 at the imported factor's outer permutations (30,000 rows)
+    hold_perm("superlu_import row permutation of 30,000", slu.inv_perm_r,
+              vec2(fem.nrows, torch.float64))
     hg2 = GmresHandle(m=2, tol=1e-8, max_restarts=5)
     (xs_, st_), counts, wall = counted("gmres superlu", lambda: gmres(hg2, fem, bg, prec=slu),
                                        ("csr_spmv", "permute_gather"))
@@ -956,18 +973,18 @@ def main() -> int:
         chol = cholmod_import(**raw, perm=p_chol, algorithm=SptrsvAlgorithm.SUPERNODAL,
                               value_dtype=dt, device=dev)
         import_s = time.perf_counter() - t
-        fused = isinstance(chol.Lh.sn_plan, FusedSupernodalPlan)
-        if fused:
-            for which, hh in (("L", chol.Lh), ("L^T", chol.Lth)):
-                hold_dag(f"fem2d_30k Cholesky {which} {dt.__name__}", hh.sn_plan,
-                         vec2(n, torch.float32))
+        require(isinstance(chol.Lh.sn_plan, FusedSupernodalPlan),
+                f"cholmod {dt.__name__}: not on the DAG")
+        for which, hh in (("L", chol.Lh), ("L^T", chol.Lth)):
+            hold_dag(f"fem2d_30k Cholesky {which} {dt.__name__}", hh.sn_plan,
+                     vec2(n, torch.float64))
         st, rel, counts, wall = solve(f"pcg cholmod {dt.__name__}", fem, bf, chol, 200)
-        require(counts["permute_gather"] > 0 and (counts["sptrsv_levels"] > 0) == fused,
+        require(counts["permute_gather"] > 0 and counts["sptrsv_levels"] > 0,
                 f"pcg cholmod {dt.__name__}: {counts}")
         emit("main_cholmod_fem2d30k", case=f"MMD(A+A^T) + Cholesky L·sqrt(D), {dt.__name__}",
              nnz_L=Lc.nnz, supernodes=len(super_) - 1,
              supernode_levels=[chol.Lh.sn_plan.num_levels_sn, chol.Lth.sn_plan.num_levels_sn],
-             route="fused DAG on K4" if fused else "batched torch ops", factor_s=chol_s,
+             route="fused DAG on K4", factor_s=chol_s,
              import_s=import_s, pcg_iters=st.num_iters, jacobi_iters=jacobi["fem2d_30k"][1],
              rel_res_host=rel, seconds=wall, launches=counts)
 
@@ -1191,73 +1208,87 @@ def main() -> int:
         emit("timing", **row)
         return row
 
-    def k4_row(key, kk, plain_kk):
-        hs, T = trsv_plans[key]
-        plan, dt = hs.plan, T.dtype
-        sz, n, nnz = torch.finfo(dt).bits // 8, T.nrows, hs.plan.cols.shape[0]
-        bp = vec2(n, dt)
+    # the chain's floor: a unit lower-bidiagonal triangle of 262,144 rows has
+    # one row per level, so K4's time over its rows is one level's cost
+    nfl = 262_144
+    rm_fl = np.r_[0, np.arange(1, 2 * nfl, 2)]
+    ent_fl = np.r_[0, np.stack([np.arange(nfl - 1), np.arange(1, nfl)], 1).ravel()]
+    val_fl = np.r_[1.0, np.tile([-0.5, 1.0], nfl - 1)]
+    floor_us = {}
+    for dt in (torch.float64, torch.float32):
+        fl = ks.build_level_plan(rm_fl, ent_fl, val_fl.astype(str(dt).replace("torch.", "")), nfl,
+                                 np.arange(1, nfl + 1), True, dev)
+        bfl = vec2(nfl, dt)
+        ms = event_ms(lambda: ks.sptrsv_levels(fl, bfl), 3)
+        floor_us[dt] = ms * 1e3 / nfl
+        emit("timing_k4_floor", case=f"K4 unit lower-bidiagonal, {nfl} rows = levels, {dt}",
+             ms=ms, us_per_level=floor_us[dt])
+        del fl
+
+    def k4_row(label, plan, src, dst, n_out, kk, plain_kk, lib_T, upper, solve, **extra):
+        """K4 through the folded call a solve makes (b read through src, x
+        written through dst).  Bound: rowptr, cols, vals, invd, src and dst
+        read once, b read and x written once; chain_bound_ms: levels x the
+        bidiagonal floor."""
+        dt = plan.dtype
+        sz, N, nnz = torch.finfo(dt).bits // 8, plan.n, plan.cols.shape[0]
+        bp = vec2(n_out, dt)
 
         def make(i):
-            p = plan if i == 0 else dataclasses.replace(
+            if i == 0:
+                return (lambda: ks.sptrsv_levels(plan, bp, src, dst)), \
+                    (lambda: ks.sptrsv_plain(plan, bp, src, dst))
+            p = dataclasses.replace(
                 plan, rowptr=plan.rowptr.clone(), cols=plan.cols.clone(),
-                vals=plan.vals.clone(), invd=plan.invd.clone(), flags=plan.flags.clone(),
+                vals=plan.vals.clone(), invd=plan.invd.clone(), words=plan.words.clone(),
                 state=plan.state.clone(), _rows=None)
-            bi = bp if i == 0 else bp.clone()
-            return (lambda: ks.sptrsv_levels(p, bi)), (lambda: ks.sptrsv_plain(p, bi))
+            si, di = (None if a is None else a.clone() for a in (src, dst))
+            bi = bp.clone()
+            return (lambda: ks.sptrsv_levels(p, bi, si, di)), \
+                (lambda: ks.sptrsv_plain(p, bi, si, di))
 
         # torch's one call for x = T⁻¹b (sparse CSR T, cuSPARSE), natural order
-        tri = torch.sparse_csr_tensor(T.row_map, T.entries, T.values, T.shape)
-        b2 = bp.reshape(n, 1)
+        tri = torch.sparse_csr_tensor(lib_T.row_map, lib_T.entries, lib_T.values, lib_T.shape)
+        b2 = vec2(lib_T.nrows, dt).reshape(-1, 1)
         try:
-            lib_ms, lib_err = event_ms(
-                lambda: torch.triangular_solve(b2, tri, upper=not hs.lower), 5), None
+            lib_ms, lib_err = event_ms(lambda: torch.triangular_solve(b2, tri, upper=upper), 3), \
+                None
         except (RuntimeError, NotImplementedError) as e:  # the yardstick only
             lib_ms, lib_err = None, str(e)[:200]
-        full_ms = event_ms(lambda: sptrsv_solve(hs, T, bp), 20)
-        return timed_kernel(f"K4 sptrsv_levels {key} ILU(0)", make,
-                            (n + 1) * 4 + nnz * (4 + sz) + 3 * n * sz, 2 * nnz + 2 * n, dt,
-                            kk, plain_kk, lib_ms, levels=hs.num_levels, nnz_strict=nnz,
-                            library="torch.triangular_solve(b, T_csr), natural order",
-                            library_error=lib_err,
-                            sptrsv_solve_ms=full_ms)
+        nbytes = ((N + 1) * 4 + nnz * (4 + sz) + N * sz + 2 * n_out * sz
+                  + 4 * N * ((src is not None) + (dst is not None)))
+        lv = plan.num_levels
+        row = timed_kernel(label, make, nbytes, 2 * nnz + 2 * N, dt, kk, plain_kk, lib_ms,
+                           levels=lv, rows=N, nnz_strict=nnz,
+                           chain_bound_ms=lv * floor_us[dt] * 1e-3,
+                           library="torch.triangular_solve(b, T_csr), natural order",
+                           library_error=lib_err, solve_ms=event_ms(solve, 20), **extra)
+        row.update(us_per_level=row["ms"] * 1e3 / lv,
+                   us_per_level_l2_cold=row["ms_l2_cold"] * 1e3 / lv)
+        emit("timing_k4_per_level", case=label, levels=lv, us_per_level=row["us_per_level"],
+             us_per_level_l2_cold=row["us_per_level_l2_cold"], solve_ms=row["solve_ms"],
+             floor_us_per_level=floor_us[dt])
+        return row
 
-    t_k4 = k4_row("lap1000 f64 L", (2, 6), (1, 3))
-    k4_row("lap1000 f64 U", (2, 6), (1, 3))
-    k4_row("lap1000 f32 L", (2, 6), (1, 3))
-    k4_row("fem2d_30k f64 L", (20, 100), (5, 25))
-    k4_row("fem2d_30k f64 U", (20, 100), (5, 25))
+    def ilu_row(key, kk, plain_kk):
+        hs, T = trsv_plans[key]
+        return k4_row(f"K4 sptrsv_levels {key} ILU(0), src = dst = order", hs.plan,
+                      hs.plan.order, hs.plan.order, T.nrows, kk, plain_kk, T, not hs.lower,
+                      lambda: sptrsv_solve(hs, T, vec_solve[key]))
 
-    def k4_dag_row():
-        """K4 on the expanded supernodal DAG of fem2d_30k's SuperLU L (f32)."""
-        hn, T = sn_handles[("L", np.float32)]
-        plan = hn.sn_plan.plan
-        n, nnz = plan.n, plan.cols.shape[0]
-        bp = vec2(n, torch.float32)
-
-        def make(i):
-            p = plan if i == 0 else dataclasses.replace(
-                plan, rowptr=plan.rowptr.clone(), cols=plan.cols.clone(),
-                vals=plan.vals.clone(), invd=plan.invd.clone(), flags=plan.flags.clone(),
-                state=plan.state.clone(), _rows=None)
-            bi = bp if i == 0 else bp.clone()
-            return (lambda: ks.sptrsv_levels(p, bi)), (lambda: ks.sptrsv_plain(p, bi))
-
-        tri = torch.sparse_csr_tensor(T.row_map, T.entries, T.values, T.shape)
-        b2 = vec2(T.nrows, torch.float32).reshape(-1, 1)
-        try:
-            lib_ms, lib_err = event_ms(lambda: torch.triangular_solve(b2, tri, upper=False), 5), None
-        except (RuntimeError, NotImplementedError) as e:  # the yardstick only
-            lib_ms, lib_err = None, str(e)[:200]
-        bn = b2.reshape(-1)
-        return timed_kernel("K4 sptrsv_levels fem2d_30k SuperLU L f32, supernodal DAG", make,
-                            (n + 1) * 4 + nnz * 8 + 3 * n * 4, 2 * nnz + 2 * n, torch.float32,
-                            (20, 100), (2, 6), lib_ms, levels=plan.num_levels, dag_rows=n,
-                            nnz_strict=nnz, supernode_levels=hn.sn_plan.num_levels_sn,
-                            library="torch.triangular_solve(b, L_csr), natural order, L itself",
-                            library_error=lib_err,
-                            sptrsv_solve_ms=event_ms(lambda: sptrsv_solve(hn, T, bn), 20))
-
-    k4_dag_row()
+    vec_solve = {k: vec2(T.nrows, T.dtype) for k, (_, T) in trsv_plans.items()}
+    t_k4 = ilu_row("lap1000 f64 L", (2, 6), (1, 3))
+    for key in ("lap1000 f64 U", "lap1000 f32 L", "lap1000 f32 U"):
+        ilu_row(key, (2, 6), (1, 3))
+    for key in ("fem2d_30k f64 L", "fem2d_30k f64 U"):
+        ilu_row(key, (20, 100), (5, 25))
+    for (tri, ndt), (hn, T) in sn_handles.items():
+        fp = hn.sn_plan
+        bn = vec2(T.nrows, T.dtype)
+        k4_row(f"K4 sptrsv_levels fem2d_30k SuperLU {tri} {ndt.__name__}, supernodal DAG, b "
+               f"through src, x through dst", fp.plan, fp.src, fp.dst, fp.n, (10, 50), (2, 6), T,
+               tri == "U", lambda: sptrsv_solve(hn, T, bn), dag_rows=fp.num_rows_dag,
+               supernode_levels=fp.num_levels_sn)
 
     def k5_row(label, src, dt):
         n, sz = src.shape[0], torch.finfo(dt).bits // 8
@@ -1275,8 +1306,7 @@ def main() -> int:
 
     t_k5 = k5_row("random permutation of 1,000,000, f64", perm1m, torch.float64)
     k5_row("random permutation of 1,000,000, f32", perm1m, torch.float32)
-    k5_row("fem2d_30k L level order, f64", trsv_plans["fem2d_30k f64 L"][0].plan.order,
-           torch.float64)
+    k5_row("superlu_import row permutation of 30,000, f64", slu.inv_perm_r, torch.float64)
 
     def k6_row(label, blk, n):
         cp = blk.csr

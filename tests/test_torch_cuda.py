@@ -1,9 +1,11 @@
 """tpukk_torch's CUDA kernels on a CUDA device: each kernel against its plain
 version, and the SpMV/PCG, ILU(0)-GMRES and Gauss-Seidel paths (coloring,
 MIS2, sweeps, GsPrec-PCG), SpGEMM (K8, DIA, spgemm_jacobi, SpADD,
-triangles) and the factor-and-solve slice (SUPERNODAL on K4 and K5, SuperLU
-and CHOLMOD imports, PAR_ILUT, MDF, the ILU(k) refresh) through the kernels,
-and the probe kernel K9.  Every test skips without a CUDA device: the
+triangles) and the factor-and-solve slice (SUPERNODAL on K4, SuperLU and
+CHOLMOD imports, PAR_ILUT, MDF, the ILU(k) refresh) through the kernels, and
+the probe kernel K9; K4 with the level permutations folded in (src/dst), at
+each lane width, replayed in a CUDA graph, and trapping on a plan that does
+not order its triangle.  Every test skips without a CUDA device: the
 kernels have no CPU mode.
 
 This file imports neither JAX nor tpukk, so it runs on a GPU host that has
@@ -43,7 +45,7 @@ from tpukk_torch.sparse import gs_cuda as kg
 from tpukk_torch.sparse import spmv_cuda as kc
 from tpukk_torch.sparse import sptrsv_cuda as ks
 from tpukk_torch.sparse import spmv_impl
-from tpukk_torch.sparse.sptrsv import SptrsvHandle, sptrsv_symbolic
+from tpukk_torch.sparse.sptrsv import SptrsvHandle, sptrsv_solve, sptrsv_symbolic
 
 pytestmark = pytest.mark.cuda
 
@@ -151,6 +153,22 @@ def _solve_residual_ok(T, x, b, dtype):
     return bool((np.abs(sp @ xh - bh) <= 20 * torch.finfo(dtype).eps * bound).all())
 
 
+def _held_folded(plan, b, src=None, dst=None):
+    """K4 with src/dst against its plain version under the M(T)⁻¹ bound (the
+    bound of the plain version's level-order x, carried through dst), and
+    three more calls on the same plan (new epochs) giving the same x."""
+    n0 = ks.sptrsv_levels.launches
+    x = ks.sptrsv_levels(plan, b, src, dst)
+    assert ks.sptrsv_levels.launches == n0 + 1
+    xl = ks.sptrsv_plain(plan, b, src)
+    torch.cuda.synchronize()
+    tol = ks.scatter_dst(ks.solve_error_bound(plan, xl), dst, b.shape[0])
+    assert ((x - ks.scatter_dst(xl, dst, b.shape[0])).abs().double() <= tol).all()
+    for _ in range(3):
+        assert torch.equal(ks.sptrsv_levels(plan, b, src, dst), x)
+    return x
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 def test_sptrsv_kernel_matches_plain(dev, dtype):
     mats = [tkc.generate_structured_laplacian(64, 64, dtype=np.float64, device=dev),
@@ -161,40 +179,92 @@ def test_sptrsv_kernel_matches_plain(dev, dtype):
             h = SptrsvHandle(lower=lower)
             sptrsv_symbolic(h, T)
             b = _x(T.nrows, dtype, dev, seed=2)
-            n0 = ks.sptrsv_levels.launches
-            x = ks.sptrsv_levels(h.plan, b)
-            assert ks.sptrsv_levels.launches == n0 + 1
-            xp = ks.sptrsv_plain(h.plan, b)
-            torch.cuda.synchronize()
-            assert ((x - xp).abs().double() <= ks.solve_error_bound(h.plan, x)).all()
+            x = _held_folded(h.plan, b)
             # in level order the plan is strictly lower: check the residual there
             order = h.plan.order.long()
             Tl = tkc.CsrMatrix.from_scipy(T.to_scipy()[order.cpu().numpy()][:, order.cpu().numpy()])
             assert _solve_residual_ok(Tl, x, b, dtype)
-            # a second solve on the same plan (next epoch) gives the same x
-            assert torch.equal(ks.sptrsv_levels(h.plan, b), x)
+            # the level order folded in: b and x in natural order
+            xf = _held_folded(h.plan, b, h.plan.order, h.plan.order)
+            assert torch.equal(xf[order], ks.sptrsv_levels(h.plan, b[order].contiguous()))
+            assert _solve_residual_ok(T, xf, b, dtype)
+            # sptrsv_solve is that one folded launch, no K5
+            ks.reset_launch_counts()
+            assert torch.equal(sptrsv_solve(h, T, b), xf)
+            assert ks.launch_counts() == {"sptrsv_levels": 1, "permute_gather": 0}
 
 
-def test_sptrsv_kernel_replays_in_a_cuda_graph(dev):
+@pytest.mark.parametrize("lanes", [16, 32])
+def test_sptrsv_kernel_every_lane_width(dev, lanes):
+    """K4 at each lane width it takes, whatever the plan's own choice: rows
+    shorter and longer than the group (ILU(0) factors, a supernodal DAG)."""
+    from tpukk_torch.sparse.sptrsv_supernodal import build_supernodal_fused_plan
+
+    A = tkc.generate_diag_dominant_csr(3000, 8, dtype=np.float64, seed=5, device=dev)
+    for lower, T in zip((True, False), _ilu0(A)):
+        h = SptrsvHandle(lower=lower)
+        sptrsv_symbolic(h, T)
+        plan = dataclasses.replace(h.plan, lanes=lanes)
+        _held_folded(plan, _x(T.nrows, torch.float64, dev, seed=2), plan.order, plan.order)
+    for lower, T in _splu_factors(30, np.float32):
+        T.sort_indices()
+        fp = build_supernodal_fused_plan(T.indptr, T.indices, T.data, T.shape[0], lower, 32,
+                                         device=dev)
+        plan = dataclasses.replace(fp.plan, lanes=lanes)
+        _held_folded(plan, _x(T.shape[0], torch.float32, dev, seed=3), fp.src, fp.dst)
+
+
+@pytest.mark.parametrize("folded", [False, True], ids=["level-order", "folded"])
+def test_sptrsv_kernel_replays_in_a_cuda_graph(dev, folded):
+    """A captured K4 launch replays with the epoch it advances itself, on a
+    new b each time, and equals an eager call on that b."""
     A = tkc.generate_structured_laplacian(40, 40, dtype=np.float64, device=dev)
     L, _ = _ilu0(A)
     h = SptrsvHandle(lower=True)
     sptrsv_symbolic(h, L)
+    idx = (h.plan.order, h.plan.order) if folded else (None, None)
     b = _x(L.nrows, torch.float64, dev, seed=3)
-    ref = ks.sptrsv_levels(h.plan, b)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        ks.sptrsv_levels(h.plan, b)
+        ks.sptrsv_levels(h.plan, b, *idx)
     torch.cuda.current_stream().wait_stream(side)
     g = torch.cuda.CUDAGraph()
     with torch.cuda.graph(g):
-        out = ks.sptrsv_levels(h.plan, b)
-    for _ in range(3):
+        out = ks.sptrsv_levels(h.plan, b, *idx)
+    for seed in (4, 5, 6):
+        b.copy_(_x(L.nrows, torch.float64, dev, seed=seed))
         out.zero_()
         g.replay()
+        ref = ks.sptrsv_levels(h.plan, b, *idx)
         torch.cuda.synchronize()
         assert torch.equal(out, ref)
+
+
+def test_sptrsv_kernel_traps_on_an_unordered_plan(dev):
+    """A plan whose row waits on itself never gets its value: K4 traps after
+    2^28 polls and the launch fails, instead of hanging the card (in a child
+    process: a trap ends its CUDA context)."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    code = f"""
+import sys, dataclasses, numpy as np, torch
+sys.path.insert(0, {str(Path(__file__).resolve().parent.parent)!r})
+from tpukk_torch.sparse import sptrsv_cuda as ks
+dev = torch.device("cuda", 0)
+p = ks.build_level_plan([0, 1, 3], [0, 0, 1], np.array([1.0, 0.5, 1.0]), 2, [1, 2], True, dev)
+p = dataclasses.replace(p, rowptr=torch.tensor([0, 1, 1], dtype=torch.int32, device=dev))
+try:
+    ks.sptrsv_levels(p, torch.ones(2, dtype=torch.float64, device=dev))
+    torch.cuda.synchronize()
+except RuntimeError:
+    sys.exit(0)
+sys.exit(3)
+"""
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=900)
+    assert r.returncode == 0, r.stdout + r.stderr
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
@@ -219,9 +289,15 @@ def test_ilu_gmres_runs_through_the_kernels(dev):
     x, st = gmres(GmresHandle(m=20, tol=1e-10, max_restarts=20), A, b, prec=LUPrec(*_ilu0(A)))
     r = b.cpu().numpy() - A.to_scipy() @ x.cpu().numpy()
     assert st.converged and np.linalg.norm(r) <= 1e-9 * np.linalg.norm(b.cpu().numpy())
+    # two K4 launches per apply, the level permutations folded in: no K5
     assert ks.launch_counts()["sptrsv_levels"] >= 2 * st.num_iters
-    assert ks.launch_counts()["permute_gather"] >= 4 * st.num_iters
+    assert ks.launch_counts()["sptrsv_levels"] % 2 == 0
+    assert ks.launch_counts()["permute_gather"] == 0
     assert kc.launch_counts()["csr_spmv"] >= st.num_iters
+    prec = LUPrec(*_ilu0(A))
+    ks.reset_launch_counts()
+    prec.apply(b)
+    assert ks.launch_counts() == {"sptrsv_levels": 2, "permute_gather": 0}
 
 
 def test_rcm_route_runs_through_the_kernels(dev):
@@ -562,11 +638,13 @@ def _splu_factors(n_side, dtype):
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64], ids=["f32", "f64"])
 def test_supernodal_solve_on_cuda(dev, dtype):
-    """SUPERNODAL f32 runs K5, K4, K5 on the expanded DAG; f64 the batched
-    plan (no K4).  Both match scipy's triangular solve."""
+    """SUPERNODAL runs one K4 launch on the expanded DAG in f32 and f64 (no
+    K5: b and x go through K4's src/dst); the batched plan (fused=False)
+    runs no kernel of these two.  Both match scipy's triangular solve."""
     import scipy.sparse.linalg as spla
 
     from tpukk_torch.sparse import SptrsvAlgorithm, sptrsv_solve
+    from tpukk_torch.sparse import sptrsv_supernodal as tsn
 
     for lower, T in _splu_factors(30, dtype):
         T.sort_indices()
@@ -576,12 +654,16 @@ def test_supernodal_solve_on_cuda(dev, dtype):
         b = _x(T.shape[0], torch.float32 if dtype == np.float32 else torch.float64, dev, seed=4)
         ks.reset_launch_counts()
         x = sptrsv_solve(h, Tm, b)
-        counts = ks.launch_counts()
-        assert counts == ({"sptrsv_levels": 1, "permute_gather": 2} if dtype == np.float32
-                          else {"sptrsv_levels": 0, "permute_gather": 0})
+        assert ks.launch_counts() == {"sptrsv_levels": 1, "permute_gather": 0}
         ref = spla.spsolve_triangular(T.astype(np.float64), b.double().cpu().numpy(), lower=lower)
         tol = 1e-5 if dtype == np.float32 else 1e-12
         assert np.abs(x.double().cpu().numpy() - ref).max() <= tol * np.abs(ref).max()
+        bp = tsn.build_supernodal_plan(T.indptr, T.indices, T.data, T.shape[0], lower,
+                                       device=dev, fused=False)
+        ks.reset_launch_counts()
+        xb = tsn.supernodal_solve(bp, b)
+        assert ks.launch_counts() == {"sptrsv_levels": 0, "permute_gather": 0}
+        assert np.abs(xb.double().cpu().numpy() - ref).max() <= tol * np.abs(ref).max()
 
 
 def test_imported_factors_and_ilut_mdf_on_cuda(dev):
@@ -642,10 +724,11 @@ def test_imported_factors_and_ilut_mdf_on_cuda(dev):
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64], ids=["f32", "f64"])
 def test_supernodal_dag_kernels_match_plain(dev, dtype):
-    """The three launches of a fused supernodal solve, each on the inputs the
-    solve gives it: K5 feeds b and the zero slot into the DAG (exact), K4
-    solves the 2n-row DAG (M(T)⁻¹ bound), K5 reads x from the x-rows (exact);
-    for the DAG built from f32 and from f64 values."""
+    """A fused supernodal solve's one launch on the inputs the solve gives
+    it: K4 reads b through src (the x-rows' -1, the zero slot, reads 0),
+    solves the 2n-row DAG and writes the x-rows through dst, against its
+    plain version under the M(T)⁻¹ bound; for the DAG built from f32 and
+    from f64 values, and without src/dst on b already in level order."""
     from tpukk_torch.sparse.sptrsv_supernodal import build_supernodal_fused_plan
 
     tdt = torch.float32 if dtype == np.float32 else torch.float64
@@ -654,14 +737,12 @@ def test_supernodal_dag_kernels_match_plain(dev, dtype):
         n = T.shape[0]
         fp = build_supernodal_fused_plan(T.indptr, T.indices, T.data, n, lower, 32, device=dev)
         assert fp.dtype == tdt and fp.num_rows_dag == 2 * n
-        bext = torch.nn.functional.pad(_x(n, tdt, dev, seed=5), (0, 1))
-        bdag = ks.permute_gather(fp.src_in, bext)
-        assert torch.equal(bdag, ks.permute_plain(fp.src_in, bext))
-        xdag = ks.sptrsv_levels(fp.plan, bdag)
-        plain = ks.sptrsv_plain(fp.plan, bdag)
-        torch.cuda.synchronize()
-        assert bool(((xdag - plain).abs().double() <= ks.solve_error_bound(fp.plan, xdag)).all())
-        assert torch.equal(ks.permute_gather(fp.src_out, xdag), ks.permute_plain(fp.src_out, xdag))
+        b = _x(n, tdt, dev, seed=5)
+        x = _held_folded(fp.plan, b, fp.src, fp.dst)
+        bdag = torch.where(fp.src >= 0, b[fp.src.long().clamp_min(0)], 0)
+        xdag = _held_folded(fp.plan, bdag)
+        keep = fp.dst >= 0
+        assert torch.equal(x[fp.dst[keep].long()], xdag[keep])
 
 
 def test_par_ilut_on_the_card_equals_the_cpu(dev):

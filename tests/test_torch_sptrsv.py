@@ -3,8 +3,10 @@ tpukk on the CPU.
 
 Kernel modules: K4's plain version (``sptrsv_solve`` on a CPU tensor) against
 ``tpukk``'s level-set solve in f64 and against its fused Pallas kernel in
-interpret mode in f32, as tests/test_solvers.py runs it; K5's plain version
-against ``tpukk``'s routed Pallas permutation in interpret mode.  Host
+interpret mode in f32, as tests/test_solvers.py runs it, with the level
+permutations folded in (``src``/``dst``) exactly equal to K5, K4, K5; K5's
+plain version against ``tpukk``'s routed Pallas permutation in interpret
+mode.  Host
 planners: the C++ of ``csrc/host.cpp`` against the pure-Python plain versions
 of both packages and against ``tpukk``'s native library.  Slice: ``trsv`` in
 every mode, ``SpilukHandle`` → ``spiluk_symbolic`` → ``spiluk_numeric``.
@@ -116,6 +118,65 @@ def test_sptrsv_matches_fused_pallas_interpret_f32(lower, rng):
     assert _rel(x.numpy(), xs) <= 1e-5
 
 
+@pytest.mark.parametrize("dtype", [np.float32, np.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("lower", [True, False], ids=["L", "U"])
+@pytest.mark.parametrize("case", sorted(TRI_CASES))
+def test_folded_plain_equals_permute_solve_permute(case, lower, dtype, rng):
+    """K4's plain version with the level order folded in (src = dst = order)
+    is exactly K5's plain version, K4's, and K5's again; through the
+    wrapper on a CPU tensor too, and sptrsv_solve is that one call."""
+    Tt = _port(_tri(TRI_CASES[case](), lower, dtype))
+    h = SptrsvHandle(lower=lower)
+    sptrsv_symbolic(h, Tt)
+    plan = h.plan
+    b = torch.from_numpy(rng.standard_normal(Tt.nrows).astype(dtype))
+    inv_order = torch.argsort(plan.order).to(torch.int32)
+    ref = permute_plain(inv_order, ks.sptrsv_plain(plan, permute_plain(plan.order, b)))
+    assert torch.equal(ks.sptrsv_plain(plan, b, src=plan.order, dst=plan.order), ref)
+    assert torch.equal(ks.sptrsv_levels(plan, b, src=plan.order, dst=plan.order), ref)
+    assert torch.equal(sptrsv_solve(h, Tt, b), ref)
+    # src alone: x in level order; dst alone: b in level order
+    assert torch.equal(ks.sptrsv_levels(plan, b, src=plan.order),
+                       ks.sptrsv_plain(plan, permute_plain(plan.order, b)))
+    bl = permute_plain(plan.order, b)
+    assert torch.equal(ks.sptrsv_levels(plan, bl, dst=plan.order), ref)
+    assert ks.sptrsv_levels.launches == 0
+    with pytest.raises(TpuKKError, match="int32"):
+        ks.sptrsv_levels(plan, b, src=plan.order.long())
+    with pytest.raises(TpuKKError, match="rows"):
+        ks.sptrsv_levels(plan, b[:-1])
+
+
+def test_level_plan_lanes_follow_level_width():
+    """K4 gives a row 32 lanes, and packs two rows a warp on plans whose
+    levels average 1,000 rows or more."""
+    for n, width, lanes in ((50, 1, 32), (5000, 999, 32), (5000, 1000, 16), (8000, 4000, 16)):
+        levels = np.arange(n) // width + 1
+        rm = np.arange(n + 1)
+        plan = ks.build_level_plan(rm, np.arange(n), np.ones(n), n, levels, True, CPU)
+        assert plan.lanes == lanes and plan.astype(torch.float32).lanes == lanes
+
+
+@pytest.mark.parametrize("lower", [True, False], ids=["L", "U"])
+def test_folded_solve_matches_fused_pallas_interpret_f32(lower, rng):
+    """The folded call (one K4 launch on the card) against tpukk's whole
+    fused_sptrsv_solve — permute, fused Pallas kernel, permute — in
+    interpret mode, on one level schedule."""
+    Tj = _tri(jkc.generate_diag_dominant_csr(90, 5, dtype=np.float32, seed=6), lower,
+              np.float32)
+    rm, ent = Tj.host_row_map(), Tj.host_entries()
+    vals = np.asarray(Tj.values)
+    levels = jst._compute_levels(rm, ent, Tj.nrows, lower)
+    jplan = build_fused_sptrsv_plan(rm, ent, vals, Tj.nrows, levels, lower)
+    assert jplan is not None
+    b = rng.standard_normal(Tj.nrows).astype(np.float32)
+    ref = np.asarray(fused_sptrsv_solve(jplan, jnp.asarray(b), interpret=True))
+    plan = level_plan_from_numpy(rm, ent, vals, levels, lower, CPU)
+    x = ks.sptrsv_levels(plan, torch.from_numpy(b), src=plan.order, dst=plan.order)
+    assert x.dtype == torch.float32
+    assert _rel(x.numpy(), ref) <= 1e-5
+
+
 @pytest.mark.parametrize("lower", [True, False], ids=["L", "U"])
 def test_levels_and_level_plan_from_tpukk(lower, rng):
     """The port's levels equal tpukk's, and a plan built through interop
@@ -131,8 +192,7 @@ def test_levels_and_level_plan_from_tpukk(lower, rng):
     assert (plan.cols.numpy() < rows).all()
     b = rng.standard_normal(Tj.nrows)
     bt = torch.from_numpy(b)
-    xp = ks.sptrsv_levels(plan, ks.permute_gather(plan.order, bt))
-    x = ks.permute_gather(plan.inv_order, xp).numpy()
+    x = ks.sptrsv_levels(plan, bt, src=plan.order, dst=plan.order).numpy()
     xs = spla.spsolve_triangular(Tj.to_scipy().tocsr(), b, lower=lower)
     assert _rel(x, xs) <= 1e-12
 

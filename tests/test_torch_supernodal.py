@@ -1,10 +1,12 @@
 """tpukk_torch's supernodal triangular solve and factor imports against tpukk
 on the CPU.
 
-Kernel paths: the f32 SUPERNODAL route (the expanded DAG on K4's and K5's
-plain versions) against ``tpukk``'s fused supernodal plan, whose Pallas
-kernel runs in interpret mode as tests/test_solvers.py runs it, and against
-scipy; the f64 batched plan against ``tpukk``'s ``supernodal_solve``.  Host
+Kernel paths: the SUPERNODAL route (the expanded DAG on K4's plain version,
+b and x folded through its src/dst, f32 and f64) against ``tpukk``'s fused
+supernodal plan, whose Pallas kernel runs in interpret mode as
+tests/test_solvers.py runs it, against ``tpukk``'s batched
+``supernodal_solve`` and against scipy; the batched plan (``fused=False``)
+against ``tpukk``'s.  Host
 symbolic: the supernode partitions, the split of an imported partition and
 the quotient levels equal ``tpukk``'s.  Slice: ``SptrsvHandle(SUPERNODAL)``,
 ``superlu_import`` and ``cholmod_import`` (raw arrays and a ``factor=``
@@ -33,6 +35,7 @@ from tpukk_torch.common import TpuKKError
 from tpukk_torch.sparse import (GmresHandle, SptrsvAlgorithm, SptrsvHandle, cholmod_import,
                                 cholmod_raw_to_csr, gmres, sptrsv_solve, sptrsv_symbolic,
                                 superlu_import)
+from tpukk_torch.common.permute import permute_plain
 from tpukk_torch.sparse import sptrsv_cuda as ks
 from tpukk_torch.sparse import sptrsv_supernodal as tsn
 
@@ -85,7 +88,7 @@ def test_partitions_and_levels_equal_tpukk(case, lower, max_size):
     pj = jsn.build_supernodal_plan(T.indptr, T.indices, T.data, n, lower=lower,
                                    max_size=max_size, fused=False)
     pt = tsn.build_supernodal_plan(T.indptr, T.indices, T.data, n, lower=lower,
-                                   max_size=max_size, device=CPU)
+                                   max_size=max_size, device=CPU, fused=False)
     assert isinstance(pt, tsn.SupernodalPlan)
     assert (pt.num_supernodes, pt.num_levels_sn, pt.max_block) == \
         (pj.num_supernodes, len(pj.levels), pj.max_block)
@@ -121,7 +124,9 @@ def test_batched_f64_solve_matches_tpukk(case, lower, rng):
     b = rng.standard_normal(n)
     pj = jsn.build_supernodal_plan(T.indptr, T.indices, T.data, n, lower=lower, fused=False)
     ref = np.asarray(jsn.supernodal_solve(pj, jnp.asarray(b)))
-    pt = tsn.build_supernodal_plan(T.indptr, T.indices, T.data, n, lower=lower, device=CPU)
+    pt = tsn.build_supernodal_plan(T.indptr, T.indices, T.data, n, lower=lower, device=CPU,
+                                   fused=False)
+    assert isinstance(pt, tsn.SupernodalPlan)
     x = tsn.supernodal_solve(pt, torch.from_numpy(b))
     assert x.dtype == torch.float64
     assert _rel(x.numpy(), ref) <= 1e-10
@@ -144,6 +149,60 @@ def test_fused_dag_in_f64_matches_tpukk_batched(case, lower, rng):
     assert x.dtype == torch.float64
     assert _rel(x.numpy(), ref) <= 1e-10
     assert _rel(x.numpy(), spla.spsolve_triangular(T, b, lower=lower)) <= 1e-10
+
+
+@pytest.mark.parametrize("fused", ["auto", True, False])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("lower", [True, False], ids=["L", "U"])
+def test_fused_option_routes_and_matches_tpukk_batched(lower, dtype, fused, rng):
+    """fused="auto" and True build the DAG in the values' dtype, False the
+    batched plan; every route is held to tpukk's batched solve (1e-10 in
+    f64, 5e-5 of max|x| in f32)."""
+    T = _factor("diagdom200", lower, dtype)
+    n = T.shape[0]
+    b = rng.standard_normal(n).astype(dtype)
+    pj = jsn.build_supernodal_plan(T.indptr, T.indices, T.data.astype(np.float64), n,
+                                   lower=lower, fused=False)
+    ref = np.asarray(jsn.supernodal_solve(pj, jnp.asarray(b.astype(np.float64))))
+    pt = tsn.build_supernodal_plan(T.indptr, T.indices, T.data, n, lower=lower, device=CPU,
+                                   fused=fused)
+    kind = tsn.SupernodalPlan if fused is False else tsn.FusedSupernodalPlan
+    assert isinstance(pt, kind) and pt.dtype == torch.from_numpy(b).dtype
+    x = tsn.supernodal_solve(pt, torch.from_numpy(b))
+    assert x.dtype == torch.from_numpy(b).dtype
+    tol = 1e-10 if dtype == np.float64 else 5e-5
+    assert _rel(x.numpy(), ref) <= tol
+
+
+def test_fused_option_rejects_other_values():
+    T = _factor("lap12", True)
+    with pytest.raises(TpuKKError, match="fused"):
+        tsn.build_supernodal_plan(T.indptr, T.indices, T.data, T.shape[0], device=CPU,
+                                  fused="yes")
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("lower", [True, False], ids=["L", "U"])
+def test_dag_folded_call_equals_three_launches(lower, dtype, rng):
+    """The DAG's one folded call equals K5 feeding b through a zero slot, K4
+    and K5 reading the x-rows, exactly (the plain versions); the x-rows read
+    src -1 (0), the z-rows write nothing."""
+    T = _factor("lap14", lower, dtype)
+    n = T.shape[0]
+    fp = tsn.build_supernodal_plan(T.indptr, T.indices, T.data, n, lower=lower, device=CPU)
+    src, dst = fp.src.long(), fp.dst.long()
+    assert int((src < 0).sum()) == n and int((dst < 0).sum()) == n
+    assert torch.equal(torch.sort(dst[dst >= 0]).values, torch.arange(n))
+    b = torch.from_numpy(rng.standard_normal(n).astype(dtype))
+    src_in = torch.where(src >= 0, src, n).to(torch.int32)       # zero slot at n
+    src_out = torch.empty(n, dtype=torch.int32)
+    src_out[dst[dst >= 0]] = torch.nonzero(dst >= 0).flatten().to(torch.int32)
+    xdag = ks.sptrsv_plain(fp.plan, permute_plain(src_in, torch.nn.functional.pad(b, (0, 1))))
+    ref = permute_plain(src_out, xdag)
+    assert torch.equal(ks.sptrsv_plain(fp.plan, b, src=fp.src, dst=fp.dst), ref)
+    ks.reset_launch_counts()
+    assert torch.equal(tsn.supernodal_solve(fp, b), ref)
+    assert ks.launch_counts() == {"sptrsv_levels": 0, "permute_gather": 0}
 
 
 @pytest.mark.parametrize("lower", [True, False], ids=["L", "U"])
@@ -187,7 +246,9 @@ def test_fused_imported_partition_matches_tpukk_interpret():
 @pytest.mark.parametrize("lower", [True, False], ids=["L", "U"])
 def test_supernodal_handle_matches_tpukk(lower, dtype, rng):
     """SptrsvHandle(SUPERNODAL) → sptrsv_symbolic → sptrsv_solve in both
-    packages (tpukk's CPU route is its batched plan in either dtype)."""
+    packages (tpukk's CPU route is its batched plan in either dtype, the
+    port's the expanded DAG in both, its supernodes capped at 32 as
+    tpukk's fused builder caps them)."""
     T = _factor("diagdom200", lower, dtype)
     Tj = jkc.CsrMatrix.from_scipy(T)
     hj = jsp.SptrsvHandle(lower=lower, algorithm=jsp.SptrsvAlgorithm.SUPERNODAL)
@@ -199,11 +260,13 @@ def test_supernodal_handle_matches_tpukk(lower, dtype, rng):
     sptrsv_symbolic(ht, Tt)
     x = sptrsv_solve(ht, Tt, torch.from_numpy(b))
     assert x.dtype == torch.from_numpy(b).dtype
+    assert isinstance(ht.sn_plan, tsn.FusedSupernodalPlan)
+    pj = jsn.build_supernodal_plan(T.indptr, T.indices, T.data, T.shape[0], lower=lower,
+                                   max_size=32, fused=False)
+    assert ht.num_levels == len(pj.levels)
     if dtype == np.float64:
-        assert ht.num_levels == hj.num_levels
         assert _rel(x.numpy(), ref) <= 1e-10
     else:
-        assert isinstance(ht.sn_plan, tsn.FusedSupernodalPlan)
         assert np.abs(x.numpy() - ref).max() <= 5e-5 * np.abs(ref).max()
 
 

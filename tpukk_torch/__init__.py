@@ -7,5 +7,8 @@ hand-written kernel runs as its plain torch version.  Kernels are built with
 nvcc at first use on a CUDA device, never at import (``_kernels.py``).
 """
 from . import common, containers, graph, interop, sparse
+from .containers import CsrMatrix
+from .sparse import SpmvAlgorithm, SpmvHandle, spmm, spmv
 
-__all__ = ["common", "containers", "graph", "interop", "sparse"]
+__all__ = ["common", "containers", "graph", "interop", "sparse", "CsrMatrix", "SpmvAlgorithm",
+           "SpmvHandle", "spmm", "spmv"]

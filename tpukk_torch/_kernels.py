@@ -59,7 +59,7 @@ SOURCES = {
                                 ctypes.c_double, _P],
     },
     "sptrsv": {
-        "tpukk_sptrsv_levels": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+        "tpukk_sptrsv_levels": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     },
     "permute": {
         "tpukk_permute_gather": [_I, _P, _P, _P, _I64, _I64, _P],

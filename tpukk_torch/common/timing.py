@@ -18,7 +18,19 @@ import torch
 
 from .errors import check
 
-__all__ = ["chain_time_slope"]
+__all__ = ["sync_fetch", "chain_time_slope"]
+
+
+def sync_fetch(y) -> float:
+    """Wait for ``y``'s computation and read its first element to the host,
+    as f32 (``tpukk``'s sync by fetching bytes).  ``y`` is a tensor, or a
+    tuple, list or dict whose first leaf (keys sorted, as JAX orders a
+    pytree's) is one."""
+    while isinstance(y, (tuple, list, dict)):
+        y = y[sorted(y)[0]] if isinstance(y, dict) else y[0]
+    if y.is_cuda:
+        torch.cuda.synchronize(y.device)
+    return float(y.reshape(-1)[:1].to(torch.float32).cpu()[0])
 
 
 def chain_time_slope(fn, k1: int = 50, k2: int = 250, reps: int = 7) -> float:

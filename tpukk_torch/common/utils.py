@@ -12,6 +12,8 @@ __all__ = [
     "permute",
     "permute_via_sort",
     "inverse_permutation",
+    "segment_offsets_from_sizes",
+    "sizes_from_offsets",
     "round_up",
     "cdiv",
 ]
@@ -47,6 +49,19 @@ def inverse_permutation(perm) -> np.ndarray:
     inv = np.empty_like(perm)
     inv[perm] = np.arange(perm.shape[0], dtype=perm.dtype)
     return inv
+
+
+def segment_offsets_from_sizes(sizes) -> np.ndarray:
+    """Host exclusive scan: a CSR-style row map (n+1 offsets) from sizes."""
+    sizes = np.asarray(sizes)
+    out = np.zeros(sizes.shape[0] + 1, dtype=sizes.dtype)
+    np.cumsum(sizes, out=out[1:])
+    return out
+
+
+def sizes_from_offsets(offsets) -> np.ndarray:
+    offsets = np.asarray(offsets)
+    return offsets[1:] - offsets[:-1]
 
 
 def round_up(x: int, m: int) -> int:

@@ -225,6 +225,45 @@ class CsrMatrix(_HostMirrors):
     def astype(self, dtype) -> "CsrMatrix":
         return self.with_values(self.values.to(torch_dtype(dtype)))
 
+    # ---- replace/sumInto (KokkosSparse_CrsMatrix.hpp:305-319) ----------
+    def _find_positions(self, rows, cols, is_sorted: bool) -> np.ndarray:
+        """Value-array position of each (row, col), or -1 where absent: a
+        binary search over row·(ncols+1)+col keys on the host mirrors (the
+        keys sorted first unless the rows are sorted); a row that holds a
+        column twice answers with its first."""
+        rm, ent = self.host_row_map(), self.host_entries()
+        q = np.asarray(rows, np.int64) * (self.ncols + 1) + np.asarray(cols, np.int64)
+        if self.nnz == 0:
+            return np.full(q.shape, -1, np.int64)
+        key = np.repeat(np.arange(self.nrows, dtype=np.int64), np.diff(rm)) * (self.ncols + 1) + ent
+        order = np.arange(self.nnz) if is_sorted else np.argsort(key, kind="stable")
+        skey = key[order]
+        p = np.minimum(np.searchsorted(skey, q), self.nnz - 1)
+        return np.where(skey[p] == q, order[p], -1)
+
+    def _update_values(self, rows, cols, vals, is_sorted: bool, add: bool) -> "CsrMatrix":
+        pos = self._find_positions(rows, cols, is_sorted)
+        vals = torch.as_tensor(np.asarray(vals)).to(self.device, self.dtype).reshape(-1)
+        hit = torch.from_numpy(pos >= 0).to(self.device)
+        idx = torch.from_numpy(pos[pos >= 0]).to(self.device)
+        new = self.values.clone()
+        if add:
+            new.index_add_(0, idx, vals[hit])
+        else:
+            new[idx] = vals[hit]
+        return self.with_values(new)
+
+    def replace_values(self, rows, cols, vals, is_sorted: bool = True) -> "CsrMatrix":
+        """Functional replaceValues: A[row, col] = val for present entries;
+        absent coordinates are ignored.  A new matrix on the same device."""
+        return self._update_values(rows, cols, vals, is_sorted, add=False)
+
+    def sum_into_values(self, rows, cols, vals, is_sorted: bool = True) -> "CsrMatrix":
+        """Functional sumIntoValues: A[row, col] += val for present entries;
+        absent coordinates are ignored (CrsMatrix.hpp:305).  A new matrix on
+        the same device."""
+        return self._update_values(rows, cols, vals, is_sorted, add=True)
+
     # host mirrors for plan construction
     def host_values(self) -> np.ndarray:
         return self._mirror("values")

@@ -3,7 +3,7 @@
 KokkosSparse_LUPrec.hpp).
 
 A preconditioner is apply(x) ≈ M⁻¹x.  ``LUPrec`` applies two level-scheduled
-triangular solves (K5, K4, K5 each), or with ``jacobi_sweeps`` a fixed number
+triangular solves (one K4 launch each), or with ``jacobi_sweeps`` a fixed number
 of Jacobi-Richardson sweeps on the SpMV kernels.  ``GsPrec`` applies
 symmetric Gauss-Seidel sweeps from a zero guess (K5, one K6 launch per color
 and direction, K5 for POINT and CLUSTER).

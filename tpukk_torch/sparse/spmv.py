@@ -173,6 +173,13 @@ class SpmvHandle:
             return static_permute(from_p, perm_h.matvec(static_permute(to_p, x)))
         raise NotImplementedError(alg)  # pragma: no cover
 
+    def matvec_f64(self, x) -> np.ndarray:
+        """y = A·x in f64 for a host array x, host numpy in and out: the
+        handle's own product with f64 operands (the card computes f64
+        natively, so ``tpukk``'s double-single kernels have no counterpart)."""
+        xt = torch.from_numpy(np.asarray(x, np.float64)).to(self.A.device)
+        return self.matvec(xt).cpu().numpy()
+
     def __call__(self, x: torch.Tensor, alpha=1.0, beta=0.0, y=None, mode: str = "N"):
         m = mode.upper()
         check(m in ("N", "T", "C", "H"), f"spmv: invalid mode '{mode}'")

@@ -5,14 +5,15 @@ reference's sparse/src/KokkosSparse_sptrsv.hpp, symbolic :55,119 and solve
 Symbolic computes the level of every row on the host (Kahn wavefronts, the
 level_sched of spiluk_symbolic_impl.hpp:37-88) and builds one level-ordered
 CSR plan of the strict triangle (``sptrsv_cuda.build_level_plan``).  Solve is
-three launches: K5 puts b in level order, K4 solves the whole triangle in one
-launch, K5 puts x back in natural order — the steps of ``tpukk``'s
-``fused_sptrsv_solve`` (sptrsv_pallas.py:646-680).  f32 and f64, 1-D b.
+one launch of K4, which reads b through the level order and writes x back
+through it (``src = dst = order``): the three steps of ``tpukk``'s
+``fused_sptrsv_solve`` (sptrsv_pallas.py:646-680), permute, solve, permute,
+in one kernel.  f32 and f64, 1-D b.
 
-SUPERNODAL builds a supernodal plan instead (``sptrsv_supernodal``): for f32
-values the expanded supernodal DAG on the same three launches, for f64 the
-batched per-level plan.  A handle's ``sn_partition`` (set by
-``sptrsv_cholmod``) imports the supernode partition.
+SUPERNODAL builds a supernodal plan instead (``sptrsv_supernodal``): the
+expanded supernodal DAG, in f32 and f64, solved by the same one launch.  A
+handle's ``sn_partition`` (set by ``sptrsv_cholmod``) imports the supernode
+partition.
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ import torch
 from ..common import check
 from ..common.tracing import annotate
 from ..containers import CsrMatrix
-from .sptrsv_cuda import LevelPlan, build_level_plan, permute_gather, sptrsv_levels
+from .sptrsv_cuda import LevelPlan, build_level_plan, sptrsv_levels
 from .sptrsv_supernodal import build_supernodal_plan, supernodal_solve
 
 __all__ = ["SptrsvHandle", "SptrsvAlgorithm", "sptrsv_symbolic", "sptrsv_solve"]
@@ -143,6 +144,4 @@ def sptrsv_solve(handle: SptrsvHandle, A: CsrMatrix, b: torch.Tensor) -> torch.T
           f"sptrsv_solve: b on {b.device}, plan on {handle.plan.vals.device}")
     dt = torch.promote_types(torch.promote_types(handle.plan.dtype, b.dtype), torch.float32)
     plan = handle.plan_for(dt)
-    bp = permute_gather(plan.order, b.to(dt).contiguous())
-    xp = sptrsv_levels(plan, bp)
-    return permute_gather(plan.inv_order, xp).to(b.dtype)
+    return sptrsv_levels(plan, b.to(dt).contiguous(), src=plan.order, dst=plan.order).to(b.dtype)

@@ -6,18 +6,22 @@ Two hand-written kernels (``tpukk_torch/csrc``) close the five Pallas kernels
 of the level-scheduled solve:
 
 * ``sptrsv_levels`` (K4, ``csrc/sptrsv.cu``): the whole level-scheduled
-  triangle in one launch, f32 and f64 — replaces ``_fused_call_wide_pk``,
-  ``_fused_call_wide`` and ``_fused_call``.
+  triangle in one launch, f32 and f64, with the level permutations folded in
+  (row r reads ``b[src[r]]``, 0 where ``src[r] < 0``, and writes its x to
+  ``out[dst[r]]`` where ``dst[r] >= 0``) — replaces ``_fused_call_wide_pk``,
+  ``_fused_call_wide`` and ``_fused_call``, and the permutation phases
+  ``fused_sptrsv_solve`` runs around them.
 * ``permute_gather`` (K5, ``csrc/permute.cu``, wrapper in
   ``common/permute.py``): ``out[i] = x[src[i]]`` — replaces the routed
-  permutation phases ``_rowperm3_call`` and ``_rowperm_call`` that
-  ``fused_sptrsv_solve`` runs on both sides of the solve.
+  permutation phases ``_rowperm3_call`` and ``_rowperm_call``; the port's
+  other permutations (RCM, Gauss-Seidel, imported factors' outer
+  permutations, the ILU(k) refresh) run on it.
 
 The plan (``LevelPlan``) is the strict triangle as CSR in level order: rows
 sorted by level (stable), columns renamed to level-order positions, so every
 dependency of a row lies at a lower position, for L and U alike.  It also
-holds 1/diag in that order, the ``order``/``inv_order`` permutations, and the
-ready flags and state K4 uses to order its rows.
+holds 1/diag in that order, the level ``order`` (K4's ``src`` and ``dst`` in a
+solve), and the publication words and state K4 uses to order its rows.
 
 Each wrapper checks device, dtype, shape and contiguity and raises on
 anything else.  On a CPU tensor it runs the kernel's plain version
@@ -43,6 +47,7 @@ __all__ = [
     "build_level_plan",
     "sptrsv_levels",
     "sptrsv_plain",
+    "scatter_dst",
     "solve_error_bound",
     "permute_gather",
     "permute_plain",
@@ -57,9 +62,12 @@ class LevelPlan:
     """The strict triangle of T in level order, for x = T⁻¹b.
 
     Device arrays: ``rowptr`` (n+1,) and ``cols`` (nnz,) int32, ``vals``
-    (nnz,) and ``invd`` (n,) in the compute dtype, ``order`` / ``inv_order``
-    (n,) int32 with ``b_level = b[order]`` and ``x = x_level[inv_order]``,
-    and K4's ``flags`` (n,) and ``state`` (3,) int32 scratch.  Host arrays:
+    (nnz,) and ``invd`` (n,) in the compute dtype, ``order`` (n,) int32 with
+    ``b_level = b[order]`` and ``x[order] = x_level``, and K4's scratch:
+    ``words`` (2n,) int64, the publication words (one per row in f32, two in
+    f64, so a plan serves either dtype), and ``state`` (3,) int32;
+    ``lanes``, the lanes K4 gives a row (16 or 32, from the level width).
+    Host arrays:
     ``level_ptr`` (num_levels+1,) row offsets of each level and
     ``rowptr_host``, for the plain version."""
 
@@ -68,12 +76,12 @@ class LevelPlan:
     vals: torch.Tensor
     invd: torch.Tensor
     order: torch.Tensor
-    inv_order: torch.Tensor
-    flags: torch.Tensor
+    words: torch.Tensor
     state: torch.Tensor
     level_ptr: np.ndarray
     rowptr_host: np.ndarray
     n: int
+    lanes: int = 32
     _rows: torch.Tensor = dataclasses.field(default=None, repr=False)
 
     @property
@@ -92,7 +100,7 @@ class LevelPlan:
         return self._rows
 
     def astype(self, dtype: torch.dtype) -> "LevelPlan":
-        """The same plan with values in ``dtype``; the flags and state are
+        """The same plan with values in ``dtype``; the words and state are
         shared (one solve at a time per plan)."""
         if dtype == self.dtype:
             return self
@@ -140,29 +148,63 @@ def build_level_plan(rm, ent, vals, n: int, levels, lower: bool, device) -> Leve
 
     return LevelPlan(
         rowptr=dev(rowptr, np.int32), cols=dev(c_new, np.int32), vals=dev(v), invd=dev(invd),
-        order=dev(order, np.int32), inv_order=dev(inv, np.int32),
-        flags=torch.zeros(n, dtype=torch.int32, device=device),
+        order=dev(order, np.int32),
+        words=torch.zeros(2 * n, dtype=torch.int64, device=device),
         state=torch.zeros(3, dtype=torch.int32, device=device),
-        level_ptr=level_ptr, rowptr_host=rowptr, n=n)
+        level_ptr=level_ptr, rowptr_host=rowptr, n=n, lanes=_lanes(n, nlev))
+
+
+def _lanes(n: int, num_levels: int) -> int:
+    """Lanes K4 gives a row: 32, and 16 where levels average 1,000 rows or
+    more, so that a ticket serves two rows: there the one ticket counter,
+    not the chain, bounds a solve (scripts/k4_sweep_torch.py on the H100,
+    PERF.md: fem2d_30k's 2,000-row levels 26-28 µs at 16 lanes, 33-34 at
+    32; deep plans slower with packed rows)."""
+    return 16 if n >= 1000 * max(num_levels, 1) else 32
 
 
 # ----------------------------------------------------------------------
 # K4: level-scheduled triangular solve
 # ----------------------------------------------------------------------
 
-def sptrsv_plain(plan: LevelPlan, b: torch.Tensor) -> torch.Tensor:
-    """Plain version of K4: level by level, x[l] = (b[l] − Σ v·x[c])·invd[l]
-    with an ``index_add_`` per level (b and x in level order)."""
-    x = torch.empty_like(b)
+def _gather_b(b: torch.Tensor, src) -> torch.Tensor:
+    """b_level[r] = b[src[r]], 0 where src[r] < 0 (src None: b itself)."""
+    if src is None:
+        return b
+    s = src.long()
+    return torch.where(s >= 0, b.index_select(0, s.clamp_min(0)), b.new_zeros(()))
+
+
+def scatter_dst(x: torch.Tensor, dst, n_out: int) -> torch.Tensor:
+    """out[dst[r]] = x[r] where dst[r] >= 0, into n_out rows (dst None: x
+    itself).  A plan's dst covers every output row once; rows it misses
+    stay 0 here."""
+    if dst is None:
+        return x
+    # rows with dst < 0 land in a dump slot at n_out: fixed shapes, so the
+    # plain version can be captured in a CUDA graph
+    d = dst.long()
+    out = x.new_zeros(n_out + 1)
+    out.index_copy_(0, torch.where(d >= 0, d, n_out), x)
+    return out[:n_out]
+
+
+def sptrsv_plain(plan: LevelPlan, b: torch.Tensor, src=None, dst=None) -> torch.Tensor:
+    """Plain version of K4: level by level, x[l] = (b_l[l] − Σ v·x[c])·invd[l]
+    with an ``index_add_`` per level, x and b_l in level order; around it the
+    same folding rules as the kernel's: b_l = b[src] (0 where src < 0) and
+    out[dst] = x (where dst >= 0, out with b's rows)."""
+    bl = _gather_b(b, src)
+    x = torch.empty_like(bl)
     rows, cols = plan.rows(), plan.cols.long()
     lp, rp = plan.level_ptr, plan.rowptr_host
     for lv in range(plan.num_levels):
         s, e = int(lp[lv]), int(lp[lv + 1])
         ps, pe = int(rp[s]), int(rp[e])
-        acc = torch.zeros(e - s, dtype=b.dtype, device=b.device)
+        acc = torch.zeros(e - s, dtype=bl.dtype, device=bl.device)
         acc.index_add_(0, rows[ps:pe] - s, plan.vals[ps:pe] * x[cols[ps:pe]])
-        x[s:e] = (b[s:e] - acc) * plan.invd[s:e]
-    return x
+        x[s:e] = (bl[s:e] - acc) * plan.invd[s:e]
+    return scatter_dst(x, dst, b.shape[0])
 
 
 def solve_error_bound(plan: LevelPlan, x: torch.Tensor, c: float = 40.0) -> torch.Tensor:
@@ -182,32 +224,53 @@ def solve_error_bound(plan: LevelPlan, x: torch.Tensor, c: float = 40.0) -> torc
 
 @functools.cache
 def _blocks_cap(device_index: int) -> int:
-    """8 blocks of 256 threads per SM: every warp K4 launches is resident."""
-    return 8 * torch.cuda.get_device_properties(device_index).multi_processor_count
+    """2 blocks of 256 threads per SM: more warps in flight poll more and
+    slow the chain, fewer starve wide levels (scripts/k4_sweep_torch.py on
+    the H100, PERF.md).  K4 does not need them all resident: a warp only
+    waits on rows whose tickets running warps took."""
+    return 2 * torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def sptrsv_levels(plan: LevelPlan, b: torch.Tensor) -> torch.Tensor:
-    """K4: x with tri(T)·x = b, b and x in the plan's level order."""
+def _check_index(idx, name: str, plan: LevelPlan, b: torch.Tensor) -> None:
+    check(idx.ndim == 1 and idx.shape[0] == plan.n and idx.dtype == torch.int32,
+          f"sptrsv_levels: {name} must be ({plan.n},) int32")
+    check(idx.device == b.device and idx.is_contiguous(),
+          f"sptrsv_levels: {name} must be contiguous on b's device")
+
+
+def sptrsv_levels(plan: LevelPlan, b: torch.Tensor, src=None, dst=None) -> torch.Tensor:
+    """K4: x with tri(T)·x = b_l in the plan's level order, b_l[r] = b[src[r]]
+    (0 where src[r] < 0); returns x in level order, or with ``dst`` the
+    vector out of b's rows with out[dst[r]] = x[r] (where dst[r] >= 0).
+    ``src``/``dst`` are (n,) int32 on b's device, None for the identity; a
+    dst covers every row of out, src's entries lie below b's rows (both as
+    the plan builders make them)."""
     check(b.ndim == 1, f"sptrsv_levels: b must be rank-1, got rank {b.ndim}")
-    check(b.shape[0] == plan.n, f"sptrsv_levels: b has {b.shape[0]} rows, plan {plan.n}")
+    check(src is not None or b.shape[0] == plan.n,
+          f"sptrsv_levels: b has {b.shape[0]} rows, plan {plan.n}")
     _kernels.check_operand(b, "sptrsv_levels", plan.vals.dtype, plan.vals.device)
-    check(all(t.device == b.device for t in (plan.rowptr, plan.cols, plan.invd, plan.flags,
+    check(all(t.device == b.device for t in (plan.rowptr, plan.cols, plan.invd, plan.words,
                                               plan.state)),
           "sptrsv_levels: plan arrays must be on b's device")
+    for idx, name in ((src, "src"), (dst, "dst")):
+        if idx is not None:
+            _check_index(idx, name, plan, b)
     if not _kernels.on_cuda(b, "sptrsv_levels"):
-        return sptrsv_plain(plan, b)
+        return sptrsv_plain(plan, b, src, dst)
     check(b.dtype in _kernels.DTYPE_CODE, f"sptrsv_levels: dtype {b.dtype} not f32/f64")
-    x = torch.empty_like(b)
+    out = torch.empty(plan.n if dst is None else b.shape[0], dtype=b.dtype, device=b.device)
     if plan.n == 0:
-        return x
-    blocks = min(cdiv(plan.n * 32, 256), _blocks_cap(b.device.index))
+        return out
+    blocks = min(cdiv(plan.n * plan.lanes, 256), _blocks_cap(b.device.index))
     err = _kernels.library("sptrsv").tpukk_sptrsv_levels(
-        _kernels.DTYPE_CODE[b.dtype], plan.rowptr.data_ptr(), plan.cols.data_ptr(),
-        plan.vals.data_ptr(), plan.invd.data_ptr(), b.data_ptr(), x.data_ptr(),
-        plan.flags.data_ptr(), plan.state.data_ptr(), plan.n, blocks, _kernels.stream_of(b))
+        _kernels.DTYPE_CODE[b.dtype], plan.lanes, plan.rowptr.data_ptr(), plan.cols.data_ptr(),
+        plan.vals.data_ptr(), plan.invd.data_ptr(), b.data_ptr(),
+        None if src is None else src.data_ptr(), None if dst is None else dst.data_ptr(),
+        out.data_ptr(), plan.words.data_ptr(), plan.state.data_ptr(), plan.n, blocks,
+        _kernels.stream_of(b))
     _kernels.check_launch(err, "sptrsv_levels")
     sptrsv_levels.launches += 1
-    return x
+    return out
 
 
 # ----------------------------------------------------------------------

@@ -9,27 +9,29 @@ j's without row j+1, tested with two XOR hashes and counts, the same seed and
 hashes as ``tpukk``, so the partitions are equal), or imported (a CHOLMOD
 partition, split into runs of at most ``max_size``); the supernode quotient
 DAG is level-scheduled by Kahn wavefronts.  Upper triangles are solved in the
-index-reversed lower form (i -> n-1-i).  Two solve routes, by the values'
-dtype as in ``tpukk`` (:279):
+index-reversed lower form (i -> n-1-i).  Two solve routes, picked by
+``build_supernodal_plan(fused=...)``:
 
-* **f32: the fused reduction on K4.**  With L = D + P (D the block diagonal,
-  P the panels) and z = D·x, the solve is the unit-lower system
-  (I + P·D⁻¹)·z = b followed by x = D⁻¹·z.  Both become rows of one expanded
-  DAG of exactly 2n rows: z-rows carry C = P·D⁻¹ (D⁻¹ taken in f64 on the
-  host), x-rows carry −D⁻¹.  Its level count is the supernode level count
-  plus one, and it is one ``LevelPlan`` for K4 (``sptrsv_cuda``).  A solve is
-  three launches: K5 feeds b into the z-rows in level order (the x-rows read
-  a zero slot at index n), K4 solves the DAG, K5 reads x from the x-rows.
-  ``tpukk``'s row split at 8 slots, its relay rows and its 1,024-row
-  pseudo-levels exist for its wide Pallas kernel and are not carried: K4
-  takes a row of any length and a dependency of any distance.  The builder
-  keeps f64 values in f64, but ``build_supernodal_plan`` sends it only f32
-  triangles, as ``tpukk`` routes them.
-* **f64: the batched plan.**  Each level is a few batched torch ops on the
-  plan's device: a gather of b, ``torch.linalg.solve_triangular`` over the
-  level's (K, M, M) identity-padded diagonal blocks, a scatter of x, a
-  batched panel product and a scatter-add of the update, with a dump slot at
-  index n for padded lanes (``tpukk`` runs these as XLA ops, not Pallas).
+* **The fused reduction on K4** (``fused="auto"`` or True; f32 and f64).
+  With L = D + P (D the block diagonal, P the panels) and z = D·x, the solve
+  is the unit-lower system (I + P·D⁻¹)·z = b followed by x = D⁻¹·z.  Both
+  become rows of one expanded DAG of exactly 2n rows: z-rows carry
+  C = P·D⁻¹ (D⁻¹ taken in f64 on the host), x-rows carry −D⁻¹, in the
+  values' dtype.  Its level count is the supernode level count plus one, and
+  it is one ``LevelPlan`` for K4 (``sptrsv_cuda``).  A solve is one K4
+  launch: the z-rows read b through ``src`` (the x-rows read 0, ``src`` -1),
+  the x-rows write x through ``dst``.  ``tpukk``'s row split at 8 slots,
+  its relay rows and its 1,024-row pseudo-levels exist for its wide Pallas
+  kernel and are not carried: K4 takes a row of any length and a dependency
+  of any distance.  ``tpukk``'s "auto" takes this route only where its
+  Pallas kernel runs (a TPU, f32); the DAG exists on every device and in
+  either dtype here, so "auto" is True.
+* **The batched plan** (``fused=False``).  Each level is a few batched torch
+  ops on the plan's device: a gather of b, ``torch.linalg.solve_triangular``
+  over the level's (K, M, M) identity-padded diagonal blocks, a scatter of
+  x, a batched panel product and a scatter-add of the update, with a dump
+  slot at index n for padded lanes (``tpukk`` runs these as XLA ops, not
+  Pallas).  It is the plain reference the DAG is held to.
 """
 from __future__ import annotations
 
@@ -42,7 +44,7 @@ import torch
 
 from ..common import check
 from ..containers import torch_dtype
-from .sptrsv_cuda import LevelPlan, build_level_plan, permute_gather, sptrsv_levels
+from .sptrsv_cuda import LevelPlan, build_level_plan, sptrsv_levels
 
 __all__ = ["build_supernodal_plan", "build_supernodal_fused_plan", "supernodal_solve",
            "SupernodalPlan", "FusedSupernodalPlan"]
@@ -165,7 +167,7 @@ class _SnLevel:
 
 @dataclasses.dataclass
 class SupernodalPlan:
-    """The batched per-level plan (f64 route)."""
+    """The batched per-level plan (``fused=False``)."""
 
     levels: List[_SnLevel]
     n: int
@@ -182,14 +184,15 @@ class SupernodalPlan:
 
 @dataclasses.dataclass
 class FusedSupernodalPlan:
-    """The expanded unit-lower DAG of 2n rows as one K4 ``LevelPlan`` (f32
-    route).  ``src_in`` (2n,) int32 feeds b, extended by a zero slot at
-    index n, into the plan's level order; ``src_out`` (n,) int32 reads x from
-    the x-rows.  Both fold in the index reversal of an upper triangle."""
+    """The expanded unit-lower DAG of 2n rows as one K4 ``LevelPlan``.  K4's
+    ``src`` (2n,) int32 gives the row of b each DAG row (in level order)
+    reads, -1 for the x-rows, which read 0; ``dst`` (2n,) int32 the row of x
+    each x-row writes, -1 for the z-rows.  Both fold in the index reversal
+    of an upper triangle."""
 
     plan: LevelPlan
-    src_in: torch.Tensor
-    src_out: torch.Tensor
+    src: torch.Tensor
+    dst: torch.Tensor
     n: int
     reversed_: bool
     num_supernodes: int
@@ -267,36 +270,36 @@ def build_supernodal_fused_plan(rm, ent, vals, n, lower=True, max_size=32, sn_of
     plan = build_level_plan(T.indptr, T.indices, T.data.astype(vdt), N, levels, True,
                             device)
     order = np.argsort(levels, kind="stable")
-    inv = np.empty(N, np.int64)
-    inv[order] = np.arange(N)
-    feed = order if lower else n - 1 - order          # z-row i takes b[i] (reversed: b[n-1-i])
-    src_in = np.where(order < n, feed, n)
-    out_rows = n + (np.arange(n) if lower else n - 1 - np.arange(n))
-    src_out = inv[out_rows]
+    # z-row i takes b[i] and x-row n+j gives x[j] (reversed: b[n-1-i], x[n-1-j])
+    nat = order if lower else np.where(order < n, n - 1 - order, 3 * n - 1 - order)
+    src = np.where(order < n, nat, -1)
+    dst = np.where(order >= n, nat - n, -1)
     lev_sn = _quotient_levels(sn[rows], sn[cols], nsn)
 
     def dev(a):
         return torch.from_numpy(a.astype(np.int32)).to(device)
 
     return FusedSupernodalPlan(
-        plan=plan, src_in=dev(src_in), src_out=dev(src_out), n=n, reversed_=not lower,
+        plan=plan, src=dev(src), dst=dev(dst), n=n, reversed_=not lower,
         num_supernodes=nsn, num_levels_sn=int(lev_sn.max()) + 1, num_rows_dag=N,
         max_block=int(size.max()), dtype=torch_dtype(vdt))
 
 
 def build_supernodal_plan(rm, ent, vals, n, lower=True, max_size=64, sn_of_col=None,
-                          device=None):
+                          device=None, fused="auto"):
     """Host symbolic and numeric of the supernodal solve of tri(T) (CSR
     arrays with the diagonal stored); plans on ``device``.
 
     sn_of_col: an imported supernode partition (monotone id per column in
     the lower orientation, as ``sptrsv_cholmod`` gives it); runs longer than
-    max_size are split.  f32 values take the fused K4 route and f64 the
-    batched plan, as ``tpukk`` routes them on its TPU.  The fused route caps
-    supernodes at 32 columns, as ``tpukk``'s does, so both packages build the
-    same partition."""
+    max_size are split.  fused: "auto" or True build the expanded DAG for K4
+    (``FusedSupernodalPlan``, f32 or f64 values), False the batched plan
+    (``SupernodalPlan``).  The fused route caps supernodes at 32 columns, as
+    ``tpukk``'s does, so both packages build the same partition."""
+    check(fused in ("auto", True, False),
+          f"supernodal sptrsv: fused must be 'auto', True or False, got {fused!r}")
     vals = np.asarray(vals)
-    if vals.dtype == np.float32:
+    if fused:
         fp = build_supernodal_fused_plan(rm, ent, vals, n, lower, min(max_size, 32), sn_of_col,
                                          device)
         check(fp is not None, "supernodal sptrsv: missing or zero diagonal entry")
@@ -388,15 +391,14 @@ def build_supernodal_plan(rm, ent, vals, n, lower=True, max_size=64, sn_of_col=N
 
 
 def supernodal_solve(plan, b: torch.Tensor) -> torch.Tensor:
-    """x with tri(T)·x = b, in b's dtype.  A fused plan runs K5, K4, K5 and
-    computes in f32; a batched plan runs a handful of batched torch ops per
+    """x with tri(T)·x = b, in b's dtype.  A fused plan is one K4 launch in
+    the plan's dtype; a batched plan runs a handful of batched torch ops per
     level in the promotion of the plan's and b's dtypes."""
     check(isinstance(b, torch.Tensor) and b.ndim == 1 and b.shape[0] == plan.n,
           f"supernodal_solve: b must be a rank-1 tensor of {plan.n} rows")
     if isinstance(plan, FusedSupernodalPlan):
-        bext = torch.nn.functional.pad(b.to(plan.dtype), (0, 1))
-        xp = sptrsv_levels(plan.plan, permute_gather(plan.src_in, bext))
-        return permute_gather(plan.src_out, xp).to(b.dtype)
+        bp = b.to(plan.dtype).contiguous()
+        return sptrsv_levels(plan.plan, bp, src=plan.src, dst=plan.dst).to(b.dtype)
     dt = torch.promote_types(plan.dtype, b.dtype)
     bv = b.flip(0) if plan.reversed_ else b
     bw = torch.nn.functional.pad(bv.to(dt), (0, 1))

@@ -24,8 +24,9 @@ and Pᵀ·A·P on the FEM matrix, SpADD, triangles of the FEM graph; SUPERNODAL
 solves of the FEM matrix's SuperLU factors, superlu_import in GMRES, an
 imported CHOLMOD-format Cholesky factor in PCG, PAR_ILUT and MDF factors in
 GMRES, the ILU(1) refresh; the probe's three variants), checks every result
-on the host with scipy, asserts that a triangular solve is one K4 launch and
-an LUPrec apply two, times each kernel, its plain version and the torch call
+on the host with scipy, asserts that a triangular solve is one K4 launch, an
+LUPrec apply two and a Gauss-Seidel apply (GsPrec's too) one K6 launch (the
+fused sweep, held bit for bit to the per-color path it replaces), times each kernel, its plain version and the torch call
 that computes the same function (K4 also per level, beside the chain's floor
 on a bidiagonal triangle), profiles one PCG and one GMRES iteration, and
 prints one JSON line per phase.  The last two lines are the
@@ -54,7 +55,7 @@ L2_BYTES = 50e6
 SOURCES = {"dia_spmv": "tpukk_torch/csrc/dia.cu", "dia_spmm": "tpukk_torch/csrc/dia.cu",
            "csr_spmv": "tpukk_torch/csrc/csr.cu", "sptrsv_levels": "tpukk_torch/csrc/sptrsv.cu",
            "permute_gather": "tpukk_torch/csrc/permute.cu",
-           "gs_color_step": "tpukk_torch/csrc/gs.cu", "csr_spmm": "tpukk_torch/csrc/csr.cu",
+           "gs_sweep": "tpukk_torch/csrc/gs.cu", "csr_spmm": "tpukk_torch/csrc/csr.cu",
            "spgemm_pairs": "tpukk_torch/csrc/spgemm.cu",
            "probe_gather_acc": "tpukk_torch/csrc/probe.cu"}
 REPLACES = {"dia_spmv": "tpukk/sparse/spmv_pallas.py:41",
@@ -62,7 +63,7 @@ REPLACES = {"dia_spmv": "tpukk/sparse/spmv_pallas.py:41",
             "csr_spmv": "tpukk/sparse/spmv_pallas.py:2053",
             "sptrsv_levels": "tpukk/sparse/sptrsv_pallas.py:515",
             "permute_gather": "tpukk/common/permute.py:91",
-            "gs_color_step": "tpukk/sparse/spmv_pallas.py:2125",
+            "gs_sweep": "tpukk/sparse/spmv_pallas.py:2125",
             "csr_spmm": "tpukk/sparse/spmv_pallas.py:1074",
             "spgemm_pairs": "tpukk/sparse/spgemm_pallas.py:1063",
             "probe_gather_acc": "scripts/probe_ss_cost.py:40"}
@@ -142,6 +143,7 @@ def main() -> int:
     from tpukk_torch.sparse import spgemm_cuda as ksg
     from tpukk_torch.sparse import spmv_cuda as kc
     from tpukk_torch.sparse import sptrsv_cuda as ks
+    from tpukk_torch.sparse.gauss_seidel import _plan_in
     from tpukk_torch.sparse.gmres import _arnoldi_cycle, _rcm_reorder
     from tpukk_torch.sparse.pcg import pcg_initial_state, pcg_iteration
     from tpukk_torch.sparse.spmv_impl import build_dia_plan
@@ -507,6 +509,39 @@ def main() -> int:
                 require(worst[0], f"gs_color_step {mlabel} {alg} disagrees with its plain version")
     require(kg.launch_counts()["gs_color_step"] > before["gs_color_step"], "K6 never launched")
 
+    def hold_sweep(label, hh, dt, k):
+        """K6's fused sweep, a symmetric sweep from x = 0 (a GsPrec apply) and
+        two forward sweeps from a given x: equal to the per-color path (K5,
+        fill, a gs_color_step launch per color step at the sweep's lanes, K5)
+        bit for bit, and within 1000·eps·max|plain| of its plain version."""
+        plan = _plan_in(hh, dt)
+        b_, x_ = vec(plan.n, dt, k), vec(plan.n, dt, k)
+        eps = torch.finfo(dt).eps
+        for x0, direction, sweeps in ((None, "symmetric", 1), (x_, "forward", 2)):
+            got = kg.gs_sweep(plan, x0, b_, hh.omega, direction, sweeps)
+            per = kg.gs_sweep_per_color(plan, x0, b_, hh.omega, direction, sweeps)
+            plain = kg.gs_sweep_plain(plan, x0, b_, hh.omega, direction, sweeps)
+            torch.cuda.synchronize()
+            equal = torch.equal(got, per)
+            err = float((got - plain).abs().max())
+            tol = 1000 * eps * float(plain.abs().max())
+            errs["gs_sweep"] = max(errs["gs_sweep"], err)
+            emit("check", kernel="gs_sweep", case=f"{label} {direction} x sweeps={sweeps}, "
+                 f"x0 {'given' if x0 is not None else 'zero'}, k={1 if k is None else k}",
+                 dtype=str(dt), steps=int(plan.steps(direction, sweeps, x0 is not None).host.shape[0]),
+                 lanes=plan.csr.group, equal_to_per_color=equal,
+                 max_abs_diff_vs_per_color=float((got - per).abs().max()), max_abs_err=err,
+                 max_err_over_tol=err / tol, tol="1000*eps*max|plain|", ok=equal and err <= tol)
+            require(equal, f"gs_sweep {label} {direction}: differs from the per-color path")
+            require(err <= tol, f"gs_sweep {label} {direction}: disagrees with its plain version")
+
+    before = kg.launch_counts()
+    for (mlabel, alg), hh in gs.items():
+        for dt in (torch.float32, torch.float64):
+            for k in (None, 8):
+                hold_sweep(f"{mlabel} {alg}", hh, dt, k)
+    require(kg.launch_counts()["gs_sweep"] > before["gs_sweep"], "K6's fused sweep never launched")
+
     # ---- 3e. the Gauss-Seidel path: coloring, MIS2, sweeps, GsPrec-PCG --------
     coloring = {}
     for mlabel, A in (("fem2d_30k", fem), ("lap1000", lap)):
@@ -549,7 +584,9 @@ def main() -> int:
     bs = torch.from_numpy(np.random.default_rng(11).standard_normal(fem.nrows)).to(dev)
     xs0 = torch.from_numpy(np.random.default_rng(12).standard_normal(fem.nrows)).to(dev)
     xs, counts, wall = counted("gs forward sweep", lambda: forward_sweep(hp, fem, xs0, bs),
-                               ("gs_color_step", "permute_gather"))
+                               ("gs_sweep",))
+    require(counts["gs_sweep"] == 1 and counts["gs_color_step"] == 0
+            and counts["permute_gather"] == 0, f"gs forward sweep: not one K6 launch: {counts}")
     o = hp.order
     Ap = fem.to_scipy()[o][:, o].tocsr()
     bh, x0h = bs.cpu().numpy(), xs0.cpu().numpy()
@@ -568,12 +605,14 @@ def main() -> int:
                             dict(clustering=ClusteringAlgorithm.BALLOON)),
                            ("TWOSTAGE", GsAlgorithm.TWOSTAGE, {})):
         hh = gs.get(("fem2d_30k f64", label)) or gs_handle(fem, alg, **kw)
-        needs = ("gs_color_step",) if alg != GsAlgorithm.TWOSTAGE else ("csr_spmv",)
+        needs = ("gs_sweep",) if alg != GsAlgorithm.TWOSTAGE else ("csr_spmv",)
         res, xk = [], None
         for _ in range(5):
             xk, counts, wall = counted(f"gs {label} sweep",
                                        lambda: gauss_seidel_apply(hh, fem, xk, bs, 1), needs)
             res.append(float(np.linalg.norm(bh - sp_fem @ xk.cpu().numpy()) / np.linalg.norm(bh)))
+            require(alg == GsAlgorithm.TWOSTAGE or (counts["gs_sweep"] == 1 and sum(counts.values()) == 1),
+                    f"gs {label} sweep: not one K6 launch: {counts}")
         require(all(math.isfinite(r) for r in res), f"gs {label}: non-finite residual")
         # Balloon clusters (8 vertices, 3 inner Jacobi sweeps) diverge on this
         # matrix, in tpukk too (0.370, 3.37, 90.3 after 1-3 sweeps on the CPU)
@@ -593,14 +632,18 @@ def main() -> int:
 
     def gs_pcg(label, A, key, hh, phase):
         b_, jac_iters = jacobi[key]
-        st, rel, counts, wall = solve(label, A, b_, GsPrec(hh, A), 2 * jac_iters)
-        require(counts["gs_color_step"] > 0 and counts["permute_gather"] > 0,
-                f"{label}: K6/K5 not launched: {counts}")
+        prec = GsPrec(hh, A)
+        _, apply_counts, _ = counted(f"{label} one apply", lambda: prec.apply(b_), ("gs_sweep",))
+        require(apply_counts["gs_sweep"] == 1 and sum(apply_counts.values()) == 1,
+                f"{label}: a GsPrec apply is not one K6 launch: {apply_counts}")
+        st, rel, counts, wall = solve(label, A, b_, prec, 2 * jac_iters)
+        require(counts["gs_sweep"] > 0 and counts["gs_color_step"] == 0
+                and counts["permute_gather"] == 0, f"{label}: not on the fused sweep: {counts}")
         require(st.num_iters < jac_iters,
                 f"{label}: {st.num_iters} iterations, Jacobi {jac_iters}")
         emit(phase, iters=st.num_iters, jacobi_iters=jac_iters, rel_res_host=rel,
              seconds=wall, us_per_iter=wall / st.num_iters * 1e6, colors=len(hh.color_offsets) - 1,
-             launches=counts)
+             launches=counts, launches_per_gsprec_apply=apply_counts)
 
     gs_pcg("pcg gsprec fem2d_30k", fem, "fem2d_30k", hp, "main_pcg_gs_fem2d30k_f64")
     gs_pcg("pcg gsprec lap1000", lap64, "lap1000", gs[("lap1000", "POINT")],
@@ -1094,7 +1137,11 @@ def main() -> int:
             require(err <= 1e-5, f"probe_gather_acc {variant} B={B} disagrees with its plain version")
             probe_plans[(variant, B)] = (plan, x0)
 
-    require(all(v > 0 for v in total.values()), f"a kernel of the path never ran: {total}")
+    # K6's two entries are one kernel: the path runs the fused sweep, the
+    # per-color step is its yardstick (and the distributed sweep's step)
+    path = {k: v for k, v in total.items() if k != "gs_color_step"}
+    path["gs_sweep"] += total["gs_color_step"]
+    require(all(v > 0 for v in path.values()), f"a kernel of the path never ran: {total}")
     emit("main_path_launches", launches=total)
 
     # ---- 4. timing: kernel, plain version, cuSPARSE, bound --------------------
@@ -1334,11 +1381,77 @@ def main() -> int:
 
     lap_blocks = next(iter(gs[("lap1000", "POINT")]._blocks.values()))
     fem_blocks = next(iter(hp._blocks.values()))
-    t_k6 = k6_row("lap1000 f64 POINT color 1 (in place)", lap_blocks[0], lap64.nrows)
+    k6_row("lap1000 f64 POINT color 1 (in place)", lap_blocks[0], lap64.nrows)
     k6_row("fem2d_30k f64 POINT color 1 (in place)", fem_blocks[0], fem.nrows)
     cl_blocks = next(iter(gs[("fem2d_30k f64", "CLUSTER")]._blocks.values()))
     k6_row("fem2d_30k f64 CLUSTER largest color (out of place)",
            max(cl_blocks, key=lambda b: b.nrows), fem.nrows)
+
+    # K6's step floor: a lower-bidiagonal matrix of 16,384 rows, each row its
+    # own color block, swept forward: one row a step, so the time over the
+    # steps is one step's publish-and-observe cost
+    nfl6 = 16_384
+    fl6 = kg.build_gs_sweep_plan(np.r_[0, np.arange(nfl6)], np.arange(nfl6 - 1),
+                                 np.full(nfl6 - 1, -0.5), np.ones(nfl6), np.arange(nfl6 + 1),
+                                 np.arange(nfl6), dev)
+    bfl6 = vec(nfl6, torch.float64)
+    require(torch.equal(kg.gs_sweep(fl6, None, bfl6, 1.0, "forward"),
+                        kg.gs_sweep_plain(fl6, None, bfl6, 1.0, "forward")),
+            "gs_sweep on the step-floor plan disagrees with its plain version")
+    floor6_us = event_ms(lambda: kg.gs_sweep(fl6, None, bfl6, 1.0, "forward"), 3) * 1e3 / nfl6
+    emit("timing_k6_floor", case=f"K6 gs_sweep, lower-bidiagonal, {nfl6} one-row steps, f64",
+         us_per_step=floor6_us)
+    del fl6
+
+    def k6_sweep_row(label, hh):
+        """One symmetric sweep from x = 0, as GsPrec applies it, f64.  Bound:
+        the matrix's CSR, 1/diag, b and order read once, x written once;
+        sweep_bytes_ms: what the step chain moves (each step's block CSR,
+        1/diag, b rows, x rows read and written, and its distinct neighbour
+        values); step_bound_ms: steps x the floor."""
+        plan = _plan_in(hh, torch.float64)
+        n, nnz, sz = plan.n, plan.csr.entries.shape[0], 8
+        host = plan.steps("symmetric", 1, False).host
+        bb = vec(n, torch.float64)
+        sweep_bytes = 0
+        for begin, end, mode, *_ in host.tolist():
+            if mode in (kg.IN_PLACE, kg.TO_SCRATCH):
+                p0, p1 = int(plan.csr.row_map[begin]), int(plan.csr.row_map[end])
+                gathered = int(torch.unique(plan.csr.entries[p0:p1]).shape[0])
+                sweep_bytes += ((end - begin + 1) * 4 + (p1 - p0) * (4 + sz) + 4 * (end - begin) * sz
+                                + gathered * sz)
+            else:
+                sweep_bytes += 3 * (end - begin) * sz
+        nbytes = (n + 1) * 4 + nnz * (4 + sz) + 3 * n * sz + 4 * n
+
+        def make(i):
+            p = plan if i == 0 else dataclasses.replace(
+                plan, csr=dataclasses.replace(plan.csr, row_map=plan.csr.row_map.clone(),
+                                              entries=plan.csr.entries.clone(),
+                                              values=plan.csr.values.clone(), _rows=None),
+                inv_diag=plan.inv_diag.clone(), order=plan.order.clone(), _blocks=None,
+                _steps={}, _bufs={})
+            bi = bb if i == 0 else bb.clone()
+            kg.gs_sweep(p, None, bi, hh.omega)  # the copy's step list and buffers, before capture
+            return (lambda: kg.gs_sweep(p, None, bi, hh.omega)), \
+                (lambda: kg.gs_sweep_plain(p, None, bi, hh.omega))
+
+        per_color_ms = chain_time_slope(
+            lambda: kg.gs_sweep_per_color(plan, None, bb, hh.omega), 10, 50) * 1e3
+        steps = host.shape[0]
+        return timed_kernel(f"K6 gs_sweep {label}, symmetric sweep from x = 0", make, nbytes,
+                            4 * nnz + 10 * n, torch.float64, (20, 100), (2, 6), None,
+                            library="none: no single torch call computes a Gauss-Seidel sweep",
+                            steps=steps, colors=len(plan.offsets) - 1, lanes=plan.csr.group,
+                            chunk_rows=plan.chunk_rows, sweep_bytes_MB=sweep_bytes / 1e6,
+                            sweep_bytes_ms=sweep_bytes / bw * 1e3,
+                            step_bound_ms=steps * floor6_us * 1e-3, floor_us_per_step=floor6_us,
+                            per_color_path_ms=per_color_ms,
+                            per_color_path="K5, fill, a gs_color_step launch per step, K5")
+
+    t_k6 = k6_sweep_row("lap1000 f64 POINT", gs[("lap1000", "POINT")])
+    k6_sweep_row("fem2d_30k f64 POINT", hp)
+    k6_sweep_row("fem2d_30k f64 CLUSTER", gs[("fem2d_30k f64", "CLUSTER")])
 
     def k7_row(label, A, dt, k):
         cp = kc.build_csr_plan(A, dt)
@@ -1482,10 +1595,10 @@ def main() -> int:
     total_k = []
     for name, row in (("dia_spmv", t_k1), ("dia_spmm", t_k2), ("csr_spmv", t_k3),
                       ("sptrsv_levels", t_k4), ("permute_gather", t_k5),
-                      ("gs_color_step", t_k6), ("csr_spmm", t_k7), ("spgemm_pairs", t_k8),
+                      ("gs_sweep", t_k6), ("csr_spmm", t_k7), ("spgemm_pairs", t_k8),
                       ("probe_gather_acc", t_k9)):
         total_k.append(dict(name=name, route="cuda", source=SOURCES[name],
-                            replaces=REPLACES[name], launches=total[name],
+                            replaces=REPLACES[name], launches=path[name],
                             max_abs_err=errs[name], ms=row["ms"], plain_ms=row["plain_ms"],
                             bound_ms=row["bound_ms"], bound_by=row["bound_by"],
                             library_ms=row["library_ms"]))

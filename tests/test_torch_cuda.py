@@ -5,7 +5,9 @@ triangles) and the factor-and-solve slice (SUPERNODAL on K4, SuperLU and
 CHOLMOD imports, PAR_ILUT, MDF, the ILU(k) refresh) through the kernels, and
 the probe kernel K9; K4 with the level permutations folded in (src/dst), at
 each lane width, replayed in a CUDA graph, and trapping on a plan that does
-not order its triangle.  Every test skips without a CUDA device: the
+not order its triangle; K6's fused sweep equal to the per-color path it
+replaces bit for bit, one launch per GsPrec apply, replayed in a CUDA graph,
+and trapping on a plan whose steps cannot finish.  Every test skips without a CUDA device: the
 kernels have no CPU mode.
 
 This file imports neither JAX nor tpukk, so it runs on a GPU host that has
@@ -362,10 +364,10 @@ def test_onehot_spmm_route_launches_k7(dev):
     assert np.abs(Y.cpu().numpy() - ref).max() <= 1e-12 * np.abs(ref).max()
 
 
-def _gs_handle(A, alg=GsAlgorithm.POINT, **kw):
+def _gs_handle(A, alg=GsAlgorithm.POINT, omega=1.0, **kw):
     h = GsHandle(alg, **kw)
     gauss_seidel_symbolic(h, A)
-    gauss_seidel_numeric(h, A, omega=kw.pop("omega", 1.0))
+    gauss_seidel_numeric(h, A, omega=omega)
     return h
 
 
@@ -401,6 +403,112 @@ def test_gs_color_step_kernel_matches_plain(dev, alg, dtype):
                     assert torch.equal(got[:s], x[:s]) and torch.equal(got[e:], x[e:])
 
 
+def _sweep_cases(dev):
+    lap = tkc.generate_structured_laplacian(60, 60, dtype=np.float64, device=dev)
+    dd = tkc.generate_diag_dominant_csr(3000, 9, dtype=np.float64, seed=5, device=dev)
+    return {"point_lap": _gs_handle(lap, omega=1.2),
+            "cluster_lap": _gs_handle(lap, GsAlgorithm.CLUSTER, omega=1.2),
+            "point_dd": _gs_handle(dd, omega=1.2)}  # non-symmetric: coupled POINT blocks
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_gs_sweep_kernel_equals_per_color_path(dev, dtype):
+    """K6's fused sweep against the path it replaces (K5, a fill, a
+    gs_color_step launch per color step at the sweep's lanes per row, K5),
+    bit for bit: every direction, x given and not, natural and permuted
+    order, k = 1 and 4, two sweeps; at the plan's chunk size and at chunks
+    of 7 rows (several chunks a step)."""
+    from tpukk_torch.sparse.gauss_seidel import _plan_in
+
+    for name, h in _sweep_cases(dev).items():
+        plan = _plan_in(h, dtype)
+        for p in (plan, dataclasses.replace(plan, chunk_rows=7, _steps={}, _bufs={})):
+            for k in (None, 4):
+                b = _x(plan.n, dtype, dev, k, seed=1)
+                for x in (None, _x(plan.n, dtype, dev, k, seed=2)):
+                    for direction in ("forward", "backward", "symmetric"):
+                        for permuted in (False, True):
+                            n0 = kg.gs_sweep.launches
+                            got = kg.gs_sweep(p, x, b, h.omega, direction, 2, permuted)
+                            assert kg.gs_sweep.launches == n0 + 1
+                            ref = kg.gs_sweep_per_color(p, x, b, h.omega, direction, 2, permuted)
+                            torch.cuda.synchronize()
+                            assert torch.equal(got, ref), (name, k, direction, permuted)
+
+
+def test_gsprec_apply_is_one_k6_launch(dev):
+    """GsPrec.apply (POINT and CLUSTER): one gs_sweep launch, no color step,
+    no K5 permutation; its result equals the plain sweep's on the CPU."""
+    from tpukk_torch.common import permute
+
+    A = tkc.generate_structured_laplacian(80, 80, dtype=np.float64, device=dev)
+    cpu = tkc.CsrMatrix.from_scipy(A.to_scipy(), device="cpu")
+    r = _x(A.nrows, torch.float64, dev, seed=4)
+    for alg in (GsAlgorithm.POINT, GsAlgorithm.CLUSTER):
+        prec = GsPrec(_gs_handle(A, alg), A)
+        counts = (kg.gs_sweep.launches, kg.gs_color_step.launches, permute.permute_gather.launches)
+        z = prec.apply(r)
+        torch.cuda.synchronize()
+        assert (kg.gs_sweep.launches, kg.gs_color_step.launches,
+                permute.permute_gather.launches) == (counts[0] + 1, counts[1], counts[2])
+        ref = GsPrec(_gs_handle(cpu, alg), cpu).apply(r.cpu())
+        assert (z.cpu() - ref).abs().max() <= 1e-12 * ref.abs().max()
+
+
+def test_gs_sweep_replays_in_a_cuda_graph(dev):
+    """A captured gs_sweep replays with the state it resets itself, on a new
+    b each time, and equals an eager call on that b."""
+    from tpukk_torch.sparse.gauss_seidel import _plan_in
+
+    for h in _sweep_cases(dev).values():
+        plan = _plan_in(h, torch.float64)
+        b = _x(plan.n, torch.float64, dev, seed=3)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            kg.gs_sweep(plan, None, b, h.omega, "symmetric", 1)
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            out = kg.gs_sweep(plan, None, b, h.omega, "symmetric", 1)
+        for seed in (4, 5, 6):
+            b.copy_(_x(plan.n, torch.float64, dev, seed=seed))
+            out.zero_()
+            g.replay()
+            ref = kg.gs_sweep(plan, None, b, h.omega, "symmetric", 1)
+            torch.cuda.synchronize()
+            assert torch.equal(out, ref)
+
+
+def test_gs_sweep_traps_on_a_plan_that_cannot_finish(dev):
+    """A step that waits on more chunks than the step before it has never
+    starts: the kernel traps after 2^28 polls and the launch fails, instead
+    of hanging the card (in a child process: a trap ends its CUDA context)."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    code = f"""
+import sys, numpy as np, torch
+sys.path.insert(0, {str(Path(__file__).resolve().parent.parent)!r})
+from tpukk_torch.sparse import gs_cuda as kg
+dev = torch.device("cuda", 0)
+n = 8
+plan = kg.build_gs_sweep_plan(np.r_[0, np.arange(n)], np.arange(n - 1), np.full(n - 1, -0.5),
+                              np.ones(n), np.arange(n + 1), np.arange(n), dev)
+st = plan.steps("forward", 1, False)
+st.steps[1, kg.STEP_FIELDS.index("wait")] += 1
+try:
+    kg.gs_sweep(plan, None, torch.ones(n, dtype=torch.float64, device=dev), 1.0, "forward", 1)
+    torch.cuda.synchronize()
+except RuntimeError:
+    sys.exit(0)
+sys.exit(3)
+"""
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=900)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
 def test_coloring_and_mis2_on_the_card_equal_the_cpu(dev):
     lap = tkc.generate_structured_laplacian(100, 100, device=dev)        # offsets path
     rnd = tkc.generate_random_csr(5000, 5000, 8, seed=13, device=dev)    # selection path
@@ -431,9 +539,9 @@ def test_cluster_sweep_matches_its_plain_version(dev):
         h = _gs_handle(A, GsAlgorithm.CLUSTER, clustering=clustering)
         hc = _gs_handle(cpu, GsAlgorithm.CLUSTER, clustering=clustering)
         np.testing.assert_array_equal(h.order, hc.order)
-        n0 = kg.gs_color_step.launches
+        n0 = kg.gs_sweep.launches
         x = gauss_seidel_apply(h, A, None, b, 3)
-        assert kg.gs_color_step.launches > n0
+        assert kg.gs_sweep.launches == n0 + 1
         ref = gauss_seidel_apply(hc, cpu, None, b.cpu(), 3)
         assert (x.cpu() - ref).abs().max() <= 1e-12 * ref.abs().max()
 
@@ -442,12 +550,12 @@ def test_gsprec_pcg_runs_through_k6(dev):
     A = tkc.generate_structured_laplacian(100, 100, dtype=np.float64, device=dev)
     b = _x(A.nrows, torch.float64, dev, seed=1)
     h = _gs_handle(A)
-    n0 = kg.gs_color_step.launches
+    n0 = kg.gs_sweep.launches
     xs, st = pcg(A, b, tol=1e-8, max_iters=2000, prec=GsPrec(h, A))
     r = b.cpu().numpy() - A.to_scipy() @ xs.cpu().numpy()
     assert st.converged and np.linalg.norm(r) <= 1e-7 * np.linalg.norm(b.cpu().numpy())
-    ncolors = len(h.color_offsets) - 1
-    assert kg.gs_color_step.launches - n0 >= 2 * ncolors * st.num_iters
+    # one K6 launch per preconditioner apply
+    assert kg.gs_sweep.launches - n0 >= st.num_iters
     _, sj = pcg(A, b, tol=1e-8, max_iters=2000, prec=JacobiPrec(A))
     assert st.num_iters < sj.num_iters
 

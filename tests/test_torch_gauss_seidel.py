@@ -17,7 +17,16 @@ Tolerance: |x − x_ref| ≤ tol_for(dtype)·max|x_ref| (tests/conftest.py's
 rounding along.  The sequential-GS oracle is held at the same tolerance; the
 multivector's columns are held to single-column applies at the same
 tolerance; GsPrec-PCG to tpukk's iteration count and 1e-10.
+
+K6's fused sweep (``gs_cuda.gs_sweep``): its plain version, and an emulation
+of the kernel's step semantics (an unfilled working buffer whose zero ranges
+read 0, scratch and copy steps, the result written only by final steps), are
+held exactly (``torch.equal``) to the per-color loop of
+``gs_color_step_plain`` that they replace; the step list itself to its
+definition.
 """
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -34,6 +43,7 @@ from tpukk_torch.sparse import (ClusteringAlgorithm, GsAlgorithm, GsHandle, GsPr
                                 gauss_seidel_numeric, gauss_seidel_symbolic, pcg,
                                 symmetric_sweep)
 from tpukk_torch.sparse import gs_cuda, spmv_cuda
+from tpukk_torch.sparse.gauss_seidel import _plan_in
 
 from conftest import tol_for
 
@@ -294,3 +304,174 @@ def test_refuses_block_matrices_and_misuse():
     gauss_seidel_symbolic(h, At)
     with pytest.raises(Exception, match="numeric first"):
         gauss_seidel_apply(h, At, None, torch.ones(30, dtype=torch.float64))
+
+
+# ---- K6's fused sweep: gs_sweep against the per-color loop it replaces -------
+
+SWEEP_CASES = {
+    "point_lap": ("POINT", lambda: _shifted_lap(14, 0.5)),        # uncoupled blocks
+    "cluster_lap": ("CLUSTER", lambda: _shifted_lap(14, 0.5)),    # coupled blocks, 3 inner sweeps
+    "point_dd": ("POINT", lambda: jkc.generate_diag_dominant_csr(300, 5, dtype=np.float64,
+                                                                 seed=11)),  # non-symmetric
+}
+
+
+@pytest.fixture(scope="module")
+def sweep_handles():
+    out = {}
+    for name, (alg, make) in SWEEP_CASES.items():
+        At = _port(make())
+        h = GsHandle(GsAlgorithm[alg], cluster_inner_sweeps=3)
+        gauss_seidel_symbolic(h, At)
+        gauss_seidel_numeric(h, At, omega=1.2)
+        out[name] = h, At
+    return out
+
+
+def _sweep_inputs(h, x_given, k, dtype, seed):
+    rng = np.random.default_rng(seed)
+    n = h.order.shape[0]
+    shape = (n,) if k == 1 else (n, k)
+    b = torch.from_numpy(rng.standard_normal(shape).astype(dtype))
+    x = torch.from_numpy(rng.standard_normal(shape).astype(dtype)) if x_given else None
+    return x, b
+
+
+def _per_color_loop(h, x, b, direction, num_sweeps, permuted):
+    """The path gs_sweep replaces, written out from the handle: into color
+    order, zeros for x None, gs_color_step_plain per color (and per inner
+    sweep), back to natural order."""
+    blocks = h._blocks[b.dtype]
+    reps = h.cluster_inner_sweeps if h.algorithm == GsAlgorithm.CLUSTER else 1
+    o = torch.from_numpy(h.order).long()
+    bp = b if permuted else b[o]
+    xp = torch.zeros_like(bp) if x is None else (x.clone() if permuted else x[o])
+    halves = {"forward": [True], "backward": [False],
+              "symmetric": [True, False]}[direction] * num_sweeps
+    for fwd in halves:
+        for blk in (blocks if fwd else blocks[::-1]):
+            for _ in range(reps):
+                gs_cuda.gs_color_step_plain(blk, xp, bp, h.omega)
+    if permuted:
+        return xp
+    out = torch.empty_like(xp)
+    out[o] = xp
+    return out
+
+
+def _emulate_steps(plan, x, b, omega, direction, num_sweeps, permuted):
+    """The kernel's step semantics in torch ops: the working buffer, scratch
+    and result start as NaN (no fill), a relaxation reads 0 in its step's
+    zero range, and only final steps write the result."""
+    host = plan.steps(direction, num_sweeps, x is not None).host
+    o = plan.order.long()
+    bp = b if permuted else b[o]
+    work, scratch, res = (torch.full_like(bp, float("nan")) for _ in range(3))
+    blocks = {blk.start: blk for blk in plan.blocks}
+    for begin, end, mode, final, zlo, zhi, _, _ in host.tolist():
+        if mode == gs_cuda.GATHER:
+            work[begin:end] = (x if permuted else x[o])[begin:end]
+            continue
+        if mode == gs_cuda.COPY:
+            work[begin:end] = val = scratch[begin:end]
+        else:
+            seen = work.clone()
+            seen[zlo:zhi] = 0
+            val = gs_cuda.gs_color_step_plain(blocks[begin], seen, bp, omega)[begin:end]
+            (work if mode == gs_cuda.IN_PLACE else scratch)[begin:end] = val
+        if final:
+            res[begin:end] = val
+    assert torch.equal(res, work)  # every row's last value is written out
+    if permuted:
+        return work
+    out = torch.empty_like(res)
+    out[o] = res
+    return out
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("permuted", [False, True], ids=["natural", "permuted"])
+@pytest.mark.parametrize("x_given", [False, True], ids=["x0", "x"])
+@pytest.mark.parametrize("direction", ["forward", "backward", "symmetric"])
+@pytest.mark.parametrize("case", sorted(SWEEP_CASES))
+def test_gs_sweep_plain_equals_per_color_loop(sweep_handles, case, direction, x_given, permuted,
+                                              k, dtype):
+    h, At = sweep_handles[case]
+    x, b = _sweep_inputs(h, x_given, k, dtype, seed=k + 10 * x_given)
+    plan = _plan_in(h, b.dtype)
+    x_keep = None if x is None else x.clone()
+    got = gs_cuda.gs_sweep(plan, x, b, h.omega, direction, 2, permuted)
+    assert torch.equal(got, _per_color_loop(h, x, b, direction, 2, permuted))
+    assert x is None or torch.equal(x, x_keep)
+    if not permuted and dtype == np.float64:  # the matrix's dtype: apply is that one call
+        assert torch.equal(gauss_seidel_apply(h, At, x, b, 2, direction), got)
+
+
+@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("permuted", [False, True], ids=["natural", "permuted"])
+@pytest.mark.parametrize("x_given", [False, True], ids=["x0", "x"])
+@pytest.mark.parametrize("direction", ["forward", "backward", "symmetric"])
+@pytest.mark.parametrize("case", sorted(SWEEP_CASES))
+def test_gs_sweep_steps_emulated_equal_per_color_loop(sweep_handles, case, direction, x_given,
+                                                      permuted, k):
+    """What only the kernel reads of the step list (zero ranges, scratch and
+    copy steps, final flags), emulated with unfilled buffers, at one and at
+    several chunks a step."""
+    h, _ = sweep_handles[case]
+    x, b = _sweep_inputs(h, x_given, k, np.float64, seed=3)
+    plan = _plan_in(h, b.dtype)
+    ref = _per_color_loop(h, x, b, direction, 2, permuted)
+    for chunk_rows in (plan.chunk_rows, 7):
+        p = dataclasses.replace(plan, chunk_rows=chunk_rows, _steps={})
+        assert torch.equal(_emulate_steps(p, x, b, h.omega, direction, 2, permuted), ref)
+
+
+def test_gs_sweep_plan_steps(sweep_handles):
+    """The plan: src = dst = handle.order, the blocks' views tile the whole
+    CSR, and the step lists of a POINT and a CLUSTER handle."""
+    for name, (h, _) in sweep_handles.items():
+        plan = h._plans[torch.float64]
+        np.testing.assert_array_equal(plan.order.numpy(), h.order)
+        n = h.order.shape[0]
+        assert plan.offsets[0] == 0 and plan.offsets[-1] == n
+        assert [blk.start for blk in plan.blocks] == list(plan.offsets[:-1])
+        assert torch.equal(torch.cat([blk.csr.values for blk in plan.blocks]), plan.csr.values)
+        assert torch.equal(torch.cat([blk.inv_diag for blk in plan.blocks]), plan.inv_diag)
+        for blk in plan.blocks:
+            ent = blk.csr.entries
+            assert blk.coupled == bool(((ent >= blk.start) & (ent < blk.start + blk.nrows)).any())
+        # a symmetric pattern's POINT blocks are uncoupled; CLUSTER's, and POINT's on
+        # the non-symmetric dd pattern, are not
+        assert any(plan.coupled) == (name != "point_lap")
+
+    h, _ = sweep_handles["point_lap"]
+    plan = h._plans[torch.float64]
+    off, n, nb = plan.offsets, plan.n, len(plan.offsets) - 1
+    host, nchunks = gs_cuda.sweep_steps(plan, "symmetric", 1, False)
+    want = ([[off[c], off[c + 1], gs_cuda.IN_PLACE, 0, off[c], n] for c in range(nb)]
+            + [[off[c], off[c + 1], gs_cuda.IN_PLACE, 1, 0, 0] for c in reversed(range(nb))])
+    np.testing.assert_array_equal(host[:, :6], want)
+    chunks = -(-(host[:, 1] - host[:, 0]) // plan.chunk_rows)
+    np.testing.assert_array_equal(host[:, 6], np.r_[0, np.cumsum(chunks)[:-1]])
+    np.testing.assert_array_equal(host[:, 7], np.r_[0, chunks[:-1]])
+    assert nchunks == chunks.sum()
+    host, _ = gs_cuda.sweep_steps(plan, "backward", 1, True)
+    np.testing.assert_array_equal(host[0, :6], [0, n, gs_cuda.GATHER, 0, 0, 0])
+    np.testing.assert_array_equal(host[1:, 2:6], [[gs_cuda.IN_PLACE, 1, 0, 0]] * nb)
+
+    h, _ = sweep_handles["cluster_lap"]
+    plan = _plan_in(h, torch.float64)
+    assert plan.reps == 3
+    host, _ = gs_cuda.sweep_steps(plan, "forward", 1, False)
+    rows = iter(host[:, :6].tolist())
+    for c in range(len(plan.offsets) - 1):
+        s, e = int(plan.offsets[c]), int(plan.offsets[c + 1])
+        for rep in range(3):
+            zero = [s if rep == 0 else e, n]
+            if plan.coupled[c]:
+                assert next(rows) == [s, e, gs_cuda.TO_SCRATCH, 0, *zero]
+                assert next(rows) == [s, e, gs_cuda.COPY, int(rep == 2), 0, 0]
+            else:
+                assert next(rows) == [s, e, gs_cuda.IN_PLACE, int(rep == 2), *zero]
+    assert next(rows, None) is None

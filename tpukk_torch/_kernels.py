@@ -57,6 +57,8 @@ SOURCES = {
     "gs": {
         "tpukk_gs_color_step": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I,
                                 ctypes.c_double, _P],
+        "tpukk_gs_sweep": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                           _P, _I, ctypes.c_double, _P],
     },
     "sptrsv": {
         "tpukk_sptrsv_levels": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],

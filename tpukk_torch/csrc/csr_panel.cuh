@@ -1,5 +1,5 @@
-// The CSR row panel shared by K7 csr_spmm (csr.cu) and K6 gs_color_step
-// (gs.cu): K3's vector CSR with a register panel of k accumulators.
+// The CSR row panel shared by K7 csr_spmm (csr.cu) and K6 gs_color_step and
+// gs_sweep (gs.cu): K3's vector CSR with a register panel of k accumulators.
 //
 // A group of G lanes (1, 2, 4, 8, 16 or 32, chosen on the host from the mean
 // entries per row) owns one row.  Each lane walks the row's entries at stride
@@ -8,8 +8,10 @@
 // row's entries serves all k columns.  The group then reduces each column
 // with K3's shuffle tree, so a column's sum is taken in K3's order, and every
 // lane of the group holds every column's sum.  k is bucketed into a
-// compile-time panel of 4, 8 or 16 columns; the caller stores the sums (K7)
-// or applies its update to them (K6), lane j % G taking column j.
+// compile-time panel of 1 (a vector), 4, 8 or 16 columns; the caller stores the sums (K7)
+// or applies its update to them (K6), lane j % G taking column j.  Each
+// product is added with one fma, so every kernel built on the panel sums a
+// row in the same order and to the same bits for the same G.
 
 #pragma once
 
@@ -22,30 +24,31 @@ namespace {
 
 constexpr int kThreads = 256;
 
-// acc[j] = sum_{p in row} vals[p] * x[colidx[p], j] for j < k, on every lane
-// of the row's group; 0 for an invalid row.  Every lane of the warp must call
-// it (the shuffles span the warp).  kReadOnlyX reads x through the read-only
-// path, which is only right where nothing writes x during the kernel.
-template <typename T, int G, int KMAX, bool kReadOnlyX>
-__device__ __forceinline__ void csr_row_panel(const int* __restrict__ rowmap,
-                                              const int* __restrict__ colidx,
-                                              const T* __restrict__ vals, const T* x,
-                                              int64_t row, int lane, bool valid, int k,
-                                              T (&acc)[KMAX]) {
+// acc[j] += v * x[c, j] for j < k, one fma each; x[c, j] reads 0 without a
+// load where `zero` (the fused sweep's rows not yet written).  kReadOnlyX
+// reads x through the read-only path, which is only right where nothing
+// writes x during the kernel.
+template <typename T, int KMAX, bool kReadOnlyX>
+__device__ __forceinline__ void panel_add(const T* x, int c, T v, int k, bool zero,
+                                          T (&acc)[KMAX]) {
+  const T* xr = x + static_cast<int64_t>(c) * k;
 #pragma unroll
-  for (int j = 0; j < KMAX; ++j) acc[j] = T(0);
-  if (valid) {
-    const int end = rowmap[row + 1];
-    for (int p = rowmap[row] + lane; p < end; p += G) {
-      const T v = vals[p];
-      const T* xr = x + static_cast<int64_t>(colidx[p]) * k;
-#pragma unroll
-      for (int j = 0; j < KMAX; ++j)
-        if (j < k) acc[j] += v * (kReadOnlyX ? __ldg(xr + j) : xr[j]);
+  for (int j = 0; j < KMAX; ++j) {
+    if (j < k) {
+      T xv = T(0);
+      if (!zero) xv = kReadOnlyX ? __ldg(xr + j) : xr[j];
+      acc[j] = fma(v, xv, acc[j]);
     }
   }
-  // k is the same for every lane, so each shuffle is reached by the whole warp;
-  // width G keeps each group's reduction inside the group
+}
+
+// The group's reduction of each column with K3's shuffle tree, after which
+// every lane of the group holds every column's sum.  Every lane of the warp
+// must call it (the shuffles span the warp); k is the same for every lane, so
+// each shuffle is reached by the whole warp, and width G keeps each group's
+// reduction inside the group.
+template <typename T, int G, int KMAX>
+__device__ __forceinline__ void panel_reduce(int k, T (&acc)[KMAX]) {
 #pragma unroll
   for (int j = 0; j < KMAX; ++j) {
     if (j < k) {
@@ -56,6 +59,25 @@ __device__ __forceinline__ void csr_row_panel(const int* __restrict__ rowmap,
   }
 }
 
+// acc[j] = sum_{p in row} vals[p] * x[colidx[p], j] for j < k, on every lane
+// of the row's group; 0 for an invalid row.  Every lane of the warp must call
+// it.  Lane `lane` adds the row's entries lane, lane + G, ... in order.
+template <typename T, int G, int KMAX, bool kReadOnlyX>
+__device__ __forceinline__ void csr_row_panel(const int* __restrict__ rowmap,
+                                              const int* __restrict__ colidx,
+                                              const T* __restrict__ vals, const T* x,
+                                              int64_t row, int lane, bool valid, int k,
+                                              T (&acc)[KMAX]) {
+#pragma unroll
+  for (int j = 0; j < KMAX; ++j) acc[j] = T(0);
+  if (valid) {
+    const int end = rowmap[row + 1];
+    for (int p = rowmap[row] + lane; p < end; p += G)
+      panel_add<T, KMAX, kReadOnlyX>(x, colidx[p], vals[p], k, false, acc);
+  }
+  panel_reduce<T, G, KMAX>(k, acc);
+}
+
 inline unsigned panel_grid(int nrows, int group) {
   return static_cast<unsigned>((static_cast<int64_t>(nrows) * group + kThreads - 1) / kThreads);
 }
@@ -63,6 +85,7 @@ inline unsigned panel_grid(int nrows, int group) {
 template <int G, typename Launch>
 int dispatch_kmax(int k, const Launch& launch) {
   using g = std::integral_constant<int, G>;
+  if (k == 1) return launch(g{}, std::integral_constant<int, 1>{});
   if (k <= 4) return launch(g{}, std::integral_constant<int, 4>{});
   if (k <= 8) return launch(g{}, std::integral_constant<int, 8>{});
   return launch(g{}, std::integral_constant<int, 16>{});

@@ -5,24 +5,28 @@ gauss_seidel_handle.hpp:30).
 
 * POINT (the reference's color-permuted PSGS,
   KokkosSparse_gauss_seidel_impl.hpp:128,199): symbolic colors the graph and
-  orders the rows color by color; numeric cuts the permuted matrix into one
-  CSR block per color (diagonal removed, columns in the permuted space, no
-  padding) with 1/diag; apply runs one K6 ``gs_color_step`` launch per color,
-  in place, since no row of a distance-1 color block refers to another.
+  orders the rows color by color; numeric builds the sweep plan of K6
+  (``gs_cuda.GsSweepPlan``: the permuted matrix's off-diagonal CSR, cut into
+  one block per color, columns in the permuted space, no padding, with
+  1/diag); an apply is one K6 ``gs_sweep`` launch that runs every color step
+  of every half-sweep in order, each block in place, since no row of a
+  distance-1 color block refers to another.
 * CLUSTER (cluster_gauss_seidel_impl.hpp): vertices are clustered (MIS2
   aggregation or Balloon), the cluster graph is colored, and a cluster's
   vertices share its color.  Each color block is updated
   ``cluster_inner_sweeps`` times from the block's old x (Jacobi within the
-  block, ``tpukk``'s semantics): K6 out of place, into a buffer made once at
-  numeric time and copied back.
+  block, ``tpukk``'s semantics): out of place, into a buffer the plan keeps,
+  then copied back, both steps inside the same launch.
 * TWOSTAGE (KokkosSparse_twostage_gauss_seidel_impl.hpp:120-256): the
   triangular solves approximated by inner Jacobi-Richardson sweeps, all on
   SpMV/SpMM handles (K1/K2 on banded factors, K3/K7 on the others), with the
   ``compact_form`` option.
 
-The permutations into and out of color order are K5 ``static_permute``
-launches on plans built once at symbolic time; ``permuted=True`` keeps x and
-b in the permuted space for chained applies.  A rank-2 b sweeps its columns
+The permutations into and out of color order are folded into that launch
+(b and a given x read through the color order, the result written through
+it), and so is the zero start (rows not yet written read 0, no fill);
+``permuted=True`` keeps x and b in the permuted space for chained applies.
+A rank-2 b sweeps its columns
 together (K6 takes up to 16; wider ones go in chunks of 16) where ``tpukk``
 vmaps the single-column sweep.  Block (BSR) Gauss-Seidel raises, naming
 ROADMAP A2.
@@ -36,7 +40,6 @@ import numpy as np
 import torch
 
 from ..common import check
-from ..common.permute import build_permute_plan, static_permute
 from ..common.tracing import annotate
 from ..containers import CsrMatrix
 from ..graph.coloring import ColoringAlgorithm, color_sets, graph_color
@@ -86,14 +89,15 @@ class GsHandle:
         self.order = None           # permuted order (old index per position)
         self.inv_order = None
         self.cluster_labels = None
-        self._to_perm = None        # K5 plans: natural → permuted, and back
-        self._from_perm = None
-        self._blocks = {}           # dtype → list of GsBlock
-        self._coupled_rows = 0      # rows of the largest coupled block
-        self._scratch = {}          # dtype → K6's out-of-place buffer
+        self._plans = {}            # dtype → gs_cuda.GsSweepPlan
         self.omega = 1.0
         # TWOSTAGE
         self._tw = None
+
+    @property
+    def _blocks(self) -> dict:
+        """dtype → the sweep plan's color blocks (``gs_cuda.GsBlock``)."""
+        return {dt: plan.blocks for dt, plan in self._plans.items()}
 
 
 def _check_csr(A) -> None:
@@ -119,7 +123,7 @@ def gauss_seidel_symbolic(handle: GsHandle, A: CsrMatrix):
 def set_color_order(handle: GsHandle, A: CsrMatrix, colors, cluster_labels=None) -> None:
     """The symbolic state from per-vertex colors (1-based): the order is
     color-major, and with ``cluster_labels`` cluster-major within a color
-    (cluster_gauss_seidel_impl.hpp:114-164); the K5 plans are built here."""
+    (cluster_gauss_seidel_impl.hpp:114-164)."""
     colors = np.asarray(colors).astype(np.int32)
     n = A.nrows
     offsets, order = color_sets(colors)
@@ -131,10 +135,7 @@ def set_color_order(handle: GsHandle, A: CsrMatrix, colors, cluster_labels=None)
     handle.colors, handle.color_offsets, handle.order, handle.inv_order = (
         colors, offsets, order, inv)
     handle.cluster_labels = cluster_labels
-    # xp[i] = x[order[i]]; x[j] = xp[inv[j]]
-    handle._to_perm = build_permute_plan(order, A.device)
-    handle._from_perm = build_permute_plan(inv, A.device)
-    handle._blocks, handle._scratch = {}, {}
+    handle._plans = {}
     handle.is_symbolic_called = True
 
 
@@ -187,55 +188,49 @@ def _cluster_colors(handle: GsHandle, A: CsrMatrix, labels: np.ndarray) -> np.nd
 
 @annotate("gauss_seidel_numeric")
 def gauss_seidel_numeric(handle: GsHandle, A: CsrMatrix, omega: float = 1.0):
-    """One CSR block per color of the permuted matrix, off-diagonal part, and
-    1/diag (cf. gauss_seidel.hpp:175); TWOSTAGE builds its SpMV handles."""
+    """K6's sweep plan: the permuted matrix's off-diagonal part, one CSR
+    block per color, and 1/diag (cf. gauss_seidel.hpp:175); TWOSTAGE builds
+    its SpMV handles."""
     _check_csr(A)
     check(handle.is_symbolic_called, "gauss_seidel_numeric: symbolic first")
     handle.omega = float(omega)
     if handle.algorithm == GsAlgorithm.TWOSTAGE:
         _twostage_numeric(handle, A)
     else:
-        blocks = _color_blocks(handle, A)
-        handle._blocks = {blocks[0].csr.values.dtype: blocks}
-        handle._coupled_rows = max((blk.nrows for blk in blocks if blk.coupled), default=0)
-        handle._scratch = {}
-        _scratch_in(handle, blocks[0].inv_diag, 1)
+        plan = _sweep_plan(handle, A)
+        handle._plans = {plan.csr.values.dtype: plan}
     handle.is_numeric_called = True
 
 
-def _color_blocks(handle: GsHandle, A: CsrMatrix) -> list:
+def _sweep_plan(handle: GsHandle, A: CsrMatrix) -> gs_cuda.GsSweepPlan:
     """``tpukk``'s numeric phase (gauss_seidel.py:193-241) without the ELL
-    padding: the rows of each color, their entries in CSR order with the
-    diagonal dropped (and summed into diag), columns renamed by inv_order."""
+    padding, for all colors at once: the rows in color order, their entries
+    in CSR order with the diagonal dropped (and summed into diag), columns
+    renamed by inv_order."""
     rm = A.host_row_map().astype(np.int64)
     ent = A.host_entries()
     vals = A.host_values()  # bf16 values arrive widened to f32
     if vals.dtype not in (np.float32, np.float64):
         raise NotImplementedError("complex Gauss-Seidel waits on complex SpMV "
                                   "(ROADMAP queue A, item A3)")
-    order, inv, offsets = handle.order, handle.inv_order, handle.color_offsets
-    blocks = []
-    for c in range(len(offsets) - 1):
-        rows = order[offsets[c]:offsets[c + 1]].astype(np.int64)
-        if rows.size == 0:
-            continue
-        lens = rm[rows + 1] - rm[rows]
-        first = np.zeros(rows.size + 1, np.int64)
-        np.cumsum(lens, out=first[1:])
-        local = np.repeat(np.arange(rows.size), lens)
-        pos = rm[rows][local] + (np.arange(first[-1]) - first[local])
-        cseg, vseg = ent[pos], vals[pos]
-        is_diag = cseg == rows[local]
-        diag = np.zeros(rows.size, vals.dtype)
-        np.add.at(diag, local[is_diag], vseg[is_diag])
-        keep = ~is_diag
-        brm = np.zeros(rows.size + 1, np.int64)
-        np.cumsum(np.bincount(local[keep], minlength=rows.size), out=brm[1:])
-        with np.errstate(divide="ignore"):
-            inv_diag = np.where(diag != 0, 1.0 / diag, 0.0).astype(vals.dtype)
-        blocks.append(gs_cuda.build_gs_block(brm, inv[cseg[keep]], vseg[keep], inv_diag,
-                                             int(offsets[c]), A.nrows, A.device))
-    return blocks
+    rows = handle.order.astype(np.int64)
+    n = rows.size
+    lens = rm[rows + 1] - rm[rows]
+    first = np.zeros(n + 1, np.int64)
+    np.cumsum(lens, out=first[1:])
+    local = np.repeat(np.arange(n), lens)
+    pos = rm[rows][local] + (np.arange(first[-1]) - first[local])
+    cseg, vseg = ent[pos], vals[pos]
+    is_diag = cseg == rows[local]
+    diag = np.zeros(n, vals.dtype)
+    np.add.at(diag, local[is_diag], vseg[is_diag])
+    keep = ~is_diag
+    prm = np.zeros(n + 1, np.int64)
+    np.cumsum(np.bincount(local[keep], minlength=n), out=prm[1:])
+    with np.errstate(divide="ignore"):
+        inv_diag = np.where(diag != 0, 1.0 / diag, 0.0).astype(vals.dtype)
+    return gs_cuda.build_gs_sweep_plan(prm, handle.inv_order[cseg[keep]], vseg[keep], inv_diag,
+                                       handle.color_offsets, handle.order, A.device)
 
 
 def _twostage_numeric(handle: GsHandle, A: CsrMatrix) -> None:
@@ -262,40 +257,14 @@ def _twostage_numeric(handle: GsHandle, A: CsrMatrix) -> None:
 # apply
 # ---------------------------------------------------------------------------
 
-def _blocks_in(handle: GsHandle, dtype: torch.dtype) -> list:
-    blocks = handle._blocks.get(dtype)
-    if blocks is None:
-        base = next(iter(handle._blocks.values()))
-        blocks = handle._blocks[dtype] = [blk.to(dtype) for blk in base]
-    return blocks
-
-
-def _scratch_in(handle: GsHandle, x: torch.Tensor, k: int) -> Optional[torch.Tensor]:
-    """K6's out-of-place buffer in x's dtype, for the largest coupled block
-    times k columns: made once per dtype and grown for a wider multivector;
-    None when no block is coupled."""
-    need = handle._coupled_rows * k
-    if need == 0:
-        return None
-    buf = handle._scratch.get(x.dtype)
-    if buf is None or buf.numel() < need:
-        buf = handle._scratch[x.dtype] = torch.empty(need, dtype=x.dtype, device=x.device)
-    return buf
-
-
-def _point_half_sweep(handle: GsHandle, xp: torch.Tensor, bp: torch.Tensor,
-                      forward: bool) -> torch.Tensor:
-    """One forward or backward colored sweep of the permuted xp, in place:
-    one K6 launch per color block (``cluster_inner_sweeps`` per block for
-    CLUSTER, the inner relaxation of the intra-cluster coupling)."""
-    omega = handle.omega
-    reps = handle.cluster_inner_sweeps if handle.algorithm == GsAlgorithm.CLUSTER else 1
-    blocks = _blocks_in(handle, xp.dtype)
-    scratch = _scratch_in(handle, xp, 1 if xp.ndim == 1 else xp.shape[1])
-    for blk in (blocks if forward else reversed(blocks)):
-        for _ in range(reps):
-            gs_cuda.gs_color_step(blk, xp, bp, omega, scratch)
-    return xp
+def _plan_in(handle: GsHandle, dtype: torch.dtype) -> gs_cuda.GsSweepPlan:
+    """The sweep plan in ``dtype`` (converted once), with the handle's
+    relaxations per block."""
+    plan = handle._plans.get(dtype)
+    if plan is None:
+        plan = handle._plans[dtype] = next(iter(handle._plans.values())).to(dtype)
+    plan.reps = handle.cluster_inner_sweeps if handle.algorithm == GsAlgorithm.CLUSTER else 1
+    return plan
 
 
 def _twostage_half_sweep(handle: GsHandle, x: torch.Tensor, b: torch.Tensor,
@@ -374,19 +343,9 @@ def gauss_seidel_apply(handle: GsHandle, A: CsrMatrix, x, b, num_sweeps: int = 1
             if bwd:
                 x = _twostage_half_sweep(handle, x, b, False)
         return x.to(out_dtype)
-    # POINT / CLUSTER: sweep the permuted copy xp in place
-    if permuted:
-        xp = torch.zeros_like(b) if x is None else x.to(dt, copy=True).contiguous()
-        bp = b
-    else:
-        bp = static_permute(handle._to_perm, b)
-        xp = (torch.zeros_like(b) if x is None
-              else static_permute(handle._to_perm, x.to(dt).contiguous()))
-    for _ in range(num_sweeps):
-        if fwd:
-            _point_half_sweep(handle, xp, bp, True)
-        if bwd:
-            _point_half_sweep(handle, xp, bp, False)
-    if not permuted:
-        xp = static_permute(handle._from_perm, xp)
-    return xp.to(out_dtype)
+    # POINT / CLUSTER: one K6 launch
+    if num_sweeps == 0:
+        return (torch.zeros_like(b) if x is None else x.to(dt, copy=True)).to(out_dtype)
+    xin = None if x is None else x.to(dt).contiguous()
+    return gs_cuda.gs_sweep(_plan_in(handle, dt), xin, b, handle.omega, direction, num_sweeps,
+                            permuted).to(out_dtype)

@@ -101,6 +101,24 @@ def hbm_rate(name: str) -> float:
     fail(f"no published memory rate for {name!r}")
 
 
+def selection_matrix(sp):
+    """The VB coloring's selection matrix of a graph (tpukk_torch.graph.coloring's
+    _vb_selection): row i·w + j holds a 1 at column cols[i, j], the j-th
+    neighbour of i other than i, or nothing where i has fewer."""
+    import numpy as np
+    import scipy.sparse as sps
+
+    n = sp.shape[0]
+    deg = np.diff(sp.indptr)
+    w = int(deg.max())
+    cols = np.full((n, w), -1, np.int64)
+    slot = np.arange(sp.nnz) - np.repeat(sp.indptr[:-1], deg)
+    cols[np.repeat(np.arange(n), deg), slot] = sp.indices
+    valid = ((cols >= 0) & (cols != np.arange(n)[:, None])).reshape(-1)
+    rm = np.r_[0, np.cumsum(valid)]
+    return sps.csr_matrix((np.ones(rm[-1]), cols.reshape(-1)[valid], rm), shape=(n * w, n))
+
+
 def csr_bytes(A, itemsize: int) -> int:
     """Useful-CSR byte model of one SpMV (bench.py:65-67)."""
     return A.nnz * (itemsize + 4) + (A.nrows + 1) * 4 + (A.ncols + A.nrows) * itemsize
@@ -226,6 +244,35 @@ def main() -> int:
                 xa = x.abs()
                 hold("csr_spmv", f"{label} max on |vals|,|x|", kc.csr_spmv(acp, xa, "max"),
                      kc.csr_plain(acp, xa, "max"), kc.csr_plain(acp, xa, "max"), dt)
+    # K3's tiling at its edges, in both of its modes (tiles of 512 entries
+    # through L1, of 1024 past it): rows longer than a tile (read in pieces),
+    # nnz % 4 != 0 (the arrays end off 16 bytes), and the VB coloring's
+    # selection matrix of fem2d_30k (0/1 entry a row, runs of empty rows); its
+    # own generator, so that the later phases draw the inputs they drew before
+    er = np.random.default_rng(11)
+    long_rows = sps.random(64, 5000, density=0.0006, random_state=2, format="lil")
+    long_rows[5, :] = er.standard_normal(5000)
+    long_rows[40, :700] = er.standard_normal(700)
+    odd = sps.random(1001, 900, density=0.0113, random_state=3, format="coo")
+    keep = odd.nnz - (odd.nnz - 3) % 4
+    edge = {"long rows": long_rows.tocsr(),
+            "nnz % 4 == 3": sps.csr_matrix((odd.data[:keep], (odd.row[:keep], odd.col[:keep])),
+                                           shape=odd.shape),
+            "fem2d_30k VB selection matrix": selection_matrix(fem.to_scipy())}
+    for label, sp in edge.items():
+        A = CsrMatrix.from_scipy(sp, device=dev)
+        for dt in (torch.float32, torch.float64):
+            x = torch.from_numpy(er.standard_normal(A.ncols)).to(dev, dt)
+            for mode, streamed in (("direct", False), ("stream", True)):
+                cp = kc.build_csr_plan(A, dt, streamed)
+                acp = dataclasses.replace(cp, values=cp.values.abs())
+                hold("csr_spmv", f"{label} sum {mode}", kc.csr_spmv(cp, x), kc.csr_plain(cp, x),
+                     kc.csr_plain(acp, x.abs()), dt)
+                xa = x.abs()
+                hold("csr_spmv", f"{label} max {mode}", kc.csr_spmv(acp, xa, "max"),
+                     kc.csr_plain(acp, xa, "max"), kc.csr_plain(acp, xa, "max"), dt)
+                require(torch.equal(kc.csr_spmv(acp, xa, "max"), kc.csr_plain(acp, xa, "max")),
+                        f"csr_spmv {label} max {mode} is not exact")
     # K7 at the main path's shapes: rand100k f32 k=8 (spmm), fem2d_30k f64 k=4
     for label, A, dt, k in (("rand100k_deg16", rnd, torch.float32, 8),
                             ("fem2d_30k", fem, torch.float64, 4)):
@@ -1158,7 +1205,7 @@ def main() -> int:
         return torch.sparse_csr_tensor(*[a.clone() if copy else a for a in arrs], A.shape,
                                        check_invariants=False)
 
-    def timed(label, A, make, nbytes, flops, dt, spmv=True):
+    def timed(label, A, make, nbytes, flops, dt, spmv=True, **extra):
         """make(i) -> (kernel, plain, library) calls on copy i of the inputs.
         Copy 0 alone, called again and again, is read partly from L2 when it
         fits there; a ring of copies three times the L2 gives the cold time."""
@@ -1173,7 +1220,7 @@ def main() -> int:
         b_ms, by = bound_ms(nbytes, flops, dt)
         row = dict(case=label, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
                    bound_by=by, working_set_MB=nbytes / 1e6, ms_l2_cold=ms_cold,
-                   library_ms_l2_cold=library_ms_cold)
+                   library_ms_l2_cold=library_ms_cold, **extra)
         if spmv:
             row["useful_csr_GBps"] = csr_bytes(A, torch.finfo(dt).bits // 8) / (ms * 1e-3) / 1e9
             row["useful_csr_GBps_l2_cold"] = (csr_bytes(A, torch.finfo(dt).bits // 8)
@@ -1193,7 +1240,7 @@ def main() -> int:
         def make(i):
             c = cp if i == 0 else dataclasses.replace(
                 cp, row_map=cp.row_map.clone(), entries=cp.entries.clone(),
-                values=cp.values.clone())
+                values=cp.values.clone(), tiles=cp.tiles.clone())
             xi = xx if i == 0 else xx.clone()
             S = sparse_csr(A, cp.values.dtype, i > 0)
             return (lambda: kc.csr_spmv(c, xi)), (lambda: kc.csr_plain(c, xi)), \
@@ -1230,12 +1277,20 @@ def main() -> int:
         cp = kc.build_csr_plan(A, dt)
         sz = torch.finfo(dt).bits // 8
         nbytes = (A.nrows + 1) * 4 + A.nnz * (4 + sz) + (A.ncols + A.nrows) * sz
-        return timed(f"K3 csr_spmv {label} G={cp.group}", A, csr_make(A, cp, vec(A.ncols, dt)),
-                     nbytes, 2 * A.nnz, dt)
+        return timed(f"K3 csr_spmv {label}", A, csr_make(A, cp, vec(A.ncols, dt)),
+                     nbytes, 2 * A.nnz, dt, tiles=int(cp.tiles.shape[0]),
+                     tile_entries=kc.csr_tile_entries(cp.streamed), tile_rows=kc.TILE_ROWS,
+                     mode="stream" if cp.streamed else "direct", long_rows=cp.long_rows)
 
     t_k3 = k3_row("rand100k_deg16 f32 (AUTO route)", rnd, torch.float32)
     k3_row("lap1000 f32 (pinned ONEHOT)", lap, torch.float32)
     k3_row("fem2d_30k f64 (PCG route)", fem, torch.float64)
+    k3_row("fem2d_30k + 4I f32 (f32 GMRES route)",
+           CsrMatrix.from_scipy((fem.to_scipy() + 4 * sps.identity(fem.nrows)).tocsr(),
+                                device=dev), torch.float32)
+    # K3's floor: 256 rows of one entry, the fixed cost of a launch
+    k3_row("floor: 256 rows of one entry f32",
+           CsrMatrix.from_scipy(sps.identity(256, format="csr"), device=dev), torch.float32)
 
     # K4 / K5: CUDA-event slope over CUDA graphs like K1-K3; K4's plain version
     # launches a few kernels per level, so its graphs hold fewer calls

@@ -1,5 +1,7 @@
 """tpukk_torch's CUDA kernels on a CUDA device: each kernel against its plain
-version, and the SpMV/PCG, ILU(0)-GMRES and Gauss-Seidel paths (coloring,
+version (K3 also on its tiling's edge cases, in both of its modes, and
+replayed in a CUDA graph to the same bits), and the SpMV/PCG,
+ILU(0)-GMRES and Gauss-Seidel paths (coloring,
 MIS2, sweeps, GsPrec-PCG), SpGEMM (K8, DIA, spgemm_jacobi, SpADD,
 triangles) and the factor-and-solve slice (SUPERNODAL on K4, SuperLU and
 CHOLMOD imports, PAR_ILUT, MDF, the ILU(k) refresh) through the kernels, and
@@ -86,6 +88,99 @@ def test_csr_kernel_matches_plain(dev, dtype):
         assert kc.csr_spmv.launches == n0 + 1
         xa = x.abs()
         assert torch.equal(kc.csr_spmv(acp, xa, "max"), kc.csr_plain(acp, xa, "max"))
+
+
+def _k3_edge():
+    """The shapes K3's tiling has to get right (as tests/test_torch_spmv.py's
+    _k3_edge): empty rows, the coloring's selection matrix (0/1 entry a row,
+    long empty runs), one row, no rows, rows longer than the entry cap, and
+    nnz % 4 == 3."""
+    r = np.random.default_rng(11)
+    d = sps.random(300, 200, density=0.05, random_state=1, format="csr").toarray()
+    d[::3] = 0.0
+    n, w = 700, 9
+    cols = r.integers(0, n, (n, w))
+    cols[r.random((n, w)) < 0.4] = -1
+    cols[100:400] = -1
+    valid = (cols >= 0).reshape(-1)
+    rm = np.r_[0, np.cumsum(valid)]
+    long_ = sps.random(64, 5000, density=0.0006, random_state=2, format="lil")
+    long_[5, :] = r.standard_normal(5000)
+    long_[40, :700] = r.standard_normal(700)
+    c = sps.random(1001, 900, density=0.0113, random_state=3, format="coo")
+    keep = c.nnz - (c.nnz - 3) % 4
+    return {"empty_rows": sps.csr_matrix(d),
+            "selection": sps.csr_matrix((np.ones(rm[-1]), cols.reshape(-1)[valid], rm),
+                                        shape=(n * w, n)),
+            "one_row": sps.csr_matrix((r.standard_normal(37), np.arange(37), [0, 37]),
+                                      shape=(1, 40)),
+            "no_rows": sps.csr_matrix((0, 5)),
+            "long_row": long_.tocsr(),
+            "nnz_odd": sps.csr_matrix((c.data[:keep], (c.row[:keep], c.col[:keep])),
+                                      shape=c.shape)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_csr_kernel_edge_cases_match_plain(dev, dtype):
+    for name, sp in _k3_edge().items():
+        A = tkc.CsrMatrix.from_scipy(sp, device=dev)
+        x = _x(A.ncols, dtype, dev)
+        for streamed in (None, False, True):
+            cp = kc.build_csr_plan(A, dtype, streamed)
+            acp = dataclasses.replace(cp, values=cp.values.abs())
+            y = kc.csr_spmv(cp, x)
+            assert y.shape == (A.nrows,)
+            assert _held(y, kc.csr_plain(cp, x), kc.csr_plain(acp, x.abs()), dtype), \
+                (name, streamed)
+            xa = x.abs()
+            assert torch.equal(kc.csr_spmv(acp, xa, "max"), kc.csr_plain(acp, xa, "max")), \
+                (name, streamed)
+
+
+def test_csr_kernel_misaligned_tile_starts(dev):
+    """Tiles that start and end off 16 bytes, in arrays that start off 16
+    bytes: the plan reads A's own arrays, wherever they start."""
+    A = tkc.generate_random_csr(5000, 4000, 7, seed=9, device=dev)
+    for dtype in (torch.float32, torch.float64):
+        big = torch.zeros(A.nnz + 1, dtype=dtype, device=dev)
+        big[1:] = A.values.to(dtype)
+        off = dataclasses.replace(A, values=big[1:])  # values start 4 or 8 bytes in
+        for streamed in (False, True):
+            cp = kc.build_csr_plan(off, dtype, streamed)
+            starts = cp.tiles[:, 2].cpu().numpy()
+            assert (starts % 4 != 0).any() and cp.values.data_ptr() % 16 != 0
+            x = _x(A.ncols, dtype, dev)
+            acp = dataclasses.replace(cp, values=cp.values.abs())
+            assert _held(kc.csr_spmv(cp, x), kc.csr_plain(cp, x), kc.csr_plain(acp, x.abs()),
+                         dtype), streamed
+
+
+def test_csr_kernel_replays_in_a_cuda_graph(dev):
+    """One launch, no memset, no host work per call: a captured call replays
+    to the bits of a direct call (the sums' order is fixed by the tiles)."""
+    A = tkc.generate_random_csr(20_000, 20_000, 12, seed=5, device=dev)
+    for dtype in (torch.float32, torch.float64):
+        cp = kc.build_csr_plan(A, dtype)
+        x = _x(A.ncols, dtype, dev)
+        direct = kc.csr_spmv(cp, x)
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        n0 = kc.csr_spmv.launches
+        with torch.cuda.graph(g):
+            y = kc.csr_spmv(cp, x)
+        assert kc.csr_spmv.launches == n0 + 1
+        for _ in range(3):
+            y.zero_()
+            g.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(y, direct)
+
+
+def test_csr_plan_on_the_cpu_refuses_a_cuda_x(dev):
+    A = tkc.generate_random_csr(300, 300, 5, seed=1, device="cpu")
+    cp = kc.build_csr_plan(A, torch.float32)
+    with pytest.raises(Exception):
+        kc.csr_spmv(cp, torch.ones(A.ncols, device=dev))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])

@@ -3,7 +3,10 @@
 Kernel modules: each CUDA kernel's plain version (what its wrapper runs on a
 CPU tensor) against the Pallas kernel it replaces, run in interpret mode as
 tests/test_spmv.py runs it, on one matrix handed to both packages; f64
-against scipy.  K7 (``csr_spmm``) against tpukk's ``spmm`` with a 2-D x and
+against scipy.  K3's tile table (whole rows, each once, in order, within its
+caps) on the shapes that strain it, and a numpy emulation of the kernel's
+per-tile arithmetic (its row sums by tile, long rows in pieces) against
+``csr_plain`` and ``onehot_spmv``, in both of K3's modes.  K7 (``csr_spmm``) against tpukk's ``spmm`` with a 2-D x and
 against scipy, and the ONEHOT route's choice of K7 up to 16 columns.  Slice: SpmvHandle/spmv routes, modes N/T/C/H with alpha/beta,
 f32/f64 and empty rows against tpukk.sparse.spmv, and the AUTO gate.
 
@@ -12,6 +15,7 @@ oracle (tests/conftest.py:tol_for) taken row by row, since both sides sum the
 same products in a different order.  tests/test_torch_cuda.py holds each
 kernel against its plain version on a CUDA device.
 """
+import dataclasses
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -202,6 +206,179 @@ def test_wrappers_refuse_bad_operands(rng):
     for call in bad:
         with pytest.raises(Exception):
             call()
+
+
+# ---------------------------------------------------------------------------
+# K3's tile table and the kernel's per-tile arithmetic
+# ---------------------------------------------------------------------------
+
+def _k3_edge(name):
+    """The shapes K3's tiling has to get right (scipy, float64 values)."""
+    r = np.random.default_rng(11)
+    if name == "empty_rows":  # every third row empty
+        sp = sps.random(300, 200, density=0.05, random_state=1, format="csr")
+        d = sp.toarray()
+        d[::3] = 0.0
+        return sps.csr_matrix(d)
+    if name == "selection":  # the VB coloring's selection matrix: 0/1 entry a row, long empty runs
+        n, w = 700, 9
+        cols = r.integers(0, n, (n, w))
+        cols[r.random((n, w)) < 0.4] = -1
+        cols[100:400] = -1
+        valid = (cols >= 0).reshape(-1)
+        rm = np.r_[0, np.cumsum(valid)]
+        return sps.csr_matrix((np.ones(rm[-1]), cols.reshape(-1)[valid], rm), shape=(n * w, n))
+    if name == "one_row":  # nrows 1, nnz 37
+        return sps.csr_matrix((r.standard_normal(37), np.arange(37), [0, 37]), shape=(1, 40))
+    if name == "no_rows":
+        return sps.csr_matrix((0, 5))
+    if name == "long_row":  # a row longer than the largest entry cap, streamed in pieces
+        d = sps.random(64, 5000, density=0.0006, random_state=2, format="lil")
+        d[5, :] = r.standard_normal(5000)
+        d[40, :700] = r.standard_normal(700)
+        return d.tocsr()
+    c = sps.random(1001, 900, density=0.0113, random_state=3, format="coo")  # "nnz_odd"
+    keep = c.nnz - (c.nnz - 3) % 4  # nnz % 4 == 3: the arrays end off 16 bytes
+    return sps.csr_matrix((c.data[:keep], (c.row[:keep], c.col[:keep])), shape=c.shape)
+
+
+K3_EDGE = ("empty_rows", "selection", "one_row", "no_rows", "long_row", "nnz_odd")
+K3_MODES = (False, True)  # CsrPlan.streamed: tiles of 512 entries through L1, or 1024 past it
+
+
+def _k3_emulate(plan, x, reduce="sum"):
+    """K3's arithmetic, tile by tile, in the plan's dtype: entry j of a tile
+    at thread j % 256, each row summed by V = 256 / rows lanes in a fixed
+    order; a row longer than a tile holds read in pieces, each reduced by the
+    block (thread sums, the warps' shuffle trees, the 8 warps in order) and
+    carried across pieces."""
+    rm, ent = plan.row_map.numpy(), plan.entries.numpy()
+    val, xn = plan.values.numpy(), x.numpy()
+    dt, cap = val.dtype, kc.csr_tile_entries(plan.streamed)
+    comb = np.maximum if reduce == "max" else np.add
+    y = np.full(plan.nrows, np.nan, dt)
+    for r0, nr, e0, ne in plan.tiles.numpy().tolist():
+        long_row = ne > cap
+        pieces = -(-ne // cap) if long_row else 1
+        racc = dt.type(0)
+        for p in range(pieces):
+            first = e0 + p * cap
+            count = min(cap, e0 + ne - first)
+            prod = np.zeros(cap, dt)
+            prod[:count] = val[first:first + count] * xn[ent[first:first + count]]
+            if long_row:
+                acc = np.zeros(256, dt)
+                for k in range(cap // 256):
+                    acc = comb(acc, prod[k * 256:(k + 1) * 256])
+                a = acc.reshape(8, 32)
+                for off in (16, 8, 4, 2, 1):
+                    a = comb(a, a[:, np.arange(32) ^ off])
+                for w in range(8):
+                    racc = comb(racc, a[w, 0])
+                if p == pieces - 1:
+                    y[r0] = racc
+                continue
+            assert nr <= kc.TILE_ROWS
+            starts = rm[r0:r0 + nr + 1] - first
+            per = 256 // nr
+            V = 32 if per >= 32 else 1 << (per.bit_length() - 1)
+            for r in range(nr):
+                lanes = np.zeros(V, dt)
+                for lane in range(V):
+                    for j in range(starts[r] + lane, starts[r + 1], V):
+                        lanes[lane] = comb(lanes[lane], prod[j])
+                off = V // 2
+                while off:
+                    lanes = comb(lanes, lanes[np.arange(V) ^ off])
+                    off //= 2
+                y[r0 + r] = lanes[0]
+    assert not np.isnan(y).any()  # every row written by its tile
+    return y
+
+
+@pytest.mark.parametrize("streamed", K3_MODES,
+                         ids=lambda m: f"{kc.csr_tile_entries(m)}x{kc.TILE_ROWS}")
+@pytest.mark.parametrize("case", K3_EDGE + ("lap2d", "random", "fem_small"))
+def test_csr_tiles_cover_whole_rows_within_caps(case, streamed):
+    sp = _k3_edge(case) if case in K3_EDGE else CSR_CASES[case][0]().to_scipy()
+    plan = kc.build_csr_plan(tkc.CsrMatrix.from_scipy(sp, device=CPU), torch.float32, streamed)
+    t = plan.tiles.numpy().astype(np.int64)
+    rm = sp.indptr.astype(np.int64)
+    assert plan.tiles.dtype == torch.int32 and t.shape == (t.shape[0], 4)
+    assert plan.streamed == streamed
+    if sp.shape[0] == 0:
+        assert t.shape[0] == 0
+        return
+    first, nr, e0, ne = t.T
+    # every row exactly once, in order, as whole rows
+    np.testing.assert_array_equal(first, np.r_[0, np.cumsum(nr)[:-1]])
+    assert (nr >= 1).all() and nr.sum() == sp.shape[0]
+    np.testing.assert_array_equal(e0, rm[first])
+    np.testing.assert_array_equal(ne, rm[first + nr] - rm[first])
+    # the caps hold, except on a tile that is one long row
+    entries = kc.csr_tile_entries(streamed)
+    assert (nr <= kc.TILE_ROWS).all()
+    over = ne > entries
+    assert (nr[over] == 1).all() and (ne[over] > entries // 8).all()
+    assert plan.long_rows == bool(over.any())
+    # a long row is always a tile of its own
+    long_rows = np.nonzero(np.diff(rm) > entries // 8)[0]
+    assert set(long_rows) <= set(first[nr == 1])
+
+
+@pytest.mark.parametrize("case", ["lap2d", "random", "fem_small"])
+def test_k3_tile_emulation_matches_plain_and_onehot(case, rng):
+    Aj = CSR_CASES[case][0]()
+    x = _vec(rng, Aj.ncols, np.float32)
+    layout = CSR_CASES[case][1][0]
+    ref = np.asarray(jpl.onehot_spmv(jpl.build_onehot_spmv_plan(Aj, layout=layout),
+                                     jnp.asarray(x), interpret=True))
+    Aa = jkc.CsrMatrix.from_arrays(Aj.host_row_map(), Aj.host_entries(),
+                                   np.abs(Aj.host_values()), nrows=Aj.nrows, ncols=Aj.ncols)
+    xa = np.abs(x)
+    ref_max = np.asarray(jpl.onehot_spmv(jpl.build_onehot_spmv_plan(Aa, layout="gt"),
+                                         jnp.asarray(xa), interpret=True, reduce="max"))
+    for streamed in K3_MODES:
+        plan = kc.build_csr_plan(_port(Aj), torch.float32, streamed)
+        y = _k3_emulate(plan, torch.from_numpy(x))
+        _close(y, kc.csr_plain(plan, torch.from_numpy(x)).numpy(), Aj.to_scipy(), x, np.float32)
+        _close(y, ref, Aj.to_scipy(), x, np.float32)
+        aplan = kc.build_csr_plan(_port(Aa), torch.float32, streamed)
+        ym = _k3_emulate(aplan, torch.from_numpy(xa), "max")
+        np.testing.assert_array_equal(ym, ref_max)  # a max of equal products is exact
+        np.testing.assert_array_equal(ym, kc.csr_plain(aplan, torch.from_numpy(xa), "max"))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("case", K3_EDGE)
+def test_k3_tile_emulation_edge_cases(case, dtype, rng):
+    sp = _k3_edge(case).astype(dtype)
+    x = _vec(rng, sp.shape[1], dtype)
+    for streamed in K3_MODES:
+        plan = kc.build_csr_plan(tkc.CsrMatrix.from_scipy(sp, device=CPU),
+                                 torch.from_numpy(x).dtype, streamed)
+        y = _k3_emulate(plan, torch.from_numpy(x))
+        _close(y, kc.csr_plain(plan, torch.from_numpy(x)).numpy(), sp, x, dtype)
+        _close(y, sp.astype(np.float64) @ x.astype(np.float64), sp, x, dtype)
+        ap = dataclasses.replace(plan, values=plan.values.abs())
+        xa = torch.from_numpy(np.abs(x))
+        np.testing.assert_array_equal(_k3_emulate(ap, xa, "max"), kc.csr_plain(ap, xa, "max"))
+
+
+def test_csr_plan_choices_and_checks(rng, monkeypatch):
+    At = tkc.generate_structured_laplacian(8, 8, dtype=np.float32, device=CPU)
+    plan = dataclasses.replace(kc.build_csr_plan(At, torch.float32), tiles=None)
+    x = torch.from_numpy(_vec(rng, At.ncols, np.float32))
+    # on the CPU the plain version needs no tiles; the check sits before the launch
+    np.testing.assert_array_equal(kc.csr_spmv(plan, x).numpy(), kc.csr_plain(plan, x).numpy())
+    # a matrix whose colidx and vals pass STREAM_BYTES streams past L1 in large tiles
+    monkeypatch.setattr(kc, "STREAM_BYTES", At.nnz * 8)
+    assert not kc.build_csr_plan(At, torch.float32).streamed
+    assert kc.build_csr_plan(At, torch.float64).streamed
+    monkeypatch.setattr(kc, "STREAM_BYTES", At.nnz * 8 - 1)
+    assert kc.build_csr_plan(At, torch.float32).streamed
+    with pytest.raises(Exception, match="entry cap"):
+        kc.build_csr_tiles(At.row_map, 300)
 
 
 # ---------------------------------------------------------------------------

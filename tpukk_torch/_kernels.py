@@ -51,7 +51,7 @@ SOURCES = {
         "tpukk_dia_spmm": [_I, _P, _P, _I, _P, _P, _I64, _I64, _I, _P],
     },
     "csr": {
-        "tpukk_csr_spmv": [_I, _I, _I, _P, _P, _P, _P, _P, _I, _P],
+        "tpukk_csr_spmv": [_I, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P],
         "tpukk_csr_spmm": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _P],
     },
     "gs": {

@@ -1,5 +1,5 @@
-// Unstructured CSR SpMV and SpMM for Hopper (sm_90a): K3 csr_spmv<T, Reduce>
-// and K7 csr_spmm<T>.
+// Unstructured CSR SpMV and SpMM for Hopper (sm_90a): K3 csr_spmv<T, E, Reduce,
+// Stream, Long> and K7 csr_spmm<T>.
 //
 // ---- K3 ----
 // Replaces the TPU kernels (tpukk/sparse/spmv_pallas.py), seven layouts of one
@@ -17,17 +17,36 @@
 //
 // Bound on the H100: bytes.  Per stored entry it moves a value and a column
 // id (8 or 12 bytes) for 2 flops; the least traffic is rowmap, colidx, vals,
-// x and y once each.  x is gathered, so its reads are only as cheap as the
-// pattern's locality lets L1/L2 make them.
+// x and y once each.  x is gathered, so each 4- or 8-byte read costs a 32-byte
+// L2 sector unless the pattern's locality shares it.  On a small matrix the
+// bound is the launch's fixed cost: a tile record's load, one trip for the
+// tile's entries, values and row starts, one for the gathers, a block sync and
+// a store (chip_smoke.py times it on 256 rows of one entry).
 //
-// Design against that bound: vector CSR, the reference's team/thread/vector
-// SpMV (SURVEY.md §2.10, KokkosSparse_spmv_impl.hpp:135-154,361-377).  A group
-// of G lanes (1, 2, 4, 8, 16 or 32, chosen on the host from the mean entries
-// per row) owns one row: its lanes read the row's colidx and vals at
-// consecutive addresses, so a warp's loads are coalesced even for short
-// rows, and combine their partial results with a warp-shuffle reduction.  No
-// padding, no atomics, no plan beyond the CSR arrays themselves.
-//
+// Design against that bound: entry-balanced tiles of whole rows (CSR-stream,
+// Greathouse and Daga, SC14).  The plan (spmv_cuda.build_csr_plan) cuts the
+// rows into tiles of at most 256 rows and 256·E entries, except a row longer
+// than an eighth of that, which is a tile of its own; a tile is one int4
+// record (first row, rows, first entry, entries).  Against what held a vector
+// CSR (one row per group of G lanes, G from the mean row length) back:
+//  - lanes idle on short rows: here entry j of a tile goes to thread j % 256,
+//    whatever the rows' lengths;
+//  - one load in flight per lane and a dependent chain per pass: here a
+//    thread loads its E entries, their values and one row start of the tile
+//    in one trip, and issues its E gathers before it uses any;
+//  - a warp waiting on its longest row: the products go to shared memory and
+//    each row of the tile is summed by V = 256 / rows lanes (a power of two,
+//    1 to 32) in a fixed order, all of the tile's rows in one pass.
+// No atomics: the same bits from run to run.  A block a tile.  A matrix whose
+// colidx and vals stream from device memory (beyond spmv_cuda.STREAM_BYTES)
+// is read in tiles of 1024 entries (E = 4) with loads that do not allocate in
+// L1, where they would only evict the x being gathered ("stream"); any other
+// in tiles of 512 (E = 2) through L1 ("direct").  A row longer than a tile
+// holds is read in pieces by long_row, a block reduction carried across
+// pieces.  A ring of bulk asynchronous copies into shared memory was slower
+// on every shape measured (PERF.md; scripts/k3_sweep_torch.py builds it as a
+// variant, scripts/k3_variants.cu).
+
 // ---- K7 ----
 // Replaces the five multi-RHS layouts behind onehot_spmm
 // (tpukk/sparse/spmv_pallas.py:1326): _dl_mm_call (:1074),
@@ -42,67 +61,237 @@
 // once (as for one SpMV), X once and Y once; k columns per entry share one
 // read of its value and column id, which is the whole gain over k SpMVs.
 //
-// Design against that bound: K3's vector CSR with k accumulators per lane (K2's
-// idea for CSR), the row panel of csr_panel.cuh, which K6 shares; lane j % G
-// writes column j.
+// Design against that bound: a vector CSR (a group of G lanes a row) with k
+// accumulators per lane (K2's idea for CSR), the row panel of csr_panel.cuh,
+// which K6 shares; lane j % G writes column j.
 //
 // C interface (bound with ctypes): returns the cudaError_t of the launch
 // (0 when nothing needed launching); dtype 0 = float, 1 = double; reduce
-// 0 = sum, 1 = max.
+// 0 = sum, 1 = max; streamed 0 = direct, 1 = stream.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 #include "csr_panel.cuh"
 
 namespace {
 
-template <typename T, int G, bool kMax>
-__global__ void __launch_bounds__(kThreads)
-csr_spmv_kernel(const int* __restrict__ rowmap, const int* __restrict__ colidx,
-                const T* __restrict__ vals, const T* __restrict__ x, T* __restrict__ y,
-                int nrows) {
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const int64_t row = t / G;
-  const int lane = static_cast<int>(threadIdx.x) % G;
-  const bool valid = row < nrows;
-  T acc = T(0);
-  if (valid) {
-    const int end = rowmap[row + 1];
-    for (int p = rowmap[row] + lane; p < end; p += G) {
-      const T v = vals[p] * __ldg(x + colidx[p]);
-      acc = kMax ? max(acc, v) : acc + v;
-    }
-  }
-  // every lane of the warp reaches the shuffles (no early return above);
-  // width G keeps each group's reduction inside the group
-#pragma unroll
-  for (int off = G / 2; off > 0; off >>= 1) {
-    const T o = __shfl_xor_sync(0xffffffffu, acc, off, G);
-    acc = kMax ? max(acc, o) : acc + o;
-  }
-  if (valid && lane == 0) y[row] = acc;
+// ---- K3 ---------------------------------------------------------------------
+
+constexpr int kTileRows = kThreads;  // a row start a thread, so each row of a tile has its lanes
+
+// A load that does not allocate in L1: a matrix that streams from device
+// memory is read once, and in L1 it would only evict the x it gathers.
+__device__ __forceinline__ int ld_stream(const int* p) {
+  int v;
+  asm("ld.global.nc.L1::no_allocate.b32 %0, [%1];" : "=r"(v) : "l"(p));
+  return v;
+}
+__device__ __forceinline__ float ld_stream(const float* p) {
+  float v;
+  asm("ld.global.nc.L1::no_allocate.f32 %0, [%1];" : "=f"(v) : "l"(p));
+  return v;
+}
+__device__ __forceinline__ double ld_stream(const double* p) {
+  double v;
+  asm("ld.global.nc.L1::no_allocate.f64 %0, [%1];" : "=d"(v) : "l"(p));
+  return v;
 }
 
+// Shared memory, in bytes: the tile's products, its row starts and the
+// warps' partial results.
+template <typename T, int E>
+struct Smem {
+  static constexpr int kCap = kThreads * E;  // entries a tile holds, but a long row
+  static constexpr int kStarts = kCap * static_cast<int>(sizeof(T));
+  static constexpr int kPart = kStarts + (kTileRows + 8) * 4;
+  static constexpr int kBytes = kPart + 32 * static_cast<int>(sizeof(T));
+};
+
 template <typename T, bool kMax>
-int launch(int group, const int* rowmap, const int* colidx, const void* vals, const void* x,
-           void* y, int nrows, cudaStream_t stream) {
-  if (nrows == 0) return 0;
-  const int64_t blocks = (static_cast<int64_t>(nrows) * group + kThreads - 1) / kThreads;
-  const T* v = static_cast<const T*>(vals);
-  const T* xx = static_cast<const T*>(x);
-  T* yy = static_cast<T*>(y);
-  const unsigned b = static_cast<unsigned>(blocks);
-  switch (group) {
-    case 1: csr_spmv_kernel<T, 1, kMax><<<b, kThreads, 0, stream>>>(rowmap, colidx, v, xx, yy, nrows); break;
-    case 2: csr_spmv_kernel<T, 2, kMax><<<b, kThreads, 0, stream>>>(rowmap, colidx, v, xx, yy, nrows); break;
-    case 4: csr_spmv_kernel<T, 4, kMax><<<b, kThreads, 0, stream>>>(rowmap, colidx, v, xx, yy, nrows); break;
-    case 8: csr_spmv_kernel<T, 8, kMax><<<b, kThreads, 0, stream>>>(rowmap, colidx, v, xx, yy, nrows); break;
-    case 16: csr_spmv_kernel<T, 16, kMax><<<b, kThreads, 0, stream>>>(rowmap, colidx, v, xx, yy, nrows); break;
-    case 32: csr_spmv_kernel<T, 32, kMax><<<b, kThreads, 0, stream>>>(rowmap, colidx, v, xx, yy, nrows); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
+__device__ __forceinline__ T combine(T a, T b) {
+  return kMax ? max(a, b) : a + b;
+}
+
+// A tile's entries, values and row starts, loaded from global memory through
+// L1 (direct) or past it (stream).
+template <typename T, bool kStream>
+struct GlobalTile {
+  const int* __restrict__ rowmap;
+  const int* __restrict__ colidx;
+  const T* __restrict__ vals;
+
+  template <typename U>
+  __device__ __forceinline__ static U load(const U* p) {
+    return kStream ? ld_stream(p) : __ldg(p);
   }
+  __device__ __forceinline__ int col(const int4& t, int j) const { return load(colidx + t.z + j); }
+  __device__ __forceinline__ T val(const int4& t, int j) const { return load(vals + t.z + j); }
+  __device__ __forceinline__ int start(const int4& t, int q) const { return load(rowmap + t.x + q); }
+};
+
+// A tile of whole rows (t: first row, rows <= 256, first entry, entries <=
+// 256·E) read through src: entry j at thread j % 256, its E gathers issued
+// before any is used; the products and the row starts go to shared memory,
+// then each row is summed by V = 256 / rows lanes (a power of two, 1 to 32),
+// lane l adding the row's products l, l + V, ... and the lanes combined by a
+// shuffle tree.
+template <typename T, int E, bool kMax, typename Source>
+__device__ __forceinline__ void tile_sums(const int4 t, const Source& src, const T* __restrict__ x,
+                                          T* __restrict__ y, T* prod, int* starts) {
+  const int tid = threadIdx.x;
+  int col[E];
+  T val[E], xv[E];
+#pragma unroll
+  for (int k = 0; k < E; ++k) {
+    const int j = tid + k * kThreads;
+    col[k] = j < t.w ? src.col(t, j) : -1;
+    val[k] = j < t.w ? src.val(t, j) : T(0);
+  }
+  const int s0 = tid <= t.y ? src.start(t, tid) : 0;
+  const int s1 = tid == 0 && t.y == kThreads ? src.start(t, kThreads) : 0;
+#pragma unroll
+  for (int k = 0; k < E; ++k) xv[k] = col[k] >= 0 ? __ldg(x + col[k]) : T(0);
+#pragma unroll
+  for (int k = 0; k < E; ++k) {
+    const int j = tid + k * kThreads;
+    if (j < t.w) prod[j] = val[k] * xv[k];
+  }
+  starts[tid] = s0 - t.z;
+  if (tid == 0) starts[kThreads] = s1 - t.z;
+  __syncthreads();
+  const int per = kThreads / t.y;
+  const int V = per >= 32 ? 32 : 1 << (31 - __clz(per));
+  const int g = tid / V, lane = tid & (V - 1);
+  T acc = T(0);
+  if (g < t.y) {
+    const int end = starts[g + 1];
+    for (int j = starts[g] + lane; j < end; j += V) acc = combine<T, kMax>(acc, prod[j]);
+  }
+  for (int off = V >> 1; off > 0; off >>= 1)
+    acc = combine<T, kMax>(acc, __shfl_xor_sync(0xffffffffu, acc, off));
+  if (g < t.y && lane == 0) y[t.x + g] = acc;
+}
+
+// A row longer than a tile holds: the block reads it directly in pieces of
+// 256·E entries, each thread summing its entries of a piece, then the warps'
+// shuffle trees and the 8 warps in order, carried across pieces.  Off the
+// common path, and not inlined into it.
+template <typename T, int E, bool kMax>
+__device__ __noinline__ void long_row(int4 t, const int* __restrict__ colidx,
+                                      const T* __restrict__ vals, const T* __restrict__ x,
+                                      T* __restrict__ y, T* part) {
+  const int tid = threadIdx.x;
+  T total = T(0);
+  for (int first = t.z; first < t.z + t.w; first += kThreads * E) {
+    const int count = min(kThreads * E, t.z + t.w - first);
+    int col[E];
+    T val[E];
+    T acc = T(0);
+#pragma unroll
+    for (int k = 0; k < E; ++k) {
+      const int j = tid + k * kThreads;
+      col[k] = j < count ? __ldg(colidx + first + j) : -1;
+      val[k] = j < count ? __ldg(vals + first + j) : T(0);
+    }
+#pragma unroll
+    for (int k = 0; k < E; ++k)
+      acc = combine<T, kMax>(acc, val[k] * (col[k] >= 0 ? __ldg(x + col[k]) : T(0)));
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      acc = combine<T, kMax>(acc, __shfl_xor_sync(0xffffffffu, acc, off));
+    if ((tid & 31) == 0) part[tid >> 5] = acc;
+    __syncthreads();
+    if (tid == 0)
+      for (int w = 0; w < kThreads / 32; ++w) total = combine<T, kMax>(total, part[w]);
+    __syncthreads();
+  }
+  if (tid == 0) y[t.x] = total;
+}
+
+// A tile record the kernel's shared memory cannot hold is the plan's fault.
+template <int kCap, bool kLong>
+__device__ __forceinline__ int4 checked_tile(int4 u) {
+  if (u.y < 1 || u.y > kTileRows || (u.w > kCap && (u.y > 1 || !kLong))) __trap();
+  return u;
+}
+
+// A block a tile.  A row longer than a tile holds is read by long_row, which
+// only the kLong instances hold (the plan knows whether it has such a row),
+// so the common path carries no call.
+template <typename T, int E, bool kMax, bool kStream, bool kLong>
+__global__ void __launch_bounds__(kThreads)
+csr_spmv_kernel(const int4* __restrict__ tiles, const int* __restrict__ rowmap,
+                const int* __restrict__ colidx, const T* __restrict__ vals,
+                const T* __restrict__ x, T* __restrict__ y) {
+  using S = Smem<T, E>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int4 t = checked_tile<S::kCap, kLong>(tiles[blockIdx.x]);
+  if (kLong && t.w > S::kCap)
+    long_row<T, E, kMax>(t, colidx, vals, x, y, reinterpret_cast<T*>(smem + S::kPart));
+  else
+    tile_sums<T, E, kMax>(t, GlobalTile<T, kStream>{rowmap, colidx, vals}, x, y,
+                          reinterpret_cast<T*>(smem), reinterpret_cast<int*>(smem + S::kStarts));
+}
+
+constexpr int kMaxDevices = 64;
+constexpr int kSmemPerBlockReserved = 1024;  // the runtime's own shared memory per block
+
+// The blocks of one kernel instance resident on an SM, cached per device.  On
+// first use it sets the instance's carve-out preference to the shared memory
+// those blocks need, which leaves the rest of the SM's 256 KB to L1, where
+// the gathers of x hit.  -1 on failure.
+template <typename Kernel>
+int prefer_l1(Kernel kernel, int bytes, std::atomic<int>* cache) {
+  int device = 0;
+  if (cudaGetDevice(&device) != cudaSuccess || device >= kMaxDevices) return -1;
+  const int hit = cache[device].load(std::memory_order_relaxed);
+  if (hit > 0) return hit;
+  int per_sm = 0, resident = 0;
+  if (cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, device) !=
+          cudaSuccess ||
+      cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                           cudaSharedmemCarveoutMaxShared) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, kernel, kThreads, bytes) !=
+          cudaSuccess ||
+      resident < 1)
+    return -1;
+  const int need = resident * (bytes + kSmemPerBlockReserved);
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                           min(100, (100 * need + per_sm - 1) / per_sm)) != cudaSuccess)
+    return -1;
+  cache[device].store(resident, std::memory_order_relaxed);
+  return resident;
+}
+
+template <typename T, int E, bool kMax, bool kStream, bool kLong>
+int launch_tiles(const int4* tiles, int ntiles, const int* rowmap, const int* colidx,
+                 const void* vals, const void* x, void* y, cudaStream_t stream) {
+  static std::atomic<int> cache[kMaxDevices];
+  auto kernel = csr_spmv_kernel<T, E, kMax, kStream, kLong>;
+  constexpr int bytes = Smem<T, E>::kBytes;
+  if (prefer_l1(kernel, bytes, cache) <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  kernel<<<static_cast<unsigned>(ntiles), kThreads, bytes, stream>>>(
+      tiles, rowmap, colidx, static_cast<const T*>(vals), static_cast<const T*>(x),
+      static_cast<T*>(y));
   return static_cast<int>(cudaGetLastError());
+}
+
+// direct: tiles of 512 entries (E = 2) through L1; stream: of 1024 (E = 4)
+// past it (spmv_cuda.csr_tile_entries)
+template <typename T, bool kMax>
+int launch_spmv(int streamed, int long_rows, const int4* t, int ntiles, const int* rowmap,
+                const int* colidx, const void* vals, const void* x, void* y, cudaStream_t s) {
+  if (ntiles == 0) return 0;
+  if (streamed && long_rows)
+    return launch_tiles<T, 4, kMax, true, true>(t, ntiles, rowmap, colidx, vals, x, y, s);
+  if (streamed)
+    return launch_tiles<T, 4, kMax, true, false>(t, ntiles, rowmap, colidx, vals, x, y, s);
+  if (long_rows)
+    return launch_tiles<T, 2, kMax, false, true>(t, ntiles, rowmap, colidx, vals, x, y, s);
+  return launch_tiles<T, 2, kMax, false, false>(t, ntiles, rowmap, colidx, vals, x, y, s);
 }
 
 template <typename T, int G, int KMAX>
@@ -149,13 +338,24 @@ extern "C" int tpukk_csr_spmm(int dtype, int group, const int* rowmap, const int
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-extern "C" int tpukk_csr_spmv(int dtype, int reduce, int group, const int* rowmap,
+// tiles: (ntiles, 4) int32 records (first row, rows, first entry, entries),
+// at most 256 rows and 512 (direct) or 1024 (streamed) entries each, but a
+// tile of one row; long_rows: whether a tile exceeds the entry cap
+extern "C" int tpukk_csr_spmv(int dtype, int reduce, int streamed, int long_rows,
+                              const void* tiles, int ntiles, const int* rowmap,
                               const int* colidx, const void* vals, const void* x, void* y,
-                              int nrows, void* stream) {
+                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && reduce == 0) return launch<float, false>(group, rowmap, colidx, vals, x, y, nrows, s);
-  if (dtype == 0 && reduce == 1) return launch<float, true>(group, rowmap, colidx, vals, x, y, nrows, s);
-  if (dtype == 1 && reduce == 0) return launch<double, false>(group, rowmap, colidx, vals, x, y, nrows, s);
-  if (dtype == 1 && reduce == 1) return launch<double, true>(group, rowmap, colidx, vals, x, y, nrows, s);
+  const int4* t = static_cast<const int4*>(tiles);
+  if (dtype == 0 && reduce == 0)
+    return launch_spmv<float, false>(streamed, long_rows, t, ntiles, rowmap, colidx, vals, x, y, s);
+  if (dtype == 0 && reduce == 1)
+    return launch_spmv<float, true>(streamed, long_rows, t, ntiles, rowmap, colidx, vals, x, y, s);
+  if (dtype == 1 && reduce == 0)
+    return launch_spmv<double, false>(streamed, long_rows, t, ntiles, rowmap, colidx, vals, x, y,
+                                      s);
+  if (dtype == 1 && reduce == 1)
+    return launch_spmv<double, true>(streamed, long_rows, t, ntiles, rowmap, colidx, vals, x, y,
+                                     s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,12 +1,13 @@
 // The CSR row panel shared by K7 csr_spmm (csr.cu) and K6 gs_color_step and
-// gs_sweep (gs.cu): K3's vector CSR with a register panel of k accumulators.
+// gs_sweep (gs.cu): a vector CSR, the design K3 had before its tiles, with a
+// register panel of k accumulators.
 //
 // A group of G lanes (1, 2, 4, 8, 16 or 32, chosen on the host from the mean
 // entries per row) owns one row.  Each lane walks the row's entries at stride
 // G and, for each, reads the k contiguous values of x's row colidx[p] (x
 // row-major (ncols, k)) into k register accumulators, so one pass over the
 // row's entries serves all k columns.  The group then reduces each column
-// with K3's shuffle tree, so a column's sum is taken in K3's order, and every
+// with a shuffle tree, so a column's sum is taken in one fixed order, and every
 // lane of the group holds every column's sum.  k is bucketed into a
 // compile-time panel of 1 (a vector), 4, 8 or 16 columns; the caller stores the sums (K7)
 // or applies its update to them (K6), lane j % G taking column j.  Each
@@ -42,7 +43,7 @@ __device__ __forceinline__ void panel_add(const T* x, int c, T v, int k, bool ze
   }
 }
 
-// The group's reduction of each column with K3's shuffle tree, after which
+// The group's reduction of each column with its shuffle tree, after which
 // every lane of the group holds every column's sum.  Every lane of the warp
 // must call it (the shuffles span the warp); k is the same for every lane, so
 // each shuffle is reached by the whole warp, and width G keeps each group's

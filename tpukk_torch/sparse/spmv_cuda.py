@@ -8,9 +8,11 @@ is K6 (``gs_cuda.py``):
   ``_dia_call`` and the double-single ``_dia_ds_call``.
 * ``dia_spmm`` (K2, ``csrc/dia.cu``): banded SpMM, one diagonal pass for all
   k columns — replaces ``_dia_mv_call``.
-* ``csr_spmv`` (K3, ``csrc/csr.cu``): unstructured vector-CSR SpMV, sum or
-  max, f32 and f64 — replaces the seven one-hot/gather-table layouts behind
-  ``onehot_spmv`` and the double-single ``_gi4_ds_call_batched``.
+* ``csr_spmv`` (K3, ``csrc/csr.cu``): unstructured CSR SpMV, sum or max, f32
+  and f64, a block a tile of the plan's entry-balanced tiles of whole rows
+  (``build_csr_tiles``), read through L1 or, for a matrix that streams from
+  device memory, past it — replaces the seven one-hot/gather-table layouts
+  behind ``onehot_spmv`` and the double-single ``_gi4_ds_call_batched``.
 * ``csr_spmm`` (K7, ``csrc/csr.cu``): unstructured CSR SpMM for row-major X
   of shape (ncols, k), 1 ≤ k ≤ 16, one pass over A for all k columns, f32 and
   f64 — replaces the five multi-RHS layouts behind ``onehot_spmm``
@@ -37,6 +39,8 @@ from .spmv_impl import DiaPlan, apply_dia
 __all__ = [
     "CsrPlan",
     "build_csr_plan",
+    "build_csr_tiles",
+    "csr_tile_entries",
     "lanes_per_row",
     "dia_spmv",
     "dia_spmm",
@@ -117,7 +121,15 @@ def dia_spmm(plan: DiaPlan, X: torch.Tensor) -> torch.Tensor:
 
 @dataclasses.dataclass
 class CsrPlan:
-    """The CSR arrays in the compute dtype, and the lanes per row."""
+    """The CSR arrays in the compute dtype, the lanes per row, and K3's tiles.
+
+    ``group`` is the vector length of the row panel that K6 and K7 run.
+    ``tiles`` is K3's table, (ntiles, 4) int32 records (first row, rows, first
+    entry, entries) of runs of whole rows, built once by ``build_csr_plan`` on
+    the plan's device (``build_csr_tiles``).  A plan made elsewhere, such as
+    K6's per-color and fused-sweep plans (``gs_cuda.py``), has no tiles and
+    never reaches ``csr_spmv``, which refuses it.
+    """
 
     row_map: torch.Tensor   # (nrows+1,) int32
     entries: torch.Tensor   # (nnz,) int32
@@ -125,6 +137,9 @@ class CsrPlan:
     nrows: int
     ncols: int
     group: int              # lanes per row: 1, 2, 4, 8, 16 or 32
+    tiles: torch.Tensor = None  # (ntiles, 4) int32, K3's tile table
+    streamed: bool = False  # K3 reads colidx and vals past L1 (else through it)
+    long_rows: bool = False  # some tile is one row of more than csr_tile_entries(streamed)
     _rows: torch.Tensor = dataclasses.field(default=None, repr=False)
 
     def rows(self) -> torch.Tensor:
@@ -144,10 +159,67 @@ def lanes_per_row(nnz: int, nrows: int) -> int:
     return g
 
 
-def build_csr_plan(A: CsrMatrix, dtype: torch.dtype) -> CsrPlan:
+# K3's choice, the better of its two modes in scripts/k3_sweep_torch.py on the
+# H100 (PERF.md §6, K3): a matrix whose colidx and vals pass STREAM_BYTES
+# streams from device memory, so it is read past L1 in tiles of 1024 entries;
+# any other is read through L1 in tiles of 512.
+STREAM_BYTES = 32 << 20
+TILE_ROWS = 256  # rows a K3 tile holds at most: a row start a thread
+
+
+def csr_tile_entries(streamed: bool) -> int:
+    """Entries a K3 tile holds at most, but a tile of one long row."""
+    return 1024 if streamed else 512
+
+
+def build_csr_tiles(row_map: torch.Tensor, tile_entries: int) -> torch.Tensor:
+    """K3's tile table: runs of whole rows as (first row, rows, first entry,
+    entries) int32 records, on row_map's device, with torch ops only.
+
+    A row longer than tile_entries / 8 is a tile of its own (the kernel reads
+    one longer than tile_entries in pieces).  Every other tile holds at most
+    tile_entries entries: the boundaries are the first rows that start at or
+    after each multiple of a step of tile_entries · 7/8, so a tile's rows
+    start within one step and its last row, not being long, ends within an
+    eighth more.  A run longer than TILE_ROWS rows (the empty rows of a
+    selection matrix) is then cut every TILE_ROWS rows from its start.
+    """
+    check(tile_entries in (512, 1024), f"csr tiles: entry cap {tile_entries} not 512 or 1024")
+    dev = row_map.device
+    rm = row_map.to(torch.int64)
+    nrows = rm.shape[0] - 1
+    if nrows == 0:
+        return torch.zeros((0, 4), dtype=torch.int32, device=dev)
+    long_len = tile_entries // 8
+    step = tile_entries - long_len
+    longs = torch.nonzero(rm[1:] - rm[:-1] > long_len).reshape(-1)
+    bounds = torch.unique(torch.cat([
+        torch.searchsorted(rm, torch.arange(0, int(rm[-1]), step, device=dev)),
+        longs, longs + 1, torch.tensor([0, nrows], device=dev)]))
+    first, end = bounds[:-1], bounds[1:]
+    cuts = (end - first + TILE_ROWS - 1) // TILE_ROWS
+    run = torch.repeat_interleave(torch.arange(first.shape[0], device=dev), cuts)
+    nth = torch.arange(run.shape[0], device=dev) - torch.repeat_interleave(
+        torch.cumsum(cuts, 0) - cuts, cuts)
+    first = first[run] + nth * TILE_ROWS
+    end = torch.minimum(first + TILE_ROWS, end[run])
+    return torch.stack([first, end - first, rm[first], rm[end] - rm[first]], 1).to(
+        torch.int32).contiguous()
+
+
+def build_csr_plan(A: CsrMatrix, dtype: torch.dtype, streamed: bool | None = None) -> CsrPlan:
+    """The plan of K3 and K7 for A in dtype, on A's arrays where they already
+    have the dtype.  K3 streams past L1 when colidx and vals pass STREAM_BYTES;
+    ``streamed`` pins the mode instead (the tests and scripts/k3_sweep_torch.py
+    run both on small matrices)."""
     check(dtype in _DTYPE_CODE, f"csr plan: dtype {dtype} not f32/f64")
+    if streamed is None:
+        streamed = A.nnz * (4 + torch.finfo(dtype).bits // 8) > STREAM_BYTES
+    cap = csr_tile_entries(streamed)
+    tiles = build_csr_tiles(A.row_map, cap)
     return CsrPlan(A.row_map, A.entries, A.values.to(dtype).contiguous(), A.nrows, A.ncols,
-                   lanes_per_row(A.nnz, A.nrows))
+                   lanes_per_row(A.nnz, A.nrows), tiles, bool(streamed),
+                   bool((tiles[:, 3] > cap).any()))
 
 
 def csr_plain(plan: CsrPlan, x: torch.Tensor, reduce: str = "sum") -> torch.Tensor:
@@ -173,13 +245,16 @@ def csr_spmv(plan: CsrPlan, x: torch.Tensor, reduce: str = "sum") -> torch.Tenso
     check(plan.row_map.dtype == torch.int32 and plan.entries.dtype == torch.int32
           and plan.row_map.is_contiguous() and plan.entries.is_contiguous(),
           "csr_spmv: row_map/entries must be contiguous int32")
+    check(plan.tiles is not None and plan.tiles.device == x.device
+          and plan.tiles.dtype == torch.int32 and plan.tiles.is_contiguous(),
+          "csr_spmv: the plan has no tile table on x's device (use build_csr_plan)")
     y = torch.empty(plan.nrows, dtype=x.dtype, device=x.device)
     if plan.nrows == 0:
         return y
     err = _kernels.library("csr").tpukk_csr_spmv(
-        _DTYPE_CODE[x.dtype], _REDUCE_CODE[reduce], plan.group, plan.row_map.data_ptr(),
-        plan.entries.data_ptr(), plan.values.data_ptr(), x.data_ptr(), y.data_ptr(),
-        plan.nrows, _stream(x))
+        _DTYPE_CODE[x.dtype], _REDUCE_CODE[reduce], int(plan.streamed), int(plan.long_rows),
+        plan.tiles.data_ptr(), plan.tiles.shape[0], plan.row_map.data_ptr(),
+        plan.entries.data_ptr(), plan.values.data_ptr(), x.data_ptr(), y.data_ptr(), _stream(x))
     _check_launch(err, "csr_spmv")
     csr_spmv.launches += 1
     return y

@@ -56,7 +56,7 @@ SOURCES = {"dia_spmv": "tpukk_torch/csrc/dia.cu", "dia_spmm": "tpukk_torch/csrc/
            "csr_spmv": "tpukk_torch/csrc/csr.cu", "sptrsv_levels": "tpukk_torch/csrc/sptrsv.cu",
            "permute_gather": "tpukk_torch/csrc/permute.cu",
            "gs_sweep": "tpukk_torch/csrc/gs.cu", "csr_spmm": "tpukk_torch/csrc/csr.cu",
-           "spgemm_pairs": "tpukk_torch/csrc/spgemm.cu",
+           "spgemm_rows": "tpukk_torch/csrc/spgemm.cu",
            "probe_gather_acc": "tpukk_torch/csrc/probe.cu"}
 REPLACES = {"dia_spmv": "tpukk/sparse/spmv_pallas.py:41",
             "dia_spmm": "tpukk/sparse/spmv_pallas.py:180",
@@ -65,7 +65,7 @@ REPLACES = {"dia_spmv": "tpukk/sparse/spmv_pallas.py:41",
             "permute_gather": "tpukk/common/permute.py:91",
             "gs_sweep": "tpukk/sparse/spmv_pallas.py:2125",
             "csr_spmm": "tpukk/sparse/spmv_pallas.py:1074",
-            "spgemm_pairs": "tpukk/sparse/spgemm_pallas.py:1063",
+            "spgemm_rows": "tpukk/sparse/spgemm_pallas.py:1063",
             "probe_gather_acc": "scripts/probe_ss_cost.py:40"}
 
 
@@ -744,23 +744,21 @@ def main() -> int:
         return dict(pattern_equal=pattern, max_abs_err_vs_scipy=float(diff.data.max(initial=0.0)),
                     max_err_over_tol=worst)
 
-    def n_pairs(plan):
-        return torch.diff(plan.c_ptr).cpu().numpy()
+    def n_products(plan):
+        """Products per C entry (the plain version's expansion, cached on the plan)."""
+        return np.bincount(plan.expand()[2].cpu().numpy(), minlength=plan.nnz_c)
 
     def hold_k8(label, plan, a, b):
-        """|C - C_plain| <= (n_c + 1)·eps·Σ_p|a_p·b_p| per C entry."""
-        got, plain = ksg.spgemm_pairs(plan, a, b), ksg.spgemm_pairs_plain(plan, a, b)
+        """K8 equals its plain version bit for bit: both add each C entry's
+        products from 0 in (A entry, B entry) order."""
+        got, plain = ksg.spgemm_rows(plan, a, b), ksg.spgemm_rows_plain(plan, a, b)
         torch.cuda.synchronize()
-        bound = ksg.spgemm_pairs_plain(plan, a.abs(), b.abs())
-        tol = (torch.diff(plan.c_ptr).to(a.dtype) + 1) * torch.finfo(a.dtype).eps * bound
-        err = (got - plain).abs()
-        ok = bool((err <= tol).all())
-        errs["spgemm_pairs"] = max(errs["spgemm_pairs"], float(err.max()))
-        emit("check", kernel="spgemm_pairs", case=label, dtype=str(a.dtype), lanes=plan.group,
-             max_abs_err=float(err.max()), max_err_over_tol=float(
-                 (err / tol.clamp_min(torch.finfo(a.dtype).tiny)).max()),
-             tol="(n_c+1)*eps*sum_p|a_p*b_p|", ok=ok)
-        require(ok, f"spgemm_pairs {label} disagrees with its plain version")
+        err = float((got - plain).abs().max()) if plan.nnz_c else 0.0
+        ok = bool(torch.equal(got, plain))
+        errs["spgemm_rows"] = max(errs["spgemm_rows"], err)
+        emit("check", kernel="spgemm_rows", case=label, dtype=str(a.dtype), bins=plan.bins,
+             max_abs_err=err, tol="bit for bit", ok=ok)
+        require(ok, f"spgemm_rows {label} differs from its plain version")
 
     spgemm_cases = {}
     oracles = {}
@@ -768,32 +766,39 @@ def main() -> int:
     for label, A, okey in (("lap1000 f32", lap, "lap1000"), ("lap1000 f64", lap64, "lap1000"),
                            ("rand100k_deg16 f32", rnd, "rand100k"),
                            ("fem2d_30k f64", fem, "fem2d_30k")):
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated(dev)
         t = time.perf_counter()
         hh = SpgemmHandle(SpgemmAlgorithm.KK)
         spgemm_symbolic(hh, A, A)
+        torch.cuda.synchronize()
         sym_s = time.perf_counter() - t
-        plan = hh.pair_plan
-        require(plan is not None and hh.dia_plan is None, f"spgemm {label}: not on the pair plan")
+        handle_MB = (torch.cuda.memory_allocated(dev) - mem0) / 1e6
+        plan = hh.row_plan
+        require(plan is not None and hh.dia_plan is None, f"spgemm {label}: not on the row plan")
         C, counts, wall = counted(f"spgemm_numeric {label}", lambda: spgemm_numeric(hh, A, A),
-                                  ("spgemm_pairs",))
+                                  ("spgemm_rows",))
         if okey not in oracles:
             sa = A.to_scipy().astype(np.float64)
             ab = (sa @ sa).tocsr()
             ab.sort_indices()
             oracles[okey] = (ab, abs_product(sa, sa))
         ref, bound = oracles[okey]
-        vs = hold_scipy(f"spgemm {label}", C, ref, bound, n_pairs(plan) + 1, A.dtype)
+        n_c = n_products(plan)
+        vs = hold_scipy(f"spgemm {label}", C, ref, bound, n_c + 1, A.dtype)
         hold_k8(label, plan, A.values, A.values)
         A2 = A.with_values(2 * A.values)
         C2, counts2, wall2 = counted(f"spgemm_numeric reuse {label}",
-                                     lambda: spgemm_numeric(hh, A2, A2), ("spgemm_pairs",))
+                                     lambda: spgemm_numeric(hh, A2, A2), ("spgemm_rows",))
         exact = bool(torch.equal(C2.values, 4 * C.values))
         require(exact, f"spgemm {label}: numeric reuse with 2A is not exactly 4C")
-        spgemm_cases[label] = (hh, A, C)
-        emit("main_spgemm", case=label, symbolic_s=sym_s, nnz_c=plan.nnz_c, pairs=plan.npairs,
-             max_pairs_per_entry=int(n_pairs(plan).max()), lanes=plan.group, numeric_ms=wall * 1e3,
-             numeric_reuse_ms=wall2 * 1e3, reuse_2A_gives_exactly_4C=exact,
-             tol="(n_c+1)*eps*(|A||A|)_c", launches=counts, launches_reuse=counts2, **vs)
+        spgemm_cases[label] = (hh, A, C, int(n_c.sum()))
+        plan._expand = None  # the plain version's expansion, rebuilt where a hold needs it
+        emit("main_spgemm", case=label, symbolic_s=sym_s, handle_device_MB=handle_MB,
+             nnz_c=plan.nnz_c, products=int(n_c.sum()), max_products_per_entry=int(n_c.max()),
+             bins=plan.bins, numeric_ms=wall * 1e3, numeric_reuse_ms=wall2 * 1e3,
+             reuse_2A_gives_exactly_4C=exact, tol="(n_c+1)*eps*(|A||A|)_c", launches=counts,
+             launches_reuse=counts2, **vs)
     emit("main_spgemm_total", seconds=time.perf_counter() - t0)
 
     band = generate_banded_csr(1_000_000, 3, dtype=np.float64, seed=5, device=dev)
@@ -837,9 +842,13 @@ def main() -> int:
         Pt = transpose(P)
         hc = SpgemmHandle()
         spgemm_symbolic(hc, Pt, AP)
-        return P, AP, Pt, spgemm_numeric(hc, Pt, AP), hap, hc
+        return P, AP, Pt, spgemm_numeric(hc, Pt, AP), hj, hap, hc
 
-    (P, AP, Pt, Ac, hap, hc), counts, wall = counted("sa-amg setup", sa_setup, ("spgemm_pairs",))
+    (P, AP, Pt, Ac, hj, hap, hc), counts, wall = counted("sa-amg setup", sa_setup,
+                                                         ("spgemm_rows",))
+    for label, hs, L, R in (("sa A·P_tent", hj, fem, P_tent), ("sa A·P", hap, fem, P),
+                            ("sa Pt·(A·P)", hc, Pt, AP)):
+        hold_k8(label, hs.row_plan, L.values, R.values)
     dsa = sps.diags(dinv)
     p_ref = (pt_sp - omega * (dsa @ (sa @ pt_sp))).tocsr()
     p_bound = (abs(pt_sp) + omega * (abs(dsa) @ abs_product(sa, pt_sp))).tocsr()
@@ -848,10 +857,10 @@ def main() -> int:
     checks = {"P": hold_scipy("sa P", P, p_ref, p_bound, max_pairs + 3, torch.float64)}
     sp_p = P.to_scipy()
     checks["A·P"] = hold_scipy("sa A·P", AP, sa @ sp_p, abs_product(sa, sp_p),
-                               n_pairs(hap.pair_plan) + 1, torch.float64)
+                               n_products(hap.row_plan) + 1, torch.float64)
     sp_pt, sp_ap = Pt.to_scipy(), AP.to_scipy()
     checks["Pt·(A·P)"] = hold_scipy("sa Pt·(A·P)", Ac, sp_pt @ sp_ap, abs_product(sp_pt, sp_ap),
-                                    n_pairs(hc.pair_plan) + 1, torch.float64)
+                                    n_products(hc.row_plan) + 1, torch.float64)
     emit("main_sa_amg_setup", matrix="fem2d_30k f64", aggregates=n_agg, omega=omega,
          P_shape=list(P.shape), P_nnz=P.nnz, Ac_shape=list(Ac.shape), Ac_nnz=Ac.nnz,
          seconds=wall, seconds_with_aggregation=time.perf_counter() - t, launches=counts,
@@ -1531,33 +1540,38 @@ def main() -> int:
 
     def k8_row(key, kk, plain_kk):
         """Bound: the compulsory bytes of C = A·A (A's CSR read once, C's row map
-        and columns read once, C's values written once); plan_MB: what K8
-        itself moves (the pair plan, A's values, C's values)."""
-        hh, A, C = spgemm_cases[key]
-        plan, dt = hh.pair_plan, A.dtype
+        and columns read once, C's values written once); own_MB: what K8's
+        design moves (A once, the B row of each A entry once, its two row-map
+        words included, C's pattern and values once, the row order)."""
+        hh, A, C, products = spgemm_cases[key]
+        plan, dt = hh.row_plan, A.dtype
         sz = torch.finfo(dt).bits // 8
         nbytes = (A.nrows + 1) * 4 + A.nnz * (4 + sz) + (C.nrows + 1) * 4 + C.nnz * (4 + sz)
-        plan_bytes = (plan.nnz_c + 1) * 8 + plan.npairs * 8 + A.nnz * sz + plan.nnz_c * sz
+        own_bytes = ((A.nrows + 1) * 4 + A.nnz * (4 + sz) + A.nnz * 8 + products * (4 + sz)
+                     + (C.nrows + 1) * 4 + C.nnz * (4 + sz) + plan.order.numel() * 4)
 
         def make(i):
             p = plan if i == 0 else dataclasses.replace(
-                plan, c_ptr=plan.c_ptr.clone(), a_idx=plan.a_idx.clone(),
-                b_idx=plan.b_idx.clone(), _c_idx=None)
+                plan, **{f: getattr(plan, f).clone() for f in (
+                    "a_row_map", "a_entries", "b_row_map", "b_entries", "c_row_map",
+                    "c_entries", "order")}, _expand=None)
             ai = A.values if i == 0 else A.values.clone()
-            return (lambda: ksg.spgemm_pairs(p, ai, ai)), (lambda: ksg.spgemm_pairs_plain(p, ai, ai))
+            return (lambda: ksg.spgemm_rows(p, ai, ai)), (lambda: ksg.spgemm_rows_plain(p, ai, ai))
 
         S = sparse_csr(A, dt, False)
         try:
             lib_ms, lib_err = event_ms(lambda: S @ S, 3), None
         except (RuntimeError, NotImplementedError) as e:  # the yardstick only
             lib_ms, lib_err = None, str(e)[:200]
-        return timed_kernel(f"K8 spgemm_pairs {key} A·A", make, nbytes, 2 * plan.npairs, dt, kk,
-                            plain_kk, lib_ms,
-                            library="torch.sparse_csr_tensor(A) @ torch.sparse_csr_tensor(A) "
-                                    "(cuSPARSE SpGEMM, its symbolic phase included)",
-                            library_error=lib_err, compulsory_MB=nbytes / 1e6,
-                            plan_MB=plan_bytes / 1e6, plan_bound_ms=plan_bytes / bw * 1e3,
-                            nnz_c=plan.nnz_c, pairs=plan.npairs, lanes=plan.group)
+        row = timed_kernel(f"K8 spgemm_rows {key} A·A", make, nbytes, 2 * products, dt, kk,
+                           plain_kk, lib_ms,
+                           library="torch.sparse_csr_tensor(A) @ torch.sparse_csr_tensor(A) "
+                                   "(cuSPARSE SpGEMM, its symbolic phase included)",
+                           library_error=lib_err, compulsory_MB=nbytes / 1e6,
+                           own_MB=own_bytes / 1e6, own_bound_ms=own_bytes / bw * 1e3,
+                           nnz_c=plan.nnz_c, products=products, bins=plan.bins)
+        plan._expand = None
+        return row
 
     t_k8 = k8_row("lap1000 f32", (10, 50), (2, 6))
     k8_row("lap1000 f64", (10, 50), (2, 6))
@@ -1650,7 +1664,7 @@ def main() -> int:
     total_k = []
     for name, row in (("dia_spmv", t_k1), ("dia_spmm", t_k2), ("csr_spmv", t_k3),
                       ("sptrsv_levels", t_k4), ("permute_gather", t_k5),
-                      ("gs_sweep", t_k6), ("csr_spmm", t_k7), ("spgemm_pairs", t_k8),
+                      ("gs_sweep", t_k6), ("csr_spmm", t_k7), ("spgemm_rows", t_k8),
                       ("probe_gather_acc", t_k9)):
         total_k.append(dict(name=name, route="cuda", source=SOURCES[name],
                             replaces=REPLACES[name], launches=path[name],

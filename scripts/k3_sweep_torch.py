@@ -9,7 +9,8 @@ rand100k f32 (the AUTO route), fem2d_30k f64 (PCG, GMRES), fem2d_30k + 4·I f32
 The plan's choice first (``build_csr_plan``: direct, or stream past
 ``STREAM_BYTES``).  Then the sweep, through variants that this script builds
 from ``scripts/k3_variants.cu`` (nvcc, into the git-ignored ``build/``): the
-tile cap (256·E entries for E = 2, 4; 256 rows) times how a tile reaches the
+tile cap (256·E entries for E = 1, 2, 4, the ring's for E = 2, 4; 256 rows)
+times how a tile reaches the
 threads: ``direct`` (each thread loads its own entries through L1),
 ``stream`` (the same, past L1), ``bulk`` (a two-stage ring in shared memory
 filled by one thread's cp.async.bulk) or ``cp.async`` (the ring filled 16
@@ -186,7 +187,7 @@ def main() -> int:
         if fn is not None:
             sweep = {}
             for copy in COPY_CODE:
-                for cap in (512, 1024):
+                for cap in ((256, 512, 1024) if copy in ("direct", "stream") else (512, 1024)):
                     sweep[f"{copy} {cap}"] = timed(f"{copy} {cap}",
                                                    variant_call(fn, kc, base, copy, cap, x, red))
             row["sweep_us"] = sweep

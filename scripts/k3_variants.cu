@@ -1,6 +1,6 @@
 // Variants of K3 (tpukk_torch/csrc/csr.cu's csr_spmv) for
 // scripts/k3_sweep_torch.py, built by that script and by nothing in the
-// package: K3's two modes (direct, stream) at either tile cap, and the ring of
+// package: K3's two modes (direct, stream) at each tile cap, and the ring of
 // asynchronous copies into shared memory that K3's Hopper design began with
 // and that lost to direct loads on every shape swept (PERF.md §6, K3).
 //
@@ -20,7 +20,7 @@
 //
 // C interface: k3_variant_spmv returns the launch's cudaError_t; dtype 0 =
 // float, 1 = double; reduce 0 = sum, 1 = max; copy 0 = bulk, 1 = cp.async,
-// 2 = direct, 3 = stream; tile_entries 512 or 1024 (256 · E).
+// 2 = direct, 3 = stream; tile_entries 256, 512 or 1024 (256 · E).
 
 #include "../tpukk_torch/csrc/csr.cu"
 
@@ -253,6 +253,12 @@ template <typename T, bool kMax, int kCopy>
 int by_cap(int tile_entries, int long_rows, const int4* t, int ntiles, const int* rowmap,
            const int* colidx, const void* vals, const void* x, void* y, int nrows, int nnz,
            cudaStream_t s) {
+  if (tile_entries == 256 && long_rows)
+    return launch_variant<T, 1, kMax, kCopy, true>(t, ntiles, rowmap, colidx, vals, x, y, nrows,
+                                                   nnz, s);
+  if (tile_entries == 256)
+    return launch_variant<T, 1, kMax, kCopy, false>(t, ntiles, rowmap, colidx, vals, x, y, nrows,
+                                                    nnz, s);
   if (tile_entries == 512 && long_rows)
     return launch_variant<T, 2, kMax, kCopy, true>(t, ntiles, rowmap, colidx, vals, x, y, nrows,
                                                    nnz, s);

@@ -24,7 +24,8 @@ exactly; a triangular solve x must satisfy |T·x - b| <= 20·eps·(|T|·|x|)_i a
 Gauss-Seidel color step is held to gs_cuda.step_error_bound (20·eps of its
 absolute terms) on the block's rows and must leave the other rows exactly as
 they were; whole sweeps (a few color steps in a row) to 1e-12 relative in f64;
-a SpGEMM entry c to (n_c + 1)·eps·Σ_p|a_p·b_p| (n_c its pair count); K9
+K8 bit for bit to its plain version (both sum in the pair order); a SpGEMM
+entry c to scipy's within (n_c + 1)·eps·Σ_p|a_p·b_p| (n_c its products); K9
 to 1e-6 absolute (its products and sums are the plain version's, in the same
 order, on values below 0.05); a supernodal solve to scipy's within 1e-5 of
 max|x| in f32 and 1e-12 in f64; the ILU(k) refresh to 1e-12 of spiluk_numeric;
@@ -78,7 +79,9 @@ def test_csr_kernel_matches_plain(dev, dtype):
     cases = [tkc.generate_structured_laplacian(64, 64, device=dev),
              tkc.generate_random_csr(3000, 2500, 12, seed=3, device=dev),
              tkc.generate_random_csr(300, 300, 70, seed=4, device=dev),  # 32 lanes
-             tkc.CsrMatrix.from_dense(d, device=dev)]
+             tkc.CsrMatrix.from_dense(d, device=dev),
+             tkc.generate_random_csr(100_000, 100_000, 16, seed=3, device=dev),  # rand100k
+             tkc.CsrMatrix.from_scipy(sps.identity(256, format="csr"), device=dev)]  # the floor
     for A in cases:
         x = _x(A.ncols, dtype, dev)
         cp = kc.build_csr_plan(A, dtype)
@@ -677,24 +680,47 @@ def _arrow(n, seed, dev):
     return tkc.CsrMatrix.from_scipy(S.tocsr(), device=dev)
 
 
+def _repeated(nrows, ncols, per_row, seed, dev):
+    """A random CSR matrix in which every third row repeats a column (its
+    columns unsorted within a row): two products of one A entry reach one C
+    entry."""
+    rng = np.random.default_rng(seed)
+    rm, ent = [0], []
+    for i in range(nrows):
+        cols = list(rng.choice(ncols, size=per_row, replace=False))
+        if i % 3 == 0:
+            cols.insert(int(rng.integers(0, per_row)), cols[-1])
+        ent += cols
+        rm.append(len(ent))
+    vals = rng.standard_normal(len(ent))
+    return tkc.CsrMatrix.from_arrays(np.array(rm), np.array(ent), vals, nrows=nrows, ncols=ncols,
+                                     device=dev)
+
+
 def _pair_cases(dev):
     d = np.zeros((80, 60))
     d[::4, ::3] = 1.5  # rows with and without entries
     d[1::4, 5] = -2.0
     E = tkc.CsrMatrix.from_dense(d, device=dev)
     dense = tkc.CsrMatrix.from_dense(np.random.default_rng(8).standard_normal((40, 40)), device=dev)
+    rep = _repeated(300, 300, 6, 4, dev)
     return [("rectangular", tkc.generate_random_csr(600, 400, 4, seed=9, device=dev),
              tkc.generate_random_csr(400, 300, 3, seed=10, device=dev)),
             ("empty rows", E, tkc.CsrMatrix.from_dense(d.T.copy(), device=dev)),
-            ("one dense row and column", _arrow(3000, 1, dev), None),
-            ("40 pairs per entry, 32 lanes", dense, dense)]
+            ("one dense row and column: a row past the shared-memory cap", _arrow(3000, 1, dev),
+             None),
+            ("40 products per entry, lanes in a group", dense, dense),
+            ("B repeats columns", tkc.generate_random_csr(200, 300, 5, seed=3, device=dev), rep),
+            ("A repeats columns", rep, tkc.generate_random_csr(300, 250, 5, seed=6, device=dev))]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 def test_spgemm_pairs_kernel_matches_plain(dev, dtype):
-    """K8 against its plain version: |C - C_plain| <= (n_c + 1)·eps·Σ_p|a_p·b_p|
-    per C entry, n_c the entry's pair count (the plain version's index_add_
-    adds in another order)."""
+    """K8 equals its plain version bit for bit: both add each C entry's
+    products from 0 in (A entry, B entry) order, on a row of C past the
+    shared-memory cap (accumulated in global memory), on rows of B and A that
+    repeat a column, on empty rows and on a rectangular product; one launch a
+    call, and a CUDA graph replays it to the same bits."""
     from tpukk_torch.sparse import SpgemmHandle, spgemm_symbolic
     from tpukk_torch.sparse import spgemm_cuda as ksg
 
@@ -702,20 +728,25 @@ def test_spgemm_pairs_kernel_matches_plain(dev, dtype):
         B = A if B is None else B
         h = SpgemmHandle()
         spgemm_symbolic(h, A, B)
-        plan = h.pair_plan
+        plan = h.row_plan
         a, b = A.values.to(dtype), B.values.to(dtype)
-        n0 = ksg.spgemm_pairs.launches
-        got = ksg.spgemm_pairs(plan, a, b)
-        assert ksg.spgemm_pairs.launches == n0 + 1, label
-        plain = ksg.spgemm_pairs_plain(plan, a, b)
+        n0 = ksg.spgemm_rows.launches
+        got = ksg.spgemm_rows(plan, a, b)
+        assert ksg.spgemm_rows.launches == n0 + 1, label
+        plain = ksg.spgemm_rows_plain(plan, a, b)
         torch.cuda.synchronize()
-        bound = ksg.spgemm_pairs_plain(plan, a.abs(), b.abs())
-        tol = (torch.diff(plan.c_ptr).to(dtype) + 1) * torch.finfo(dtype).eps * bound
-        assert bool(((got - plain).abs() <= tol).all()), label
+        assert torch.equal(got, plain), label
         if label.startswith("one dense"):
-            assert int(torch.diff(plan.c_ptr).max()) == 3000
-        if label.startswith("40 pairs"):
-            assert plan.group == 32
+            assert plan.bins[-1]["global_memory"] and int(torch.diff(plan.c_row_map).max()) == 3000
+        if label.startswith("40 products"):
+            assert all(bn["lanes"] > 1 for bn in plan.bins)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        y = ksg.spgemm_rows(plan, a, b)
+    y.zero_()
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(y, got)
 
 
 def test_spgemm_numeric_reuse_is_exact(dev):
@@ -746,9 +777,9 @@ def test_spgemm_numeric_on_cuda_matches_scipy(dev, dtype):
         B = A if B is None else B
         h = SpgemmHandle()
         spgemm_symbolic(h, A, B)
-        n0 = ksg.spgemm_pairs.launches
+        n0 = ksg.spgemm_rows.launches
         C = spgemm_numeric(h, A, B)
-        assert ksg.spgemm_pairs.launches == n0 + 1 and C.device == A.device
+        assert ksg.spgemm_rows.launches == n0 + 1 and C.device == A.device
         sa, sb = A.to_scipy().astype(np.float64), B.to_scipy().astype(np.float64)
         bound = (abs(sa) @ abs(sb)).tocsr()
         bound.sort_indices()
@@ -756,7 +787,7 @@ def test_spgemm_numeric_on_cuda_matches_scipy(dev, dtype):
         np.testing.assert_array_equal(C.host_entries(), bound.indices)
         ref = (sa @ sb).toarray()[np.repeat(np.arange(C.nrows), np.diff(bound.indptr)),
                                   bound.indices]
-        n_c = np.diff(h.pair_plan.c_ptr.cpu().numpy())
+        n_c = np.bincount(h.row_plan.expand()[2].cpu().numpy(), minlength=C.nnz)
         err = np.abs(C.values.double().cpu().numpy() - ref)
         assert (err <= (n_c + 1) * np.finfo(dtype).eps * bound.data).all()
 
@@ -783,9 +814,9 @@ def test_spgemm_routes_on_cuda(dev):
     hj = SpgemmHandle()
     spgemm_symbolic(hj, L, B)
     dinv = 1.0 / L.to_scipy().diagonal()
-    n0 = ksg.spgemm_pairs.launches
+    n0 = ksg.spgemm_rows.launches
     P = spgemm_jacobi(hj, L, B, 0.7, dinv)
-    assert ksg.spgemm_pairs.launches == n0 + 1
+    assert ksg.spgemm_rows.launches == n0 + 1
     ref = B.to_scipy() - 0.7 * sps.diags(dinv) @ L.to_scipy() @ B.to_scipy()
     assert abs(P.to_scipy() - ref).max() <= 1e-12 * abs(ref).max()
 
@@ -801,9 +832,11 @@ def test_spgemm_routes_on_cuda(dev):
     n = tg.triangle_count(G)
     assert n == plan.num_triangles == int(tg.triangle_count_device(plan))
 
-    plan_cpu = ksg.build_pair_plan(np.array([0, 1]), np.array([0]), np.array([0]), 1, 1, "cpu")
+    one = torch.tensor([0, 1], dtype=torch.int32)
+    zero = torch.tensor([0], dtype=torch.int32)
+    plan_cpu = ksg.build_row_plan(one, zero, one, zero, one, zero, 1)
     with pytest.raises(Exception):
-        ksg.spgemm_pairs(plan_cpu, torch.ones(1, device=dev), torch.ones(1, device=dev))
+        ksg.spgemm_rows(plan_cpu, torch.ones(1, device=dev), torch.ones(1, device=dev))
 
 
 def test_probe_kernel_matches_plain(dev):

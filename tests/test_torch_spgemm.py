@@ -4,15 +4,19 @@ tests/test_spgemm_spadd.py).
 Slice: ``SpgemmHandle`` → ``spgemm_symbolic`` (host C++, or DIA) →
 ``spgemm_numeric`` (KK through K8's plain version, DENSE_ACC, DEBUG, DIA) →
 numeric reuse, ``spgemm``, ``spgemm_jacobi``.  Kernel module: K8's plain
-version (``spgemm_cuda.spgemm_pairs_plain``) against the Pallas kernels of
+version (``spgemm_cuda.spgemm_rows_plain``) against the ordered sum over
+tpukk's pair plan, and against the Pallas kernels of
 ``tpukk/sparse/spgemm_pallas.py`` run in interpret mode on tpukk's own pair
-plan, carried across by ``interop.spgemm_symbolic_from_numpy``; the other
-Pallas rows run in tests/test_torch_spadd_triangle.py.
+plan, the port given tpukk's C pattern by
+``interop.spgemm_symbolic_from_numpy``; the other Pallas rows run in
+tests/test_torch_spadd_triangle.py.
 
-Tolerances: the symbolic phase and DIA's pattern equal tpukk's exactly; f64
-values within 1e-12 relative (max norm) of tpukk's (the same products, summed
-in the same order or by another exact-order segment sum); f32 values against
-a Pallas kernel within 1e-5 relative (the TPU kernels split values into bf16
+Tolerances: the symbolic phase and DIA's pattern equal tpukk's exactly; K8's
+plain version equals the ordered sum over tpukk's pair plan bit for bit (the
+same rounded products, added from 0 in the same order); f64 values within
+1e-12 relative (max norm) of tpukk's numeric (the same products, summed in
+the same order or by another exact-order segment sum); f32 values against a
+Pallas kernel within 1e-5 relative (the TPU kernels split values into bf16
 planes and sum chunk by chunk); numeric reuse with 2·A gives exactly 4·C.
 """
 import numpy as np
@@ -80,6 +84,8 @@ def _rel(got, ref):
 
 @pytest.mark.parametrize("case", CASES)
 def test_native_symbolic_equals_tpukk_and_plain(case):
+    """C's pattern (row_map_c, entries_c) equals tpukk's native symbolic's and
+    the numpy plain version's."""
     Aj, Bj = _operands(case)
     Bj = Aj if Bj is None else Bj
     args = (Aj.host_row_map(), Aj.host_entries(), Aj.nrows, Bj.ncols, Bj.host_row_map(),
@@ -87,12 +93,72 @@ def test_native_symbolic_equals_tpukk_and_plain(case):
     ref = jnative.spgemm_symbolic(*args)
     assert ref is not None, "tpukk's native library did not build"
     got = native.spgemm_symbolic(*args)
-    rm, ent, a_idx, b_idx, c_ptr = got
-    c_idx = np.repeat(np.arange(len(ent)), np.diff(c_ptr))
-    for g, r in zip((rm, ent, a_idx, b_idx, c_idx), ref):
+    assert len(got) == 2
+    for g, r in zip(got, ref[:2]):
         np.testing.assert_array_equal(g, r)
     for g, p in zip(got, symbolic_plain(_port(Aj), _port(Bj))):
         np.testing.assert_array_equal(g, p)
+
+
+def _raw(nrows, ncols, per_row, seed, repeat):
+    """(row_map, entries, values) of a random CSR matrix, columns unsorted
+    within a row; with repeat, every third row repeats one of its columns."""
+    rng = np.random.default_rng(seed)
+    rm, ent = [0], []
+    for i in range(nrows):
+        cols = list(rng.choice(ncols, size=per_row, replace=False))
+        if repeat and i % 3 == 0:
+            cols.insert(int(rng.integers(0, per_row)), cols[-1])
+        if i % 7 == 5:
+            cols = []  # an empty row
+        ent += cols
+        rm.append(len(ent))
+    return (np.array(rm, np.int32), np.array(ent, np.int32),
+            rng.standard_normal(len(ent)))
+
+
+def _ordered_operands(case):
+    """(A, B) as raw (row_map, entries, values, nrows, ncols) arrays."""
+    if case in CASES:
+        Aj, Bj = _operands(case)
+        Bj = Aj if Bj is None else Bj
+        return [(M.host_row_map(), M.host_entries(), np.asarray(M.host_values_full(), np.float64),
+                 M.nrows, M.ncols) for M in (Aj, Bj)]
+    if case == "A repeats a column":
+        return [(*_raw(120, 90, 5, 1, True), 120, 90), (*_raw(90, 70, 4, 2, False), 90, 70)]
+    if case == "B repeats a column":
+        return [(*_raw(120, 90, 5, 3, False), 120, 90), (*_raw(90, 70, 4, 4, True), 90, 70)]
+    if case == "empty rows":
+        d = np.zeros((30, 30))
+        d[::4, ::3] = 1.5
+        d[1::4, 5] = -2.0
+        sp = sps.csr_matrix(d)
+        return [(sp.indptr, sp.indices, sp.data, 30, 30)] * 2
+    assert case == "rectangular"
+    return [(*_raw(50, 80, 6, 5, False), 50, 80), (*_raw(80, 20, 3, 6, False), 80, 20)]
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("case", CASES + ["A repeats a column", "B repeats a column",
+                                          "empty rows", "rectangular"])
+def test_row_plain_equals_ordered_sum_over_tpukk_pairs(case, dtype):
+    """K8's plain version equals, bit for bit, the sum over tpukk's pair plan
+    in plan order (np.add.at adds in index order) from 0: the row-wise
+    numeric keeps the pair plan's order."""
+    (arm, aent, aval, n, k), (brm, bent, bval, _, m) = _ordered_operands(case)
+    rm, ent, a_idx, b_idx, c_idx = jnative.spgemm_symbolic(arm, aent, n, m, brm, bent)
+    a, b = aval.astype(dtype), bval.astype(dtype)
+    ref = np.zeros(len(ent), dtype)
+    np.add.at(ref, np.asarray(c_idx), a[np.asarray(a_idx)] * b[np.asarray(b_idx)])
+    A = csr_from_numpy(arm, aent, a, nrows=n, ncols=k, device=CPU)
+    B = csr_from_numpy(brm, bent, b, nrows=k, ncols=m, device=CPU)
+    h = SpgemmHandle()
+    spgemm_symbolic(h, A, B)
+    np.testing.assert_array_equal(h.row_map_c, rm)
+    np.testing.assert_array_equal(h.entries_c, ent)
+    got = spgemm_cuda.spgemm_rows_plain(h.row_plan, A.values, B.values)
+    assert got.dtype == torch.from_numpy(a).dtype
+    assert np.array_equal(got.numpy(), ref)
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -105,10 +171,10 @@ def test_kk_numeric_f64_matches_tpukk(case):
     A, B = _port(Aj), _port(Bj)
     h = SpgemmHandle()
     spgemm_symbolic(h, A, B)
-    assert h.pair_plan is not None and h.dia_plan is None
-    n0 = spgemm_cuda.spgemm_pairs.launches
+    assert h.row_plan is not None and h.dia_plan is None
+    n0 = spgemm_cuda.spgemm_rows.launches
     C = spgemm_numeric(h, A, B)
-    assert spgemm_cuda.spgemm_pairs.launches == n0  # the plain version: no launch on the CPU
+    assert spgemm_cuda.spgemm_rows.launches == n0  # the plain version: no launch on the CPU
     np.testing.assert_array_equal(C.host_row_map(), Cj.host_row_map())
     np.testing.assert_array_equal(C.host_entries(), Cj.host_entries())
     assert _rel(C.values, Cj.host_values_full()) <= 1e-12
@@ -160,8 +226,8 @@ def _pallas_plan(row, hj, Aj, Bj, monkeypatch):
 
 
 def run_pallas_row(row, case, monkeypatch):
-    """One Pallas kernel in interpret mode against the port's numeric on the
-    same (tpukk's) pair plan, f32."""
+    """One Pallas kernel in interpret mode on tpukk's pair plan against the
+    port's numeric on tpukk's C pattern, f32."""
     Aj, Bj = _operands(case, np.float32)
     Bj = Aj if Bj is None else Bj
     hj = JHandle()
@@ -177,9 +243,7 @@ def run_pallas_row(row, case, monkeypatch):
 
     A, B = _port(Aj), _port(Bj)
     h = SpgemmHandle()
-    pp = hj.pair_plan
-    spgemm_symbolic_from_numpy(h, A, B, hj.row_map_c, hj.entries_c, np.asarray(pp.a_idx),
-                               np.asarray(pp.b_idx), np.asarray(pp.c_idx))
+    spgemm_symbolic_from_numpy(h, A, B, hj.row_map_c, hj.entries_c)
     C = spgemm_numeric(h, A, B)
     assert C.dtype == torch.float32
     assert _rel(C.values, np.asarray(ref)) <= 1e-5
@@ -233,7 +297,7 @@ def test_dia_matches_tpukk(kind, algo):
     A, B = _port(Aj), _port(Bj)
     h = SpgemmHandle(SpgemmAlgorithm[algo])
     spgemm_symbolic(h, A, B)
-    assert h.dia_plan is not None and h.pair_plan is None
+    assert h.dia_plan is not None and h.row_plan is None
     C = spgemm_numeric(h, A, B)
     np.testing.assert_array_equal(C.host_row_map(), Cj.host_row_map())
     np.testing.assert_array_equal(C.host_entries(), Cj.host_entries())
@@ -251,7 +315,7 @@ def test_kk_does_not_route_a_holey_band_to_dia():
     A = _port(jkc.generate_structured_laplacian(20, 20, dtype=np.float64))
     h = SpgemmHandle()
     spgemm_symbolic(h, A, A)
-    assert h.dia_plan is None and h.pair_plan is not None
+    assert h.dia_plan is None and h.row_plan is not None
 
 
 def test_dia_refuses_an_unbanded_matrix():
@@ -286,11 +350,11 @@ def test_numeric_reuse(dtype):
     A = _port(Aj)
     h = SpgemmHandle()
     spgemm_symbolic(h, A, A)
-    plan = h.pair_plan
+    plan = h.row_plan
     C = spgemm_numeric(h, A, A)
     A2 = A.with_values(2 * A.values)
     assert torch.equal(spgemm_numeric(h, A2, A2).values, 4 * C.values)
-    assert h.pair_plan is plan
+    assert h.row_plan is plan
     vals = np.random.default_rng(3).standard_normal(Aj.nnz).astype(dtype)
     Aj3 = jkc.CsrMatrix.from_arrays(Aj.row_map, Aj.entries, vals, nrows=Aj.nrows,
                                     ncols=Aj.ncols)
@@ -321,16 +385,27 @@ def test_empty_rows_and_rectangular():
     assert Cz.nnz == 0 and Cz.shape == (8, 8)
 
 
-def test_pair_plan_checks_its_input():
-    with pytest.raises(Exception, match="c_ptr"):
-        spgemm_cuda.build_pair_plan(np.array([0, 2]), np.array([0]), np.array([0]), 1, 1, CPU)
-    with pytest.raises(Exception, match="outside"):
-        spgemm_cuda.build_pair_plan(np.array([0, 1]), np.array([3]), np.array([0]), 1, 1, CPU)
-    plan = spgemm_cuda.build_pair_plan(np.array([0, 1]), np.array([0]), np.array([0]), 1, 1, CPU)
+def test_row_plan_checks_its_input():
+    """The kernel does not bounds-check its reads, so the plan refuses
+    patterns that do not fit one another and values of other lengths, and the
+    plain version (like the kernel) a C pattern that lacks a product."""
+    t = lambda *v: torch.tensor(v, dtype=torch.int32)  # noqa: E731
+    with pytest.raises(Exception, match="row map lengths"):  # C has another row count than A
+        spgemm_cuda.build_row_plan(t(0, 1), t(0), t(0, 1), t(0), t(0, 1, 1), t(0), 1)
+    with pytest.raises(Exception, match="row map does not rise"):  # A's row map past its entries
+        spgemm_cuda.build_row_plan(t(0, 2), t(0), t(0, 1), t(0), t(0, 1), t(0), 1)
+    with pytest.raises(Exception, match="outside"):  # an A column past B's rows
+        spgemm_cuda.build_row_plan(t(0, 1), t(3), t(0, 1), t(0), t(0, 1), t(0), 1)
+    with pytest.raises(Exception, match="outside"):  # a B column past C's columns
+        spgemm_cuda.build_row_plan(t(0, 1), t(0), t(0, 1), t(4), t(0, 1), t(0), 2)
+    plan = spgemm_cuda.build_row_plan(t(0, 1), t(0), t(0, 1), t(0), t(0, 1), t(0), 1)
     with pytest.raises(Exception, match="lengths"):
-        spgemm_cuda.spgemm_pairs(plan, torch.ones(2, dtype=torch.float64),
-                                 torch.ones(1, dtype=torch.float64))
+        spgemm_cuda.spgemm_rows(plan, torch.ones(2, dtype=torch.float64),
+                                torch.ones(1, dtype=torch.float64))
+    holey = spgemm_cuda.build_row_plan(t(0, 1), t(0), t(0, 1), t(1), t(0, 1), t(0), 2)
+    with pytest.raises(Exception, match="lacks"):
+        spgemm_cuda.spgemm_rows(holey, torch.ones(1, dtype=torch.float64),
+                                torch.ones(1, dtype=torch.float64))
     with pytest.raises(Exception, match="sorted"):
         spgemm_symbolic_from_numpy(SpgemmHandle(), *[_port(jkc.generate_structured_laplacian(
-            3, 3, dtype=np.float64))] * 2, np.zeros(10, np.int32), np.zeros(2, np.int32),
-            np.zeros(2, np.int32), np.zeros(2, np.int32), np.array([1, 0]))
+            3, 3, dtype=np.float64))] * 2, np.r_[0, np.full(9, 2)], np.array([1, 0]))

@@ -67,7 +67,7 @@ SOURCES = {
         "tpukk_permute_gather": [_I, _P, _P, _P, _I64, _I64, _P],
     },
     "spgemm": {
-        "tpukk_spgemm_pair_sum": [_I, _I, _P, _P, _P, _P, _P, _P, _I64, _P],
+        "tpukk_spgemm_rows": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     },
     "probe": {
         "tpukk_probe_gather_acc": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
@@ -84,7 +84,7 @@ HOST_SOURCES = {
         "tpukk_d2_greedy_color": ([_I64, _P, _P, _I64, _P, _P, ctypes.c_int32, _P],
                                   ctypes.c_int32),
         "tpukk_spgemm_symbolic_count": ([_I64, _P, _P, _I64, _P, _P, _P], ctypes.c_int64),
-        "tpukk_spgemm_pairs": ([_I64, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _P], None),
+        "tpukk_spgemm_columns": ([_I64, _P, _P, _I64, _P, _P, _P, _P], None),
         "tpukk_triangle_count": ([_I64, _P, _P, _P], ctypes.c_int64),
         "tpukk_mdf_order": ([_I64, _P, _P, _P, _P], None),
     },

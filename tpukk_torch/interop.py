@@ -4,9 +4,9 @@
 ``A.host_entries()``, ``A.host_values_full()``) and of its DIA plans
 (``DiaPlan.diags_host``), of its ILU factors, of its triangular-solve
 levels, of its Gauss-Seidel colorings and clusterings, and of its SpGEMM
-pair plans.  These functions turn such arrays into this package's objects, so
-one matrix, one factorization, one level schedule or one pair plan can be
-given to both packages; this module imports neither JAX nor ``tpukk``.
+patterns.  These functions turn such arrays into this package's objects, so
+one matrix, one factorization, one level schedule or one product's pattern
+can be given to both packages; this module imports neither JAX nor ``tpukk``.
 """
 from __future__ import annotations
 
@@ -15,7 +15,8 @@ import numpy as np
 from .common import check
 from .containers import CsrMatrix
 from .sparse.gauss_seidel import GsHandle, set_color_order
-from .sparse.spgemm import SpgemmHandle, set_pair_plan
+from .sparse.spgemm import SpgemmHandle, set_row_plan
+from .sparse.spgemm_cuda import check_pattern
 from .sparse.spmv_impl import DiaPlan
 from .sparse.sptrsv_cuda import LevelPlan, build_level_plan
 
@@ -72,16 +73,21 @@ def gs_symbolic_from_numpy(handle: GsHandle, A: CsrMatrix, colors=None,
 
 
 def spgemm_symbolic_from_numpy(handle: SpgemmHandle, A: CsrMatrix, B: CsrMatrix, row_map_c,
-                               entries_c, a_idx, b_idx, c_idx) -> None:
-    """The symbolic phase of C = A·B from a pattern and a c-sorted pair plan
-    computed elsewhere (``tpukk``'s ``SpgemmHandle.row_map_c``,
-    ``entries_c`` and ``pair_plan`` arrays, as numpy arrays), so both
-    packages run the numeric phase on one plan."""
-    c_idx = np.asarray(c_idx, np.int64)
-    nnz_c = len(entries_c)
-    check(bool(np.all(np.diff(c_idx) >= 0)) and (len(c_idx) == 0 or (
-        c_idx[0] >= 0 and c_idx[-1] < nnz_c)),
-          "spgemm_symbolic_from_numpy: c_idx must be sorted and inside C's entries")
-    c_ptr = np.zeros(nnz_c + 1, np.int64)
-    np.cumsum(np.bincount(c_idx, minlength=nnz_c), out=c_ptr[1:])
-    set_pair_plan(handle, A, B, row_map_c, entries_c, a_idx, b_idx, c_ptr)
+                               entries_c) -> None:
+    """The symbolic phase of C = A·B from a pattern computed elsewhere
+    (``tpukk``'s ``SpgemmHandle.row_map_c`` and ``entries_c``, as numpy
+    arrays), so both packages run the numeric phase on one pattern.  C's
+    columns must be sorted within each row, and the pattern must hold every
+    product's column (``spgemm_cuda.check_pattern``)."""
+    rm = np.asarray(row_map_c, np.int64)
+    ent = np.asarray(entries_c, np.int64)
+    check(len(rm) == A.nrows + 1 and rm[0] == 0 and rm[-1] == len(ent)
+          and bool(np.all(np.diff(rm) >= 0)),
+          "spgemm_symbolic_from_numpy: row_map_c must rise from 0 to C's entries over A's rows")
+    inner = np.diff(ent) > 0
+    starts = rm[1:-1]
+    inner[starts[(starts > 0) & (starts < len(ent))] - 1] = True  # a row may start lower
+    check(bool(inner.all()),
+          "spgemm_symbolic_from_numpy: C's columns must be sorted and distinct within a row")
+    set_row_plan(handle, A, B, rm, ent)
+    check_pattern(handle.row_plan)

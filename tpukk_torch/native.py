@@ -98,10 +98,8 @@ def d2_greedy_color(row_map, entries, n: int, row_map_t=None, entries_t=None, m=
 
 
 def spgemm_symbolic(rmA, ciA, n: int, bcols: int, rmB, ciB):
-    """C = A·B's pattern and pair plan: (row_map_c int32, entries_c int32,
-    a_idx int32, b_idx int32, c_ptr int64).  The pairs of C entry c are
-    c_ptr[c] .. c_ptr[c+1]-1, in (A entry, B entry) order; a_idx and b_idx
-    index A's and B's values."""
+    """C = A·B's pattern: (row_map_c int32, entries_c int32), C's columns
+    sorted within each row."""
     rmA, ciA, rmB, ciB = _i32(rmA), _i32(ciA), _i32(rmB), _i32(ciB)
     # the C++ loops index B's rows by A's columns and C's columns by B's
     for name, ci, bound in (("A", ciA, len(rmB) - 1), ("B", ciB, bcols)):
@@ -114,15 +112,10 @@ def spgemm_symbolic(rmA, ciA, n: int, bcols: int, rmB, ciB):
                                                 row_map_c.ctypes.data))
     if nnz_c >= 2**31:
         raise TpuKKError(f"spgemm_symbolic: nnz(C) = {nnz_c} does not fit the int32 row map")
-    P = int((rmB[1:] - rmB[:-1]).astype(np.int64)[ciA].sum())
     entries_c = np.empty(nnz_c, np.int32)
-    a_idx = np.empty(P, np.int32)
-    b_idx = np.empty(P, np.int32)
-    c_ptr = np.empty(nnz_c + 1, np.int64)
-    lib.tpukk_spgemm_pairs(n, rmA.ctypes.data, ciA.ctypes.data, bcols, rmB.ctypes.data,
-                           ciB.ctypes.data, row_map_c.ctypes.data, entries_c.ctypes.data,
-                           a_idx.ctypes.data, b_idx.ctypes.data, c_ptr.ctypes.data)
-    return row_map_c, entries_c, a_idx, b_idx, c_ptr
+    lib.tpukk_spgemm_columns(n, rmA.ctypes.data, ciA.ctypes.data, bcols, rmB.ctypes.data,
+                             ciB.ctypes.data, row_map_c.ctypes.data, entries_c.ctypes.data)
+    return row_map_c, entries_c
 
 
 def triangle_count(row_map, entries, n: int):

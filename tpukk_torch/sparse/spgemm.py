@@ -4,14 +4,15 @@
 Two phases, with the reference handle's reuse contract
 (spgemm_handle.hpp:248-252):
 
-* **symbolic** (host C++, ``native.spgemm_symbolic``): C's pattern and the
-  pair plan, one (a_idx, b_idx) per scalar product, grouped by C entry
-  (int64 ``c_ptr``).  The plan moves to A's device once.
-* **numeric** (device): K8 (``spgemm_cuda.spgemm_pairs``) sums each C entry's
-  products, f32 and f64.  New values on the same patterns re-run only this.
+* **symbolic** (host C++, ``native.spgemm_symbolic``): C's pattern, moved to
+  A's device once, and K8's row plan built there (``spgemm_cuda.build_row_plan``:
+  the rows binned by their lanes, O(rows) bytes).
+* **numeric** (device): K8 (``spgemm_cuda.spgemm_rows``) sums each C row's
+  products in a shared-memory accumulator, f32 and f64.  New values on the
+  same patterns re-run only this.
 
 ``SpgemmAlgorithm`` mirrors SPGEMMAlgorithm (spgemm_handle.hpp:44-76): KK is
-the pair plan (and routes banded operands with full diagonals to DIA),
+the row-wise numeric (and routes banded operands with full diagonals to DIA),
 DENSE_ACC a dense accumulator in torch ops for a narrow B, DEBUG scipy on the
 host, DIA the offset convolution of ``spgemm_dia.py``.
 """
@@ -26,7 +27,7 @@ import torch
 from ..common import TpuKKError, check
 from ..common.tracing import annotate
 from ..containers import CsrMatrix, StaticCrsGraph, expand_row_ids
-from .spgemm_cuda import SpgemmPairPlan, build_pair_plan, spgemm_pairs
+from .spgemm_cuda import SpgemmRowPlan, build_row_plan, spgemm_rows
 
 __all__ = ["SpgemmAlgorithm", "SpgemmHandle", "spgemm_symbolic", "spgemm_numeric",
            "spgemm", "spgemm_jacobi", "symbolic_plain", "bspgemm_symbolic",
@@ -34,7 +35,7 @@ __all__ = ["SpgemmAlgorithm", "SpgemmHandle", "spgemm_symbolic", "spgemm_numeric
 
 
 class SpgemmAlgorithm(enum.Enum):
-    KK = "kk"                  # pair plan (hash-accumulator analog)
+    KK = "kk"                  # row-wise accumulator in shared memory (KKMEM analog)
     DENSE_ACC = "dense_acc"    # dense accumulator (KK_SPEED/KK_DENSE analog)
     DEBUG = "debug"            # host scipy (SPGEMM_DEBUG/serial analog)
     DIA = "dia"                # banded offset convolution (spgemm_dia.py): the
@@ -47,7 +48,7 @@ class SpgemmHandle:
 
     def __init__(self, algorithm: SpgemmAlgorithm = SpgemmAlgorithm.KK):
         self.algorithm = algorithm
-        self.pair_plan: Optional[SpgemmPairPlan] = None
+        self.row_plan: Optional[SpgemmRowPlan] = None
         self.dia_plan = None
         self.c_graph: Optional[StaticCrsGraph] = None  # C's pattern on A's device
 
@@ -71,46 +72,41 @@ class SpgemmHandle:
 
 def symbolic_plain(A: CsrMatrix, B: CsrMatrix):
     """Plain version of the host symbolic, in numpy (``tpukk``'s): the same
-    (row_map_c, entries_c, a_idx, b_idx, c_ptr) as ``native.spgemm_symbolic``.
-    Expands every product, then maps (row, col) to its C entry by one sort."""
+    (row_map_c, entries_c) as ``native.spgemm_symbolic``.  Expands every
+    product, then keeps each row's distinct columns by one sort."""
     arm = A.host_row_map().astype(np.int64)
     aent = A.host_entries().astype(np.int64)
     brm = B.host_row_map().astype(np.int64)
     bent = B.host_entries().astype(np.int64)
     expand = (brm[1:] - brm[:-1])[aent]   # products of each A entry
     P = int(expand.sum())
-    a_idx = np.repeat(np.arange(len(aent)), expand)
     within = np.arange(P) - np.repeat(np.cumsum(expand) - expand, expand)
     b_idx = np.repeat(brm[aent], expand) + within
     out_row = np.repeat(np.repeat(np.arange(A.nrows, dtype=np.int64), np.diff(arm)), expand)
-    key = out_row * B.ncols + bent[b_idx]
-    uniq, c_idx = np.unique(key, return_inverse=True)
+    uniq = np.unique(out_row * B.ncols + bent[b_idx])
     row_map_c = np.zeros(A.nrows + 1, np.int64)
     np.cumsum(np.bincount(uniq // max(B.ncols, 1), minlength=A.nrows), out=row_map_c[1:])
-    psort = np.argsort(c_idx, kind="stable")   # (a entry, b entry) order within a C entry
-    c_ptr = np.zeros(len(uniq) + 1, np.int64)
-    np.cumsum(np.bincount(c_idx, minlength=len(uniq)), out=c_ptr[1:])
-    return (row_map_c.astype(np.int32), (uniq % max(B.ncols, 1)).astype(np.int32),
-            a_idx[psort].astype(np.int32), b_idx[psort].astype(np.int32), c_ptr)
+    return row_map_c.astype(np.int32), (uniq % max(B.ncols, 1)).astype(np.int32)
 
 
 def _graph(row_map_c, entries_c, A: CsrMatrix, B: CsrMatrix) -> StaticCrsGraph:
     return StaticCrsGraph.from_arrays(row_map_c, entries_c, A.nrows, B.ncols, device=A.device)
 
 
-def set_pair_plan(handle: SpgemmHandle, A: CsrMatrix, B: CsrMatrix, row_map_c, entries_c,
-                  a_idx, b_idx, c_ptr) -> None:
-    """Load a symbolic phase (C's pattern and the pair plan, host arrays)
-    into a handle, the plan on A's device."""
-    check(len(c_ptr) == len(entries_c) + 1, "spgemm: c_ptr must have nnz(C)+1 entries")
-    handle.pair_plan = build_pair_plan(c_ptr, a_idx, b_idx, A.nnz, B.nnz, A.device)
+def set_row_plan(handle: SpgemmHandle, A: CsrMatrix, B: CsrMatrix, row_map_c,
+                 entries_c) -> None:
+    """Load a symbolic phase (C's pattern, host arrays) into a handle: C's
+    graph and K8's row plan on A's device."""
+    g = _graph(row_map_c, entries_c, A, B)
+    handle.row_plan = build_row_plan(A.row_map, A.entries, B.row_map, B.entries, g.row_map,
+                                     g.entries, B.ncols)
     handle.dia_plan = None
-    handle.c_graph = _graph(row_map_c, entries_c, A, B)
+    handle.c_graph = g
 
 
 @annotate("spgemm_symbolic")
 def spgemm_symbolic(handle: SpgemmHandle, A: CsrMatrix, B: CsrMatrix):
-    """Determine C's structure; keeps the pair plan (or DIA plan) in the handle."""
+    """Determine C's structure; keeps K8's row plan (or the DIA plan) in the handle."""
     from .. import native
     from . import spgemm_dia
 
@@ -128,11 +124,11 @@ def spgemm_symbolic(handle: SpgemmHandle, A: CsrMatrix, B: CsrMatrix):
               "spgemm DIA: operands are not banded (DIA-detectable)")
         if plan is not None:
             handle.dia_plan = plan
-            handle.pair_plan = None
+            handle.row_plan = None
             # the plan's index arrays and C's graph move to A's device here, once
             handle.c_graph = plan.device_arrays(A.device)["graph"]
             return handle.row_map_c
-    set_pair_plan(handle, A, B, *native.spgemm_symbolic(
+    set_row_plan(handle, A, B, *native.spgemm_symbolic(
         A.host_row_map(), A.host_entries(), A.nrows, B.ncols, B.host_row_map(),
         B.host_entries()))
     return handle.row_map_c
@@ -174,8 +170,8 @@ def spgemm_numeric(handle: SpgemmHandle, A: CsrMatrix, B: CsrMatrix) -> CsrMatri
     if handle.algorithm == SpgemmAlgorithm.DENSE_ACC:
         vals = _numeric_dense_acc(handle, A, B, dt)
     else:
-        vals = spgemm_pairs(handle.pair_plan, A.values.to(dt).contiguous(),
-                            B.values.to(dt).contiguous())
+        vals = spgemm_rows(handle.row_plan, A.values.to(dt).contiguous(),
+                           B.values.to(dt).contiguous())
     return CsrMatrix.from_graph(handle.c_graph, vals.to(A.dtype))
 
 

@@ -177,14 +177,16 @@ def build_csr_tiles(row_map: torch.Tensor, tile_entries: int) -> torch.Tensor:
     entries) int32 records, on row_map's device, with torch ops only.
 
     A row longer than tile_entries / 8 is a tile of its own (the kernel reads
-    one longer than tile_entries in pieces).  Every other tile holds at most
+    one longer than tile_entries in pieces).  The package's plans use caps of
+    512 and 1024; scripts/k3_sweep_torch.py also times 256.  Every other tile holds at most
     tile_entries entries: the boundaries are the first rows that start at or
     after each multiple of a step of tile_entries · 7/8, so a tile's rows
     start within one step and its last row, not being long, ends within an
     eighth more.  A run longer than TILE_ROWS rows (the empty rows of a
     selection matrix) is then cut every TILE_ROWS rows from its start.
     """
-    check(tile_entries in (512, 1024), f"csr tiles: entry cap {tile_entries} not 512 or 1024")
+    check(tile_entries in (256, 512, 1024),
+          f"csr tiles: entry cap {tile_entries} not 256, 512 or 1024")
     dev = row_map.device
     rm = row_map.to(torch.int64)
     nrows = rm.shape[0] - 1

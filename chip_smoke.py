@@ -25,7 +25,9 @@ solves of the FEM matrix's SuperLU factors, superlu_import in GMRES, an
 imported CHOLMOD-format Cholesky factor in PCG, PAR_ILUT and MDF factors in
 GMRES, the ILU(1) refresh; the probe's three variants), checks every result
 on the host with scipy, asserts that a triangular solve is one K4 launch, an
-LUPrec apply two and a Gauss-Seidel apply (GsPrec's too) one K6 launch (the
+LUPrec apply two, an imported factor's apply two and no K5 (its outer
+permutations folded into K4, the bits of K5, K4, K4, K5 kept) and a
+Gauss-Seidel apply (GsPrec's too) one K6 launch (the
 fused sweep, held bit for bit to the per-color path it replaces), times each kernel, its plain version and the torch call
 that computes the same function (K4 also per level, beside the chain's floor
 on a bidiagonal triangle), profiles one PCG and one GMRES iteration, and
@@ -273,14 +275,21 @@ def main() -> int:
                      kc.csr_plain(acp, xa, "max"), kc.csr_plain(acp, xa, "max"), dt)
                 require(torch.equal(kc.csr_spmv(acp, xa, "max"), kc.csr_plain(acp, xa, "max")),
                         f"csr_spmv {label} max {mode} is not exact")
-    # K7 at the main path's shapes: rand100k f32 k=8 (spmm), fem2d_30k f64 k=4
+    # K7 at the main path's shapes: rand100k f32 k=8 (spmm), fem2d_30k f64 k=4,
+    # and fem2d_30k's strict lower triangle f64 k=8 (TWOSTAGE's inner SpMM),
+    # whose X comes from a generator of its own, so that the later phases draw
+    # the inputs they drew before
+    fem_lower = CsrMatrix.from_scipy(sps.tril(fem.to_scipy(), k=-1).tocsr(), device=dev)
+    X_lower = torch.from_numpy(np.random.default_rng(12).standard_normal((fem.ncols, 8))).to(dev)
     for label, A, dt, k in (("rand100k_deg16", rnd, torch.float32, 8),
-                            ("fem2d_30k", fem, torch.float64, 4)):
+                            ("fem2d_30k", fem, torch.float64, 4),
+                            ("fem2d_30k strict lower (TWOSTAGE)", fem_lower, torch.float64, 8)):
         cp = kc.build_csr_plan(A, dt)
         acp = dataclasses.replace(cp, values=cp.values.abs())
-        X = vec(A.ncols, dt, k)
-        hold("csr_spmm", f"{label} k={k} G={cp.group}", kc.csr_spmm(cp, X),
-             kc.csr_spmm_plain(cp, X), kc.csr_spmm_plain(acp, X.abs()), dt)
+        X = X_lower if A is fem_lower else vec(A.ncols, dt, k)
+        g = kc.spmm_geometry(A.nnz / A.nrows, A.nrows, k, X.element_size(), X.data_ptr() % 16)
+        hold("csr_spmm", f"{label} k={k} vec={g.vec} cols={g.cols} slots={g.slots}",
+             kc.csr_spmm(cp, X), kc.csr_spmm_plain(cp, X), kc.csr_spmm_plain(acp, X.abs()), dt)
     after = kc.launch_counts()
     require(all(after[k] > before[k] for k in after), f"a launch counter did not rise: {after}")
     emit("kernels_checked", launches=after)
@@ -1019,15 +1028,35 @@ def main() -> int:
     t = time.perf_counter()
     slu = superlu_import(lu, SptrsvAlgorithm.SUPERNODAL, device=dev)
     import_s = time.perf_counter() - t
-    # K5 at the imported factor's outer permutations (30,000 rows)
-    hold_perm("superlu_import row permutation of 30,000", slu.inv_perm_r,
-              vec2(fem.nrows, torch.float64))
+    # K5 at a 30,000-row permutation: the inverse of SuperLU's row pivoting,
+    # which the imported solve no longer gathers (folded into K4's src)
+    perm30k = torch.from_numpy(np.argsort(lu.perm_r).astype(np.int32)).to(dev)
+    hold_perm("superlu row permutation of 30,000", perm30k, vec2(fem.nrows, torch.float64))
+
+    fold_rng = np.random.default_rng(13)  # leaves rng2's later draws as they were
+
+    def imported_apply(label, solver, first, second, before, after):
+        """One apply: two K4 launches, no K5, and the bits of the K5, K4, K4,
+        K5 composition it replaces."""
+        bq = torch.from_numpy(fold_rng.standard_normal(fem.nrows)).to(dev)
+        xq, counts, _ = counted(label, lambda: solver(bq), ("sptrsv_levels",))
+        require(counts["sptrsv_levels"] == 2 and sum(counts.values()) == 2,
+                f"{label}: {counts}, not two K4 launches")
+        y = sptrsv_solve(*first, ks.permute_gather(before, bq))
+        same = torch.equal(xq, ks.permute_gather(after, sptrsv_solve(*second, y)))
+        require(same, f"{label}: differs from gather, solve, solve, gather")
+        emit("main_imported_apply", case=label, launches=counts,
+             equal_to_gathers_around_solves=same)
+
+    imported_apply("superlu apply fem2d_30k f64", slu, (slu.Lh, slu.L), (slu.Uh, slu.U),
+                   slu.inv_perm_r, slu.perm_c)
     hg2 = GmresHandle(m=2, tol=1e-8, max_restarts=5)
     (xs_, st_), counts, wall = counted("gmres superlu", lambda: gmres(hg2, fem, bg, prec=slu),
-                                       ("csr_spmv", "permute_gather"))
+                                       ("csr_spmv", "sptrsv_levels"))
     rel = host_rel(fem, xs_, bg)
-    require(st_.converged and st_.num_iters <= 2 and rel <= 1e-8,
-            f"gmres with superlu_import: {st_}, host residual {rel}")
+    require(st_.converged and st_.num_iters <= 2 and rel <= 1e-8
+            and counts["permute_gather"] == 0,
+            f"gmres with superlu_import: {st_}, host residual {rel}, {counts}")
     emit("main_supernodal_superlu_gmres", matrix="fem2d_30k f64", algorithm="SUPERNODAL",
          m=2, iters=st_.num_iters, rel_res_host=rel, import_s=import_s, seconds=wall,
          launches=counts)
@@ -1077,8 +1106,10 @@ def main() -> int:
         for which, hh in (("L", chol.Lh), ("L^T", chol.Lth)):
             hold_dag(f"fem2d_30k Cholesky {which} {dt.__name__}", hh.sn_plan,
                      vec2(n, torch.float64))
+        imported_apply(f"cholmod apply fem2d_30k {dt.__name__}", chol, (chol.Lh, chol.L),
+                       (chol.Lth, chol.Lt), chol.perm, chol.inv_perm)
         st, rel, counts, wall = solve(f"pcg cholmod {dt.__name__}", fem, bf, chol, 200)
-        require(counts["permute_gather"] > 0 and counts["sptrsv_levels"] > 0,
+        require(counts["permute_gather"] == 0 and counts["sptrsv_levels"] > 0,
                 f"pcg cholmod {dt.__name__}: {counts}")
         emit("main_cholmod_fem2d30k", case=f"MMD(A+A^T) + Cholesky L·sqrt(D), {dt.__name__}",
              nnz_L=Lc.nnz, supernodes=len(super_) - 1,
@@ -1417,7 +1448,7 @@ def main() -> int:
 
     t_k5 = k5_row("random permutation of 1,000,000, f64", perm1m, torch.float64)
     k5_row("random permutation of 1,000,000, f32", perm1m, torch.float32)
-    k5_row("superlu_import row permutation of 30,000, f64", slu.inv_perm_r, torch.float64)
+    k5_row("superlu row permutation of 30,000, f64", perm30k, torch.float64)
 
     def k6_row(label, blk, n):
         cp = blk.csr
@@ -1517,10 +1548,10 @@ def main() -> int:
     k6_sweep_row("fem2d_30k f64 POINT", hp)
     k6_sweep_row("fem2d_30k f64 CLUSTER", gs[("fem2d_30k f64", "CLUSTER")])
 
-    def k7_row(label, A, dt, k):
+    def k7_row(label, A, dt, k, XX=None):
         cp = kc.build_csr_plan(A, dt)
         sz = torch.finfo(dt).bits // 8
-        XX = vec(A.ncols, dt, k)
+        XX = vec(A.ncols, dt, k) if XX is None else XX
 
         def make(i):
             c = cp if i == 0 else dataclasses.replace(
@@ -1532,11 +1563,14 @@ def main() -> int:
                 (lambda: S.matmul(Xi))
 
         nbytes = (A.nrows + 1) * 4 + A.nnz * (4 + sz) + (A.ncols + A.nrows) * k * sz
-        return timed(f"K7 csr_spmm {label} k={k} G={cp.group}", A, make, nbytes,
-                     2 * A.nnz * k, dt, spmv=False)
+        g = kc.spmm_geometry(A.nnz / A.nrows, A.nrows, k, sz, XX.data_ptr() % 16)
+        return timed(f"K7 csr_spmm {label} k={k}", A, make, nbytes, 2 * A.nnz * k, dt,
+                     spmv=False, vec=g.vec, cols=g.cols, slots=g.slots)
 
     t_k7 = k7_row("rand100k_deg16 f32 (spmm, ONEHOT route)", rnd, torch.float32, 8)
-    k7_row("fem2d_30k f64 (TWOSTAGE multivector)", fem, torch.float64, 4)
+    k7_row("fem2d_30k f64", fem, torch.float64, 4)
+    k7_row("fem2d_30k strict lower f64 (TWOSTAGE inner SpMM)", fem_lower, torch.float64, 8,
+           X_lower)
 
     def k8_row(key, kk, plain_kk):
         """Bound: the compulsory bytes of C = A·A (A's CSR read once, C's row map

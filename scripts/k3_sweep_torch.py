@@ -91,7 +91,7 @@ def variants_library():
     from tpukk_torch import _kernels
 
     csrc = ROOT / "tpukk_torch" / "csrc"
-    text = b"".join(f.read_bytes() for f in (VARIANTS, csrc / "csr.cu", csrc / "csr_panel.cuh"))
+    text = b"".join(f.read_bytes() for f in (VARIANTS, csrc / "csr.cu"))
     out = ROOT / "build" / "k3_variants" / f"libk3_variants-{hashlib.sha256(text).hexdigest()[:16]}.so"
     if not out.is_file():
         out.parent.mkdir(parents=True, exist_ok=True)

@@ -4,7 +4,8 @@ replayed in a CUDA graph to the same bits), and the SpMV/PCG,
 ILU(0)-GMRES and Gauss-Seidel paths (coloring,
 MIS2, sweeps, GsPrec-PCG), SpGEMM (K8, DIA, spgemm_jacobi, SpADD,
 triangles) and the factor-and-solve slice (SUPERNODAL on K4, SuperLU and
-CHOLMOD imports, PAR_ILUT, MDF, the ILU(k) refresh) through the kernels, and
+CHOLMOD imports, their applies two K4 launches and no K5, equal to K5, K4,
+K4, K5 bit for bit, PAR_ILUT, MDF, the ILU(k) refresh) through the kernels, and
 the probe kernel K9; K4 with the level permutations folded in (src/dst), at
 each lane width, replayed in a CUDA graph, and trapping on a plan that does
 not order its triangle; K6's fused sweep equal to the per-color path it
@@ -41,6 +42,7 @@ import torch
 
 import tpukk_torch.containers as tkc
 import tpukk_torch.graph as tg
+from tpukk_torch.common import TpuKKError
 from tpukk_torch.sparse import (ClusteringAlgorithm, GmresHandle, GsAlgorithm, GsHandle, GsPrec,
                                 JacobiPrec, LUPrec, Ortho, SpilukHandle, SpmvAlgorithm,
                                 SpmvHandle, gauss_seidel_apply, gauss_seidel_numeric,
@@ -436,20 +438,68 @@ def test_trsv_on_cuda(dev):
             assert np.abs(op @ X.cpu().numpy() - Bh).max() <= 1e-12 * np.abs(Bh).max()
 
 
+def _spmm_cases(dev):
+    """K7's matrices: rows of about 12 entries, rows of about 70 (past 32
+    lanes a row), a Laplacian, and empty rows beside a row of 3,000 entries."""
+    d = sps.random(400, 3000, density=0.004, random_state=5, format="lil")
+    d[::3] = 0.0
+    d[7, :] = np.random.default_rng(12).standard_normal(3000)
+    return [tkc.generate_random_csr(3000, 2500, 12, seed=3, device=dev),
+            tkc.generate_random_csr(300, 300, 70, seed=4, device=dev),
+            tkc.generate_structured_laplacian(40, 40, device=dev),
+            tkc.CsrMatrix.from_scipy(d.tocsr(), device=dev)]
+
+
+def _spmm_geometries(k, itemsize):
+    """Every geometry spmm_geometry can pick for k columns: each vector width
+    that divides k (X's offset decides among them), at every slot count."""
+    out = []
+    for vec in (4, 2, 1):
+        if vec * itemsize <= 16 and k % vec == 0:
+            cols = 1 << (-(-k // vec) - 1).bit_length()
+            out += [kc.SpmmGeometry(vec, cols, s) for s in (1, 2, 4, 8, 16, 32) if s * cols <= 32]
+    return out
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 def test_csr_spmm_kernel_matches_plain(dev, dtype):
-    cases = [tkc.generate_random_csr(3000, 2500, 12, seed=3, device=dev),
-             tkc.generate_random_csr(300, 300, 70, seed=4, device=dev),  # 32 lanes
-             tkc.generate_structured_laplacian(40, 40, device=dev)]
-    for A in cases:
+    """Every k in 1..16 at every geometry, and the host's own choice."""
+    size = torch.finfo(dtype).bits // 8
+    for A in _spmm_cases(dev):
         cp = kc.build_csr_plan(A, dtype)
         acp = dataclasses.replace(cp, values=cp.values.abs())
-        for k in (1, 2, 5, 8, 13, 16):
+        for k in range(1, kc.SPMM_MAX_K + 1):
             X = _x(A.ncols, dtype, dev, k)
+            plain, bound = kc.csr_spmm_plain(cp, X), kc.csr_spmm_plain(acp, X.abs())
             n0 = kc.csr_spmm.launches
-            assert _held(kc.csr_spmm(cp, X), kc.csr_spmm_plain(cp, X),
-                         kc.csr_spmm_plain(acp, X.abs()), dtype)
+            assert _held(kc.csr_spmm(cp, X), plain, bound, dtype)
             assert kc.csr_spmm.launches == n0 + 1
+            for g in _spmm_geometries(k, size):
+                assert _held(kc.csr_spmm(cp, X, g), plain, bound, dtype), (A.shape, k, g)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_csr_spmm_kernel_misaligned_x(dev, dtype):
+    """X a contiguous slice at an odd row offset, and X viewed from a flat
+    buffer one value in (off every vector boundary): the host picks the
+    vector width X allows, and a pinned wider one is refused."""
+    A = tkc.generate_random_csr(2000, 1500, 20, seed=9, device=dev)
+    cp = kc.build_csr_plan(A, dtype)
+    acp = dataclasses.replace(cp, values=cp.values.abs())
+    size = torch.finfo(dtype).bits // 8
+    for k in range(1, kc.SPMM_MAX_K + 1):
+        rows = _x(A.ncols + 3, dtype, dev, k, seed=k)[3:]
+        flat = _x(A.ncols * k + 1, dtype, dev, seed=k)[1:].view(A.ncols, k)
+        for X in (rows, flat):
+            assert X.is_contiguous()
+            g = kc.spmm_geometry(A.nnz / A.nrows, A.nrows, k, size, X.data_ptr() % 16)
+            assert X.data_ptr() % (g.vec * size) == 0 and k % g.vec == 0
+            assert _held(kc.csr_spmm(cp, X), kc.csr_spmm_plain(cp, X),
+                         kc.csr_spmm_plain(acp, X.abs()), dtype), (k, g)
+        assert kc.spmm_geometry(20, 2000, k, size, size).vec == 1
+        if k % 2 == 0:
+            with pytest.raises(TpuKKError, match="does not fit X"):
+                kc.csr_spmm(cp, flat, kc.SpmmGeometry(2, k // 2, 1))
 
 
 def test_onehot_spmm_route_launches_k7(dev):
@@ -956,6 +1006,55 @@ def test_imported_factors_and_ilut_mdf_on_cuda(dev):
     for got, want in ((Lr, L2), (Ur, U2)):
         w = want.to_scipy()
         assert abs(got.to_scipy() - w).max() <= 1e-12 * abs(w).max()
+
+
+class _Factor:
+    """The two methods of a CHOLMOD factor object that cholmod_import uses."""
+
+    def __init__(self, L, perm):
+        self._L, self._perm = L, perm
+
+    def L(self):
+        return self._L.tocsc()
+
+    def P(self):
+        return self._perm
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("algorithm", ["SEQLVLSCHD", "SUPERNODAL"])
+def test_imported_factor_apply_is_two_k4_launches(dev, algorithm, dtype):
+    """SuperLU's and CHOLMOD's outer permutations ride in K4's src and dst:
+    an apply launches K4 twice and K5 never, and equals K5, K4, K4, K5 bit
+    for bit; a b of another length is refused before any launch."""
+    import scipy.sparse.linalg as spla
+
+    from tpukk_torch.sparse import SptrsvAlgorithm, cholmod_import, superlu_import
+
+    alg = SptrsvAlgorithm[algorithm]
+    A = tkc.generate_diag_dominant_csr(600, 6, dtype=np.float64, seed=3, device="cpu")
+    slu = superlu_import(spla.splu(A.to_scipy().tocsc()), alg, value_dtype=dtype, device=dev)
+    S = tkc.generate_structured_laplacian(20, 20, dtype=np.float64, device="cpu").to_scipy()
+    perm = np.random.default_rng(4).permutation(S.shape[0])
+    Sp = S.toarray()[perm][:, perm] + 0.5 * np.eye(S.shape[0])
+    chol = cholmod_import(_Factor(sps.csr_matrix(np.linalg.cholesky(Sp)), perm), algorithm=alg,
+                          value_dtype=dtype, device=dev)
+    bdt = torch.float32 if dtype == np.float32 else torch.float64
+    for solver, first, second, before, after in (
+            (slu, (slu.Lh, slu.L), (slu.Uh, slu.U), slu.inv_perm_r, slu.perm_c),
+            (chol, (chol.Lh, chol.L), (chol.Lth, chol.Lt), chol.perm, chol.inv_perm)):
+        b = _x(first[1].nrows, bdt, dev, seed=6)
+        ks.reset_launch_counts()
+        x = solver(b)
+        torch.cuda.synchronize()
+        assert ks.launch_counts() == {"sptrsv_levels": 2, "permute_gather": 0}
+        y = sptrsv_solve(*first, ks.permute_gather(before, b))
+        assert torch.equal(x, ks.permute_gather(after, sptrsv_solve(*second, y)))
+        ks.reset_launch_counts()
+        for n in (b.shape[0] - 1, b.shape[0] + 1):
+            with pytest.raises(TpuKKError, match="rows"):
+                solver(_x(n, bdt, dev, seed=6))
+        assert ks.launch_counts() == {"sptrsv_levels": 0, "permute_gather": 0}
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64], ids=["f32", "f64"])

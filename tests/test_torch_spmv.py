@@ -29,6 +29,7 @@ import tpukk.sparse as jsp
 import tpukk_torch.containers as tkc
 from tpukk.sparse import spmv_impl as j_impl
 from tpukk.sparse import spmv_pallas as jpl
+from tpukk_torch.common import TpuKKError
 from tpukk_torch.interop import csr_from_numpy, dia_plan_from_numpy
 from tpukk_torch.sparse import SpmvAlgorithm, SpmvHandle, spmm, spmv
 from tpukk_torch.sparse import spmv_cuda as kc
@@ -557,3 +558,37 @@ def test_handle_caches_plans_and_refuses_unported(rng):
     Ac = At.with_values(At.values.to(torch.complex128))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         SpmvHandle(Ac)
+
+
+@pytest.mark.parametrize("itemsize", [4, 8], ids=["f32", "f64"])
+@pytest.mark.parametrize("k", range(1, 17))
+def test_spmm_geometry_rule(k, itemsize):
+    """K7's geometry: the widest vector (16 bytes, 8, one value) that divides
+    k and X's offset, the power of two of column lanes that covers k, slots
+    that fit the row in a warp's 32 lanes."""
+    for off in range(0, 16, itemsize):
+        for mean, nrows in ((0.5, 10), (3.0, 30_000), (7.0, 30_000), (19.47, 100_000),
+                            (70.0, 300), (1000.0, 1_000_000)):
+            g = kc.spmm_geometry(mean, nrows, k, itemsize, off)
+            assert g.vec in (1, 2, 4) and g.vec * itemsize <= 16
+            assert k % g.vec == 0 and off % (g.vec * itemsize) == 0
+            wider = 2 * g.vec
+            assert wider * itemsize > 16 or k % wider or off % (wider * itemsize)
+            assert g.cols & (g.cols - 1) == 0 and g.cols * g.vec >= k
+            assert g.cols == 1 or (g.cols // 2) * g.vec < k
+            assert g.slots & (g.slots - 1) == 0 and 32 % (g.slots * g.cols) == 0
+            assert g.slots == 1 or g.slots <= mean
+    if k % (16 // itemsize):
+        assert kc.spmm_geometry(20.0, 1000, k, itemsize).vec < 16 // itemsize
+
+
+def test_spmm_geometry_on_the_paths_shapes():
+    """rand100k f32 k=8 (spmm), fem2d_30k f64 k=4, fem2d_30k's strict lower
+    triangle f64 k=8 (TWOSTAGE): a row of X in one vector load or two, slots
+    that fill a step or the card."""
+    G = kc.SpmmGeometry
+    assert kc.spmm_geometry(1_946_586 / 100_000, 100_000, 8, 4) == G(4, 2, 8)
+    assert kc.spmm_geometry(209_942 / 30_000, 30_000, 4, 8) == G(2, 2, 4)
+    assert kc.spmm_geometry(89_971 / 30_000, 30_000, 8, 8) == G(2, 4, 2)
+    with pytest.raises(TpuKKError):
+        kc.spmm_geometry(5.0, 100, 17, 4)

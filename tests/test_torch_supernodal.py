@@ -38,6 +38,7 @@ from tpukk_torch.sparse import (GmresHandle, SptrsvAlgorithm, SptrsvHandle, chol
 from tpukk_torch.common.permute import permute_plain
 from tpukk_torch.sparse import sptrsv_cuda as ks
 from tpukk_torch.sparse import sptrsv_supernodal as tsn
+from tpukk_torch.sparse.sptrsv import _permuted_solve
 
 CPU = "cpu"
 SN = SptrsvAlgorithm.SUPERNODAL
@@ -395,3 +396,92 @@ def test_cholmod_factor_import(algorithm, dtype, rng):
     assert np.abs(got - ref).max() <= tol * np.abs(ref).max()
     with pytest.raises(ValueError, match="raw arrays"):
         cholmod_import(n=3)
+
+
+def _unfolded(solver, b):
+    """The apply as gather, solve, solve, gather (the K5, K4, K4, K5 of the
+    port before the fold), from the solver's own handles and permutations."""
+    if hasattr(solver, "Uh"):
+        first, second, before, after = ((solver.Lh, solver.L), (solver.Uh, solver.U),
+                                        solver.inv_perm_r, solver.perm_c)
+    else:
+        first, second, before, after = ((solver.Lh, solver.L), (solver.Lth, solver.Lt),
+                                        solver.perm, solver.inv_perm)
+    y = sptrsv_solve(*first, permute_plain(before, b))
+    return permute_plain(after, sptrsv_solve(*second, y))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("algorithm", ["SEQLVLSCHD", "SUPERNODAL"])
+@pytest.mark.parametrize("importer", ["superlu", "cholmod"])
+def test_folded_import_equals_gathers_and_tpukk(importer, algorithm, dtype, rng):
+    """An imported factor's apply, its outer permutations folded into the
+    solves' src and dst, equals gather, solve, solve, gather bit for bit,
+    and tpukk's import within the file's tolerances."""
+    if importer == "superlu":
+        A = jkc.generate_diag_dominant_csr(100, 5, dtype=np.float64, seed=23)
+        lu = spla.splu(A.to_scipy().tocsc())
+        solver = superlu_import(lu, SptrsvAlgorithm[algorithm], value_dtype=dtype, device=CPU)
+        ref_solver = jsp.superlu_import(lu, jsp.SptrsvAlgorithm[algorithm])
+        n = A.nrows
+    else:
+        A, perm, Ls, sizes = _chol_case(30)
+        kw = dict(zip(("super_", "pi", "px", "s", "x"), _raw_from_dense_chol(Ls, sizes)),
+                  n=30, perm=perm)
+        solver = cholmod_import(algorithm=SptrsvAlgorithm[algorithm], value_dtype=dtype,
+                                device=CPU, **kw)
+        ref_solver = j_cholmod_import(algorithm=jsp.SptrsvAlgorithm[algorithm], **kw)
+        n = 30
+    b = rng.standard_normal(n)
+    bt = torch.from_numpy(b.astype(dtype))
+    got = solver(bt)
+    assert got.dtype == bt.dtype and torch.equal(got, _unfolded(solver, bt))
+    ref = np.asarray(ref_solver(jnp.asarray(b)))
+    if dtype == np.float64:
+        assert _rel(got.numpy(), ref) <= 1e-10
+    else:
+        assert np.abs(got.double().numpy() - ref).max() <= 5e-5 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("extra", [-1, 1], ids=["short", "long"])
+@pytest.mark.parametrize("algorithm", ["SEQLVLSCHD", "SUPERNODAL"])
+@pytest.mark.parametrize("importer", ["superlu", "cholmod"])
+def test_folded_import_refuses_a_b_of_another_length(importer, algorithm, extra):
+    """The folded apply checks b's length, as sptrsv_solve does: K4 reads b
+    through src and writes n values through dst, so a short b would be read
+    past its end and a long one would leave its tail unsolved."""
+    if importer == "superlu":
+        A = jkc.generate_diag_dominant_csr(40, 5, dtype=np.float64, seed=23)
+        solver = superlu_import(spla.splu(A.to_scipy().tocsc()), SptrsvAlgorithm[algorithm],
+                                device=CPU)
+        n = A.nrows
+    else:
+        _, perm, Ls, sizes = _chol_case(30)
+        kw = dict(zip(("super_", "pi", "px", "s", "x"), _raw_from_dense_chol(Ls, sizes)),
+                  n=30, perm=perm)
+        solver = cholmod_import(algorithm=SptrsvAlgorithm[algorithm], device=CPU, **kw)
+        n = 30
+    with pytest.raises(TpuKKError, match="rows"):
+        solver(torch.ones(n + extra, dtype=torch.float64))
+    with pytest.raises(TpuKKError, match="rank-1"):
+        solver(torch.ones((n, 1), dtype=torch.float64))
+
+
+def test_permuted_solve_on_the_batched_plan_keeps_its_gathers(rng):
+    """The batched supernodal plan (fused=False), which K4 does not run,
+    gathers b before its solve and x after it, and checks b's length."""
+    T = _factor("lap12", True)
+    n = T.shape[0]
+    Tt = tkc.CsrMatrix.from_scipy(T, device=CPU)
+    h = SptrsvHandle(lower=True, algorithm=SN)
+    sptrsv_symbolic(h, Tt)
+    h.sn_plan = tsn.build_supernodal_plan(T.indptr, T.indices, T.data, n, lower=True,
+                                          device=CPU, fused=False)
+    before = torch.from_numpy(rng.permutation(n).astype(np.int32))
+    after = torch.from_numpy(rng.permutation(n).astype(np.int32))
+    b = torch.from_numpy(rng.standard_normal(n))
+    got = _permuted_solve(h, before, after)(b)
+    ref = permute_plain(after, tsn.supernodal_solve(h.sn_plan, permute_plain(before, b)))
+    assert torch.equal(got, ref)
+    with pytest.raises(TpuKKError, match=f"{n} rows"):
+        _permuted_solve(h, before, after)(torch.ones(n + 1, dtype=torch.float64))

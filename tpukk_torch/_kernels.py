@@ -52,7 +52,7 @@ SOURCES = {
     },
     "csr": {
         "tpukk_csr_spmv": [_I, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P],
-        "tpukk_csr_spmm": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _P],
+        "tpukk_csr_spmm": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P],
     },
     "gs": {
         "tpukk_gs_color_step": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I,

@@ -1,5 +1,5 @@
 // Unstructured CSR SpMV and SpMM for Hopper (sm_90a): K3 csr_spmv<T, E, Reduce,
-// Stream, Long> and K7 csr_spmm<T>.
+// Stream, Long> and K7 csr_spmm<T, V, C>.
 //
 // ---- K3 ----
 // Replaces the TPU kernels (tpukk/sparse/spmv_pallas.py), seven layouts of one
@@ -59,24 +59,46 @@
 //
 // Bound on the H100: bytes.  The least traffic is rowmap, colidx and vals
 // once (as for one SpMV), X once and Y once; k columns per entry share one
-// read of its value and column id, which is the whole gain over k SpMVs.
+// read of its value and column id, which is the whole gain over k SpMVs.  X
+// is gathered by rows: a row of X is k·4 or k·8 contiguous bytes (one 32-byte
+// sector in f32 at k = 8), and X stays in the 50 MB L2 on the paths' shapes,
+// so what limits a gather is how many L1 requests it takes, not DRAM.
 //
-// Design against that bound: a vector CSR (a group of G lanes a row) with k
-// accumulators per lane (K2's idea for CSR), the row panel of csr_panel.cuh,
-// which K6 shares; lane j % G writes column j.
+// Design against that bound: a group of S·C lanes a row (a power of two that
+// divides 32, so a warp holds 32 / (S·C) rows).  Inside the group, C column
+// lanes cover the k columns, each reading V consecutive values of X's row with
+// one vector load through the read-only path (V = 4 in f32, 2 in f64, smaller
+// where k or X's alignment does not allow it: the same template at another
+// V), so a row of X is one request of the C lanes, not k scalar loads.  The
+// group's S entry slots take different entries of the row in the same step:
+// the group loads a step's U·S·C entries (colidx and vals) once, coalesced,
+// lane g taking entries g, g + S·C, ..., and each slot gets its U·C entries
+// from them by shuffle, slot s the step's entries s, s + S, s + 2S, ... in
+// order, so each lane has U·C >= 4 rows of X in flight before it adds any.
+// The slots' partial sums meet in a shuffle tree over the slots (log2 S
+// shuffles of V values), and slot 0's column lanes store Y's row with vector
+// stores.  Each lane loops the warp's most steps, with full-warp shuffles, so
+// rows of any length share a warp.  S comes from the mean entries a row, the
+// rows and k on the host (spmv_cuda.spmm_geometry).  A sum is taken in a fixed
+// order: slot by slot in entry order, then the tree (no atomics, the same
+// bits from run to run).  colidx and vals are read through L1: no matrix on
+// K7's paths passes spmv_cuda.STREAM_BYTES, and reading them past L1 was
+// slower on all three of the paths' shapes (PERF.md, K7).
+// Nothing is staged in shared memory: the operands are gathers, not tiles.
 //
 // C interface (bound with ctypes): returns the cudaError_t of the launch
 // (0 when nothing needed launching); dtype 0 = float, 1 = double; reduce
-// 0 = sum, 1 = max; streamed 0 = direct, 1 = stream.
+// 0 = sum, 1 = max; streamed (K3) 0 = direct, 1 = stream.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <atomic>
-
-#include "csr_panel.cuh"
+#include <type_traits>
 
 namespace {
+
+constexpr int kThreads = 256;
 
 // ---- K3 ---------------------------------------------------------------------
 
@@ -294,47 +316,185 @@ int launch_spmv(int streamed, int long_rows, const int4* t, int ntiles, const in
   return launch_tiles<T, 2, kMax, false, false>(t, ntiles, rowmap, colidx, vals, x, y, s);
 }
 
-template <typename T, int G, int KMAX>
+// ---- K7 ----------------------------------------------------------------------
+
+// One vector load of V values of X's row through the read-only path, and one
+// vector store of Y's row.
+__device__ __forceinline__ void load_vec(const float* p, float (&v)[4]) {
+  const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+  v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+}
+__device__ __forceinline__ void load_vec(const float* p, float (&v)[2]) {
+  const float2 q = __ldg(reinterpret_cast<const float2*>(p));
+  v[0] = q.x, v[1] = q.y;
+}
+__device__ __forceinline__ void load_vec(const double* p, double (&v)[2]) {
+  const double2 q = __ldg(reinterpret_cast<const double2*>(p));
+  v[0] = q.x, v[1] = q.y;
+}
+template <typename T>
+__device__ __forceinline__ void load_vec(const T* p, T (&v)[1]) {
+  v[0] = __ldg(p);
+}
+__device__ __forceinline__ void store_vec(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store_vec(float* p, const float (&v)[2]) {
+  *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+}
+__device__ __forceinline__ void store_vec(double* p, const double (&v)[2]) {
+  *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
+}
+template <typename T>
+__device__ __forceinline__ void store_vec(T* p, const T (&v)[1]) {
+  *p = v[0];
+}
+
+__host__ __device__ constexpr int log2_of(int c) { return c <= 1 ? 0 : 1 + log2_of(c / 2); }
+
+// A group of S·C lanes a row (S = 1 << log_slots entry slots of C column
+// lanes); lane g of the group is slot g / C, column lane g % C, and holds
+// columns (g % C)·V .. + V - 1.  Each step the lane loads U entries of the row
+// (g, g + S·C, ...), then its slot takes the step's entries s, s + S, ...
+// from the lanes that loaded them.
+template <typename T, int V, int C>
 __global__ void __launch_bounds__(kThreads)
 csr_spmm_kernel(const int* __restrict__ rowmap, const int* __restrict__ colidx,
                 const T* __restrict__ vals, const T* __restrict__ x, T* __restrict__ y,
-                int nrows, int k) {
-  const int64_t row = (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) / G;
-  const int lane = static_cast<int>(threadIdx.x) % G;
+                int nrows, int k, int log_slots) {
+  constexpr int U = C >= 4 ? 1 : 4 / C;  // entries a lane loads a step; a slot takes U·C
+  constexpr unsigned kFull = 0xffffffffu;
+  using Mat = GlobalTile<T, false>;
+  const int S = 1 << log_slots;
+  const int log_w = log_slots + log2_of(C);
+  const int W = 1 << log_w;
+  const int lane = threadIdx.x & 31;
+  const int g = lane & (W - 1);
+  const int src0 = (lane - g) + g / C;  // the lane that loads this slot's first entry of a step
+  const int c = g % C;
+  const int64_t row = (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) >> log_w;
   const bool valid = row < nrows;
-  T acc[KMAX];
-  csr_row_panel<T, G, KMAX, true>(rowmap, colidx, vals, x, row, lane, valid, k, acc);
+  const bool active = c * V < k;  // column lanes past k read and write nothing
+  int p0 = 0, p1 = 0;
   if (valid) {
-    T* yr = y + row * k;
-#pragma unroll
-    for (int j = 0; j < KMAX; ++j)
-      if (j < k && j % G == lane) yr[j] = acc[j];
+    p0 = __ldg(rowmap + row);
+    p1 = __ldg(rowmap + row + 1);
   }
+  const int step = U * W;
+  const int steps = __reduce_max_sync(kFull, (p1 - p0 + step - 1) / step);
+  const T* xc = x + c * V;
+  T acc[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) acc[v] = T(0);
+  for (int it = 0, first = p0 + g; it < steps; ++it, first += step) {
+    int col[U];
+    T val[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int j = first + u * W;
+      col[u] = j < p1 ? Mat::load(colidx + j) : -1;
+      val[u] = j < p1 ? Mat::load(vals + j) : T(0);
+    }
+    T xv[U * C][V];
+    T vv[U * C];
+#pragma unroll
+    for (int i = 0; i < U * C; ++i) {
+      // the step's entry s + S·i: loaded by lane S·(i % C) + s, as its entry i / C
+      int ci;
+      if constexpr (C == 1) {
+        ci = col[i];
+        vv[i] = val[i];
+      } else {
+        ci = __shfl_sync(kFull, col[i / C], src0 + S * (i % C));
+        vv[i] = __shfl_sync(kFull, val[i / C], src0 + S * (i % C));
+      }
+      if (ci >= 0 && active) {
+        load_vec(xc + static_cast<int64_t>(ci) * k, xv[i]);
+      } else {
+#pragma unroll
+        for (int v = 0; v < V; ++v) xv[i][v] = T(0);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < U * C; ++i)
+#pragma unroll
+      for (int v = 0; v < V; ++v) acc[v] = fma(vv[i], xv[i][v], acc[v]);
+  }
+  for (int off = C; off < W; off <<= 1)
+#pragma unroll
+    for (int v = 0; v < V; ++v) acc[v] += __shfl_xor_sync(kFull, acc[v], off);
+  if (valid && g < C && active) store_vec(y + row * k + c * V, acc);
+}
+
+template <typename T, int V, int C>
+int launch_spmm_at(const int* rowmap, const int* colidx, const T* vals, const T* x, T* y,
+                   int nrows, int k, int log_slots, cudaStream_t stream) {
+  const int64_t threads = static_cast<int64_t>(nrows) << (log_slots + log2_of(C));
+  const unsigned blocks = static_cast<unsigned>((threads + kThreads - 1) / kThreads);
+  csr_spmm_kernel<T, V, C><<<blocks, kThreads, 0, stream>>>(rowmap, colidx, vals, x, y, nrows,
+                                                             k, log_slots);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The instance of (V, C): C a power of two with k <= C·V <= 16, S·C <= 32,
+// k a multiple of V and x on a V-value boundary (the wrapper's spmm_geometry
+// picks them so); anything else is cudaErrorInvalidValue.
+template <typename T, int V>
+int launch_spmm_vec(int cols, const int* rowmap, const int* colidx, const T* vals, const T* x,
+                    T* y, int nrows, int k, int log_slots, cudaStream_t s) {
+  if (k % V != 0 || reinterpret_cast<uintptr_t>(x) % (V * sizeof(T)) != 0 || cols * V < k ||
+      (cols << log_slots) > 32)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto at = [&](auto c) {
+    return launch_spmm_at<T, V, decltype(c)::value>(rowmap, colidx, vals, x, y, nrows, k,
+                                                    log_slots, s);
+  };
+  switch (cols) {
+    case 1: return at(std::integral_constant<int, 1>{});
+    case 2: return at(std::integral_constant<int, 2>{});
+    case 4: return at(std::integral_constant<int, 4>{});
+    case 8:
+      if constexpr (V <= 2) return at(std::integral_constant<int, 8>{});
+      break;
+    case 16:
+      if constexpr (V == 1) return at(std::integral_constant<int, 16>{});
+      break;
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename T>
-int launch_spmm(int group, const int* rowmap, const int* colidx, const void* vals,
-                const void* x, void* y, int nrows, int k, cudaStream_t stream) {
-  if (nrows == 0 || k == 0) return 0;
+int launch_spmm(int vec, int cols, int log_slots, const int* rowmap, const int* colidx,
+                const void* vals, const void* x, void* y, int nrows, int k, cudaStream_t s) {
+  if (k < 1 || k > 16 || log_slots < 0 || log_slots > 5)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (nrows == 0) return 0;
   const T* v = static_cast<const T*>(vals);
   const T* xx = static_cast<const T*>(x);
   T* yy = static_cast<T*>(y);
-  return dispatch_panel(group, k, [&](auto g, auto kmax) {
-    constexpr int G = decltype(g)::value, KMAX = decltype(kmax)::value;
-    csr_spmm_kernel<T, G, KMAX><<<panel_grid(nrows, G), kThreads, 0, stream>>>(
-        rowmap, colidx, v, xx, yy, nrows, k);
-    return static_cast<int>(cudaGetLastError());
-  });
+  if (vec == 1)
+    return launch_spmm_vec<T, 1>(cols, rowmap, colidx, v, xx, yy, nrows, k, log_slots, s);
+  if (vec == 2)
+    return launch_spmm_vec<T, 2>(cols, rowmap, colidx, v, xx, yy, nrows, k, log_slots, s);
+  if constexpr (sizeof(T) == 4)
+    if (vec == 4)
+      return launch_spmm_vec<T, 4>(cols, rowmap, colidx, v, xx, yy, nrows, k, log_slots, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-extern "C" int tpukk_csr_spmm(int dtype, int group, const int* rowmap, const int* colidx,
-                              const void* vals, const void* x, void* y, int nrows, int k,
-                              void* stream) {
+// vec: V, the values of X's row a column lane loads at once (4, 2 or 1 in
+// f32; 2 or 1 in f64); cols: C, the column lanes of a slot; log_slots: log2
+// of S, the entry slots of a row
+extern "C" int tpukk_csr_spmm(int dtype, int vec, int cols, int log_slots, const int* rowmap,
+                              const int* colidx, const void* vals, const void* x, void* y,
+                              int nrows, int k, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_spmm<float>(group, rowmap, colidx, vals, x, y, nrows, k, s);
-  if (dtype == 1) return launch_spmm<double>(group, rowmap, colidx, vals, x, y, nrows, k, s);
+  if (dtype == 0)
+    return launch_spmm<float>(vec, cols, log_slots, rowmap, colidx, vals, x, y, nrows, k, s);
+  if (dtype == 1)
+    return launch_spmm<double>(vec, cols, log_slots, rowmap, colidx, vals, x, y, nrows, k, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

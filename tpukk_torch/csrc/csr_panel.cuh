@@ -1,6 +1,6 @@
-// The CSR row panel shared by K7 csr_spmm (csr.cu) and K6 gs_color_step and
-// gs_sweep (gs.cu): a vector CSR, the design K3 had before its tiles, with a
-// register panel of k accumulators.
+// The CSR row panel of K6's two entries, gs_color_step and gs_sweep (gs.cu):
+// a vector CSR, the design K3 had before its tiles, with a register panel of
+// k accumulators.
 //
 // A group of G lanes (1, 2, 4, 8, 16 or 32, chosen on the host from the mean
 // entries per row) owns one row.  Each lane walks the row's entries at stride
@@ -9,10 +9,10 @@
 // row's entries serves all k columns.  The group then reduces each column
 // with a shuffle tree, so a column's sum is taken in one fixed order, and every
 // lane of the group holds every column's sum.  k is bucketed into a
-// compile-time panel of 1 (a vector), 4, 8 or 16 columns; the caller stores the sums (K7)
-// or applies its update to them (K6), lane j % G taking column j.  Each
-// product is added with one fma, so every kernel built on the panel sums a
-// row in the same order and to the same bits for the same G.
+// compile-time panel of 1 (a vector), 4, 8 or 16 columns; the caller applies
+// its update to the sums, lane j % G taking column j.  Each product is added
+// with one fma, so both entries sum a row in the same order and to the same
+// bits for the same G.
 
 #pragma once
 
@@ -26,10 +26,8 @@ namespace {
 constexpr int kThreads = 256;
 
 // acc[j] += v * x[c, j] for j < k, one fma each; x[c, j] reads 0 without a
-// load where `zero` (the fused sweep's rows not yet written).  kReadOnlyX
-// reads x through the read-only path, which is only right where nothing
-// writes x during the kernel.
-template <typename T, int KMAX, bool kReadOnlyX>
+// load where `zero` (the fused sweep's rows not yet written).
+template <typename T, int KMAX>
 __device__ __forceinline__ void panel_add(const T* x, int c, T v, int k, bool zero,
                                           T (&acc)[KMAX]) {
   const T* xr = x + static_cast<int64_t>(c) * k;
@@ -37,7 +35,7 @@ __device__ __forceinline__ void panel_add(const T* x, int c, T v, int k, bool ze
   for (int j = 0; j < KMAX; ++j) {
     if (j < k) {
       T xv = T(0);
-      if (!zero) xv = kReadOnlyX ? __ldg(xr + j) : xr[j];
+      if (!zero) xv = xr[j];
       acc[j] = fma(v, xv, acc[j]);
     }
   }
@@ -63,7 +61,7 @@ __device__ __forceinline__ void panel_reduce(int k, T (&acc)[KMAX]) {
 // acc[j] = sum_{p in row} vals[p] * x[colidx[p], j] for j < k, on every lane
 // of the row's group; 0 for an invalid row.  Every lane of the warp must call
 // it.  Lane `lane` adds the row's entries lane, lane + G, ... in order.
-template <typename T, int G, int KMAX, bool kReadOnlyX>
+template <typename T, int G, int KMAX>
 __device__ __forceinline__ void csr_row_panel(const int* __restrict__ rowmap,
                                               const int* __restrict__ colidx,
                                               const T* __restrict__ vals, const T* x,
@@ -74,7 +72,7 @@ __device__ __forceinline__ void csr_row_panel(const int* __restrict__ rowmap,
   if (valid) {
     const int end = rowmap[row + 1];
     for (int p = rowmap[row] + lane; p < end; p += G)
-      panel_add<T, KMAX, kReadOnlyX>(x, colidx[p], vals[p], k, false, acc);
+      panel_add<T, KMAX>(x, colidx[p], vals[p], k, false, acc);
   }
   panel_reduce<T, G, KMAX>(k, acc);
 }

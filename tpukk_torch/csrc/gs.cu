@@ -92,7 +92,7 @@ gs_color_step_kernel(const int* __restrict__ rowmap, const int* __restrict__ col
   const int lane = static_cast<int>(threadIdx.x) % G;
   const bool valid = row < nrows;
   T acc[KMAX];
-  csr_row_panel<T, G, KMAX, false>(rowmap, colidx, vals, x, row, lane, valid, k, acc);
+  csr_row_panel<T, G, KMAX>(rowmap, colidx, vals, x, row, lane, valid, k, acc);
   if (valid) {
     const T wd = omega * invd[row];
     const int64_t g = (start + row) * k;
@@ -220,12 +220,12 @@ gs_sweep_kernel(const int* __restrict__ rowmap, const int* __restrict__ colidx,
 #pragma unroll
         for (int j = 0; j < KMAX; ++j) acc[j] = T(0);
         if (a.p < a.end) {
-          panel_add<T, KMAX, false>(work, a.c0, a.v0, k, a.c0 >= zlo && a.c0 < zhi, acc);
+          panel_add<T, KMAX>(work, a.c0, a.v0, k, a.c0 >= zlo && a.c0 < zhi, acc);
           if (a.p + G < a.end) {
-            panel_add<T, KMAX, false>(work, a.c1, a.v1, k, a.c1 >= zlo && a.c1 < zhi, acc);
+            panel_add<T, KMAX>(work, a.c1, a.v1, k, a.c1 >= zlo && a.c1 < zhi, acc);
             for (int p = a.p + 2 * G; p < a.end; p += G) {
               const int c = __ldg(colidx + p);
-              panel_add<T, KMAX, false>(work, c, __ldg(vals + p), k, c >= zlo && c < zhi, acc);
+              panel_add<T, KMAX>(work, c, __ldg(vals + p), k, c >= zlo && c < zhi, acc);
             }
           }
         }

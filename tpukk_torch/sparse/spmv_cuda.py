@@ -15,7 +15,9 @@ is K6 (``gs_cuda.py``):
   behind ``onehot_spmv`` and the double-single ``_gi4_ds_call_batched``.
 * ``csr_spmm`` (K7, ``csrc/csr.cu``): unstructured CSR SpMM for row-major X
   of shape (ncols, k), 1 ≤ k ≤ 16, one pass over A for all k columns, f32 and
-  f64 — replaces the five multi-RHS layouts behind ``onehot_spmm``
+  f64: a group of lanes a row, column lanes reading X's rows with vector
+  loads and entry slots sharing the row's entries (``spmm_geometry``) —
+  replaces the five multi-RHS layouts behind ``onehot_spmm``
   (``_dl_mm_call``, ``_dl_mm_call_batched``, ``_onehot_spmm_call``,
   ``_gt_mm_call_batched``, ``_pk_mm_call_batched``).
 
@@ -49,6 +51,8 @@ __all__ = [
     "dia_plain",
     "csr_plain",
     "csr_spmm_plain",
+    "SpmmGeometry",
+    "spmm_geometry",
     "SPMM_MAX_K",
     "KERNELS",
     "launch_counts",
@@ -123,7 +127,8 @@ def dia_spmm(plan: DiaPlan, X: torch.Tensor) -> torch.Tensor:
 class CsrPlan:
     """The CSR arrays in the compute dtype, the lanes per row, and K3's tiles.
 
-    ``group`` is the vector length of the row panel that K6 and K7 run.
+    ``group`` is the vector length of the row panel that K6 runs (K7 takes its
+    lanes from ``spmm_geometry``).
     ``tiles`` is K3's table, (ntiles, 4) int32 records (first row, rows, first
     entry, entries) of runs of whole rows, built once by ``build_csr_plan`` on
     the plan's device (``build_csr_tiles``).  A plan made elsewhere, such as
@@ -266,7 +271,56 @@ def csr_spmv(plan: CsrPlan, x: torch.Tensor, reduce: str = "sum") -> torch.Tenso
 # K7: CSR SpMM
 # ----------------------------------------------------------------------
 
-SPMM_MAX_K = 16  # columns of K7's register panel
+SPMM_MAX_K = 16  # columns K7 takes
+# Threads the H100 holds resident (132 SMs × 2,048): K7 adds entry slots to a
+# matrix with too few rows to fill them, while each slot still gets an entry.
+SPMM_FILL_THREADS = 132 * 2048
+
+
+@dataclasses.dataclass(frozen=True)
+class SpmmGeometry:
+    """How K7 lays a row over a warp's lanes: ``cols`` column lanes each read
+    ``vec`` consecutive values of X's row with one load, ``slots`` entry slots
+    of ``cols`` lanes take different entries of the row, so a row has
+    slots·cols lanes and a warp 32 // (slots·cols) rows."""
+
+    vec: int
+    cols: int
+    slots: int
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(n - 1, 0).bit_length()
+
+
+def spmm_geometry(mean_entries: float, nrows: int, k: int, itemsize: int,
+                  x_offset: int = 0) -> SpmmGeometry:
+    """K7's geometry for a matrix of ``nrows`` rows of ``mean_entries``
+    entries on average, X with k columns of ``itemsize`` bytes starting
+    ``x_offset`` bytes past a 16-byte boundary.
+
+    vec: the widest of 16 bytes, 8, or one value that divides k and X's
+    offset (a row of X must start on a vector boundary).  cols: the power of
+    two of column lanes that covers k.  slots: a slot takes max(4, cols)
+    entries a step (U·C in csr.cu's kernel); the slots double while each
+    still fills half a step, then while the rows do not fill
+    ``SPMM_FILL_THREADS`` and each slot still gets an entry, up to 32 lanes
+    a row (scripts/k7_sweep_torch.py --geometries on the H100, PERF.md: the
+    best or within 1 % of it on the paths' three shapes)."""
+    check(1 <= k <= SPMM_MAX_K and itemsize in (4, 8),
+          f"spmm geometry: k {k} not in 1..{SPMM_MAX_K} or itemsize {itemsize} not 4/8")
+    vec = 16 // itemsize
+    while vec > 1 and (k % vec or x_offset % (vec * itemsize)):
+        vec //= 2
+    cols = _pow2_at_least(-(-k // vec))
+    per_slot = max(4, cols)
+    slots = 1
+    while cols * slots < 32 and slots * per_slot <= mean_entries:
+        slots *= 2
+    while (cols * slots < 32 and nrows * cols * slots < SPMM_FILL_THREADS
+           and 2 * slots <= mean_entries):
+        slots *= 2
+    return SpmmGeometry(vec, cols, slots)
 
 
 def csr_spmm_plain(plan: CsrPlan, X: torch.Tensor) -> torch.Tensor:
@@ -276,12 +330,15 @@ def csr_spmm_plain(plan: CsrPlan, X: torch.Tensor) -> torch.Tensor:
     return Y.index_add_(0, plan.rows(), prod)
 
 
-def csr_spmm(plan: CsrPlan, X: torch.Tensor) -> torch.Tensor:
-    """K7: Y = A·X for row-major X of shape (ncols, k), 1 ≤ k ≤ 16."""
+def csr_spmm(plan: CsrPlan, X: torch.Tensor, geometry: SpmmGeometry | None = None
+             ) -> torch.Tensor:
+    """K7: Y = A·X for row-major X of shape (ncols, k), 1 ≤ k ≤ 16.
+    ``geometry`` pins the kernel's lanes (the card tests and
+    scripts/k7_sweep_torch.py); by default ``spmm_geometry`` picks them."""
     check(X.ndim == 2, f"csr_spmm: X must be rank-2, got rank {X.ndim}")
     check(X.shape[0] == plan.ncols, f"csr_spmm: X has {X.shape[0]} rows, plan {plan.ncols} cols")
-    check(1 <= X.shape[1] <= SPMM_MAX_K,
-          f"csr_spmm: X must have 1 to {SPMM_MAX_K} columns, got {X.shape[1]}")
+    k = X.shape[1]
+    check(1 <= k <= SPMM_MAX_K, f"csr_spmm: X must have 1 to {SPMM_MAX_K} columns, got {k}")
     _check_operand(X, "csr_spmm", plan.values.dtype, plan.values.device)
     check(plan.row_map.device == X.device and plan.entries.device == X.device,
           "csr_spmm: plan arrays must be on X's device")
@@ -290,12 +347,18 @@ def csr_spmm(plan: CsrPlan, X: torch.Tensor) -> torch.Tensor:
     check(plan.row_map.dtype == torch.int32 and plan.entries.dtype == torch.int32
           and plan.row_map.is_contiguous() and plan.entries.is_contiguous(),
           "csr_spmm: row_map/entries must be contiguous int32")
-    Y = torch.empty((plan.nrows, X.shape[1]), dtype=X.dtype, device=X.device)
+    Y = torch.empty((plan.nrows, k), dtype=X.dtype, device=X.device)
     if plan.nrows == 0:
         return Y
+    size = X.element_size()
+    g = geometry or spmm_geometry(plan.entries.shape[0] / plan.nrows, plan.nrows, k, size,
+                                  X.data_ptr() % 16)
+    check(k % g.vec == 0 and X.data_ptr() % (g.vec * size) == 0,
+          f"csr_spmm: {g} does not fit X (k {k}, {X.data_ptr() % 16} bytes past 16)")
     err = _kernels.library("csr").tpukk_csr_spmm(
-        _DTYPE_CODE[X.dtype], plan.group, plan.row_map.data_ptr(), plan.entries.data_ptr(),
-        plan.values.data_ptr(), X.data_ptr(), Y.data_ptr(), plan.nrows, X.shape[1], _stream(X))
+        _DTYPE_CODE[X.dtype], g.vec, g.cols, g.slots.bit_length() - 1,
+        plan.row_map.data_ptr(), plan.entries.data_ptr(), plan.values.data_ptr(), X.data_ptr(),
+        Y.data_ptr(), plan.nrows, k, _stream(X))
     _check_launch(err, "csr_spmm")
     csr_spmm.launches += 1
     return Y

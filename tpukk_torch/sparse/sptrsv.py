@@ -17,16 +17,18 @@ partition.
 """
 from __future__ import annotations
 
+import dataclasses
 import enum
 
 import numpy as np
 import torch
 
 from ..common import check
+from ..common.permute import permute_gather
 from ..common.tracing import annotate
 from ..containers import CsrMatrix
 from .sptrsv_cuda import LevelPlan, build_level_plan, sptrsv_levels
-from .sptrsv_supernodal import build_supernodal_plan, supernodal_solve
+from .sptrsv_supernodal import FusedSupernodalPlan, build_supernodal_plan, supernodal_solve
 
 __all__ = ["SptrsvHandle", "SptrsvAlgorithm", "sptrsv_symbolic", "sptrsv_solve"]
 
@@ -138,10 +140,60 @@ def sptrsv_solve(handle: SptrsvHandle, A: CsrMatrix, b: torch.Tensor) -> torch.T
           "sptrsv_solve: b must be a rank-1 torch tensor")
     if handle.algorithm is SptrsvAlgorithm.SUPERNODAL:
         return supernodal_solve(handle.sn_plan, b)
+    return _level_solve(handle, b, handle.plan.order, handle.plan.order)
+
+
+def _level_solve(handle: SptrsvHandle, b: torch.Tensor, src, dst) -> torch.Tensor:
+    """A SEQLVLSCHD solve's one K4 launch, b read through src and x written
+    through dst."""
+    check(isinstance(b, torch.Tensor) and b.ndim == 1,
+          "sptrsv_solve: b must be a rank-1 torch tensor")
     check(b.shape[0] == handle.plan.n, f"sptrsv_solve: b has {b.shape[0]} rows, "
           f"the matrix {handle.plan.n}")
     check(b.device == handle.plan.vals.device,
           f"sptrsv_solve: b on {b.device}, plan on {handle.plan.vals.device}")
     dt = torch.promote_types(torch.promote_types(handle.plan.dtype, b.dtype), torch.float32)
     plan = handle.plan_for(dt)
-    return sptrsv_levels(plan, b.to(dt).contiguous(), src=plan.order, dst=plan.order).to(b.dtype)
+    return sptrsv_levels(plan, b.to(dt).contiguous(), src=src, dst=dst).to(b.dtype)
+
+
+def _compose(idx: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
+    """perm[idx] where idx >= 0, and idx where it is -1 (the DAG's rows that
+    read or write nothing), as int32."""
+    i = idx.long()
+    return torch.where(i >= 0, perm.long()[i.clamp_min(0)], i).to(torch.int32).contiguous()
+
+
+def _permuted_solve(handle: SptrsvHandle, before=None, after=None):
+    """The solve b -> y[after] with y = tri(A)⁻¹·b[before] (``before`` and
+    ``after`` (n,) int32 gather indices on the plan's device, None for the
+    identity), for the imported factors' outer permutations.
+
+    K4 reads b through ``src`` and writes x through ``dst``, so the
+    permutations are composed into the solve's own indices once, here: a
+    solve stays one K4 launch, with no K5, and gives the bits of gather,
+    solve, gather (the gathers move values; K4's sums do not depend on the
+    indices).  The batched supernodal plan (``fused=False``), which K4 does
+    not run, keeps its gathers."""
+    check(handle.is_symbolic_called, "sptrsv: symbolic first")
+    sp = handle.sn_plan
+    if handle.algorithm is SptrsvAlgorithm.SUPERNODAL and not isinstance(sp, FusedSupernodalPlan):
+        def gathered(b):
+            check(isinstance(b, torch.Tensor) and b.ndim == 1 and b.shape[0] == sp.n,
+                  f"supernodal_solve: b must be a rank-1 tensor of {sp.n} rows")
+            bb = b if before is None else permute_gather(before, b.contiguous())
+            y = supernodal_solve(sp, bb)
+            return y if after is None else permute_gather(after, y)
+        return gathered
+    fused = handle.algorithm is SptrsvAlgorithm.SUPERNODAL
+    src, dst = (sp.src, sp.dst) if fused else (handle.plan.order, handle.plan.order)
+    if before is not None:
+        src = _compose(src, before)
+    if after is not None:
+        inv = torch.empty_like(after)
+        inv[after.long()] = torch.arange(after.shape[0], dtype=after.dtype, device=after.device)
+        dst = _compose(dst, inv)
+    if fused:
+        folded = dataclasses.replace(sp, src=src, dst=dst)
+        return lambda b: supernodal_solve(folded, b)
+    return lambda b: _level_solve(handle, b, src, dst)

@@ -11,7 +11,8 @@ diagonal of the diagonal block ignored), or any object with ``L()`` and
 ``P()`` methods, as scikit-sparse's ``cholmod.Factor`` has.  The raw form's
 supernode partition goes to the SUPERNODAL solve of L, and its mirror to the
 solve of Lᵀ, so the imported partition, not a detected one, shapes the
-blocks.  Both permutations are K5 gathers.
+blocks.  P is composed into the L solve's ``src`` and Pᵀ into the Lᵀ
+solve's ``dst`` when the solver is built, so an apply is two K4 launches.
 """
 from __future__ import annotations
 
@@ -19,10 +20,9 @@ import numpy as np
 import scipy.sparse as sps
 import torch
 
-from ..common.permute import permute_gather
 from ..common.tracing import annotate
 from ..containers import CsrMatrix
-from .sptrsv import SptrsvAlgorithm, SptrsvHandle, sptrsv_solve, sptrsv_symbolic
+from .sptrsv import SptrsvAlgorithm, SptrsvHandle, _permuted_solve, sptrsv_symbolic
 
 __all__ = ["CholmodSolve", "cholmod_import", "cholmod_raw_to_csr"]
 
@@ -76,10 +76,11 @@ class CholmodSolve:
         # CHOLMOD's Perm: (P·b)[i] = b[perm[i]]; x = Pᵀ·w  ⇔  x[perm[i]] = w[i]
         self.perm = torch.from_numpy(np.asarray(perm, np.int32)).to(L.device)
         self.inv_perm = torch.from_numpy(np.argsort(perm).astype(np.int32)).to(L.device)
+        self._solve_l = _permuted_solve(Lh, before=self.perm)
+        self._solve_lt = _permuted_solve(Lth, after=self.inv_perm)
 
     def __call__(self, b: torch.Tensor) -> torch.Tensor:
-        y = sptrsv_solve(self.Lh, self.L, permute_gather(self.perm, b.contiguous()))
-        return permute_gather(self.inv_perm, sptrsv_solve(self.Lth, self.Lt, y))
+        return self._solve_lt(self._solve_l(b))
 
     def apply(self, r: torch.Tensor) -> torch.Tensor:
         return self(r)

@@ -5,17 +5,17 @@ object (``scipy.sparse.linalg.splu``) owns the numeric factorization, this
 package owns the solve.  ``superlu_import`` turns its L and U into
 ``SptrsvHandle``s (level-set or supernodal, the supernodes detected on the
 imported pattern), and ``SuperLUSolve`` applies
-x = Pc·(U⁻¹·(L⁻¹·(Pr·b))) with both permutations as K5 gathers.
+x = Pc·(U⁻¹·(L⁻¹·(Pr·b))) as two K4 launches: Pr is composed into the L
+solve's ``src`` and Pc into the U solve's ``dst`` when the solver is built.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..common.permute import permute_gather
 from ..common.tracing import annotate
 from ..containers import CsrMatrix
-from .sptrsv import SptrsvAlgorithm, SptrsvHandle, sptrsv_solve, sptrsv_symbolic
+from .sptrsv import SptrsvAlgorithm, SptrsvHandle, _permuted_solve, sptrsv_symbolic
 
 __all__ = ["SuperLUSolve", "superlu_import"]
 
@@ -31,10 +31,11 @@ class SuperLUSolve:
         # scipy's convention: Pr·A·Pc = L·U with (Pr·b)[perm_r[i]] = b[i] and Pc·z = z[perm_c]
         self.inv_perm_r = torch.from_numpy(np.argsort(perm_r).astype(np.int32)).to(L.device)
         self.perm_c = torch.from_numpy(np.asarray(perm_c, np.int32)).to(L.device)
+        self._solve_l = _permuted_solve(Lh, before=self.inv_perm_r)
+        self._solve_u = _permuted_solve(Uh, after=self.perm_c)
 
     def __call__(self, b: torch.Tensor) -> torch.Tensor:
-        y = sptrsv_solve(self.Lh, self.L, permute_gather(self.inv_perm_r, b.contiguous()))
-        return permute_gather(self.perm_c, sptrsv_solve(self.Uh, self.U, y))
+        return self._solve_u(self._solve_l(b))
 
     def apply(self, r: torch.Tensor) -> torch.Tensor:
         return self(r)

@@ -231,10 +231,12 @@ def main() -> int:
         x = vec(lap.ncols, dt)
         hold("dia_spmv", "lap1000", kc.dia_spmv(plan, x), kc.dia_plain(plan, x),
              kc.dia_plain(aplan, x.abs()), dt)
-        if dt == torch.float32:
-            X = vec(lap.ncols, dt, 8)
-            hold("dia_spmm", "lap1000 k=8", kc.dia_spmm(plan, X), kc.dia_plain(plan, X),
-                 kc.dia_plain(aplan, X.abs()), dt)
+        # f64's X from a generator of its own, so that the later phases draw
+        # the inputs they drew before
+        X = vec(lap.ncols, dt, 8) if dt == torch.float32 else torch.from_numpy(
+            np.random.default_rng(13).standard_normal((lap.ncols, 8))).to(dev)
+        hold("dia_spmm", f"lap1000 k=8 vec={kc.vector_width(8, X.element_size())}",
+             kc.dia_spmm(plan, X), kc.dia_plain(plan, X), kc.dia_plain(aplan, X.abs()), dt)
         for label, A in (("lap1000 (pinned ONEHOT)", lap), ("fem2d_30k", fem),
                          ("rand100k_deg16", rnd)):
             cp = kc.build_csr_plan(A, dt)
@@ -1218,10 +1220,11 @@ def main() -> int:
             torch.cuda.synchronize()
             err = float((got - plain).abs().max())
             errs["probe_gather_acc"] = max(errs["probe_gather_acc"], err)
+            ok = torch.equal(got, plain)
             emit("check", kernel="probe_gather_acc", case=f"{variant} B={B} n_ss={probe_drv.N_SS}",
                  dtype="torch.float32", max_abs_err=err, max_abs_y=float(plain.abs().max()),
-                 tol="1e-5 absolute", ok=err <= 1e-5)
-            require(err <= 1e-5, f"probe_gather_acc {variant} B={B} disagrees with its plain version")
+                 tol="exact (the plain version's products and sums, in its order)", ok=ok)
+            require(ok, f"probe_gather_acc {variant} B={B} disagrees with its plain version")
             probe_plans[(variant, B)] = (plan, x0)
 
     # K6's two entries are one kernel: the path runs the fused sweep, the
@@ -1311,7 +1314,10 @@ def main() -> int:
 
     t_k2 = timed("K2 dia_spmm lap1000 f32 k=8", lap, dia_make(lap, plan, X, kc.dia_spmm),
                  ndg * lap.nrows * isz + 2 * 8 * lap.nrows * isz, 2 * 8 * lap.nnz,
-                 torch.float32, spmv=False)
+                 torch.float32, spmv=False, vec=kc.vector_width(8, isz))
+    timed("K2 dia_spmm lap1000 f64 k=8", lap, dia_make(lap, plan64, X.double(), kc.dia_spmm),
+          ndg * lap.nrows * 8 + 2 * 8 * lap.nrows * 8, 2 * 8 * lap.nnz, torch.float64,
+          spmv=False, vec=kc.vector_width(8, 8))
 
     def k3_row(label, A, dt):
         cp = kc.build_csr_plan(A, dt)

@@ -85,6 +85,26 @@ def test_csr_api_round_trips(rng):
         tkc.CsrMatrix.from_arrays([0, 1], [0], [1.0, 2.0], ncols=2, device=CPU)
 
 
+@pytest.mark.parametrize("spelling", [torch.int32, np.int32, "int32", np.dtype("int32")],
+                         ids=["torch", "numpy", "str", "np.dtype"])
+@pytest.mark.parametrize("keyword", ["ordinal_dtype", "offset_dtype"])
+def test_index_dtype_keywords_take_int32(keyword, spelling):
+    """``tpukk``'s ``ordinal_dtype``/``offset_dtype`` keywords: int32 in any
+    spelling gives the same matrix as tpukk's; int64 raises TpuKKError."""
+    sp = sps.random(30, 20, density=0.2, random_state=7, format="csr")
+    dense = sp.toarray()
+    for At, Aj in ((tkc.CsrMatrix.from_scipy(sp, **{keyword: spelling}, device=CPU),
+                    jkc.CsrMatrix.from_scipy(sp, **{keyword: np.int32})),
+                   (tkc.CsrMatrix.from_dense(dense, **{keyword: spelling}, device=CPU),
+                    jkc.CsrMatrix.from_dense(dense, **{keyword: np.int32}))):
+        _same_arrays(Aj, At)
+    for bad in (torch.int64, np.int64, "int64", "not a dtype"):
+        with pytest.raises(TpuKKError, match="int32 indices"):
+            tkc.CsrMatrix.from_scipy(sp, **{keyword: bad}, device=CPU)
+        with pytest.raises(TpuKKError, match="int32 indices"):
+            tkc.CsrMatrix.from_dense(dense, **{keyword: bad}, device=CPU)
+
+
 def test_transpose_and_is_sorted_match_tpukk():
     from tpukk.containers import is_sorted as j_is_sorted
     from tpukk.containers import transpose as j_transpose

@@ -27,8 +27,8 @@ absolute terms) on the block's rows and must leave the other rows exactly as
 they were; whole sweeps (a few color steps in a row) to 1e-12 relative in f64;
 K8 bit for bit to its plain version (both sum in the pair order); a SpGEMM
 entry c to scipy's within (n_c + 1)·eps·Σ_p|a_p·b_p| (n_c its products); K9
-to 1e-6 absolute (its products and sums are the plain version's, in the same
-order, on values below 0.05); a supernodal solve to scipy's within 1e-5 of
+bit for bit (its products and sums are the plain version's, rounded one by
+one in the same order); a supernodal solve to scipy's within 1e-5 of
 max|x| in f32 and 1e-12 in f64; the ILU(k) refresh to 1e-12 of spiluk_numeric;
 PAR_ILUT's factors to the CPU's with equal patterns and values within 1e-8 of
 max|·| (its device segment sums add their terms in another order).
@@ -190,18 +190,30 @@ def test_csr_plan_on_the_cpu_refuses_a_cuda_x(dev):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 def test_dia_kernels_match_plain(dev, dtype):
+    """K1, and K2 at k its vector widths do and do not divide (each of its
+    instances), on a square and a rectangular band; K2 also on X viewed from
+    a flat buffer one value in (off every 16-byte boundary: a narrower
+    width)."""
     sq = tkc.generate_structured_laplacian(64, 64, device=dev)
     rect = tkc.CsrMatrix.from_scipy(sps.diags([1.0, 2.0, 3.0], [-3, 0, 40], shape=(300, 500)),
                                     device=dev)
+    size = torch.finfo(dtype).bits // 8
     for A in (sq, rect):
         p = spmv_impl.build_dia_plan(A, dtype=dtype)
         ap = dataclasses.replace(p, diags=p.diags.abs())
-        for k in (None, 1, 8, 11):
+        for k in (None, 1, 2, 3, 4, 8, 11, 16, 33):
             X = _x(A.ncols, dtype, dev, k)
             fn = kc.dia_spmv if k is None else kc.dia_spmm
             n0 = fn.launches
-            assert _held(fn(p, X), kc.dia_plain(p, X), kc.dia_plain(ap, X.abs()), dtype)
+            plain, bound = kc.dia_plain(p, X), kc.dia_plain(ap, X.abs())
+            assert _held(fn(p, X), plain, bound, dtype)
             assert fn.launches == n0 + 1
+            if k is None:
+                continue
+            flat = _x(A.ncols * k + 1, dtype, dev, seed=k)[1:].view(A.ncols, k)
+            assert kc.vector_width(k, size, flat.data_ptr() % 16) == 1
+            assert _held(kc.dia_spmm(p, flat), kc.dia_plain(p, flat),
+                         kc.dia_plain(ap, flat.abs()), dtype), k
 
 
 def test_cuda_tensor_never_falls_back(dev):
@@ -889,29 +901,69 @@ def test_spgemm_routes_on_cuda(dev):
         ksg.spgemm_rows(plan_cpu, torch.ones(1, device=dev), torch.ones(1, device=dev))
 
 
-def test_probe_kernel_matches_plain(dev):
-    """K9 against its plain version for the three variants, with more steps
-    than output blocks (accumulation after a first step) and at B = 1, 3."""
+def _probe_script():
     import importlib.util
     from pathlib import Path
-
-    from tpukk_torch.common import probe_cuda as kp
 
     path = Path(__file__).resolve().parent.parent / "scripts" / "probe_ss_cost_torch.py"
     spec = importlib.util.spec_from_file_location("probe_ss_cost_torch", path)
     drv = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(drv)
+    return drv
+
+
+def test_probe_kernel_matches_plain(dev):
+    """K9 equals its plain version bit for bit for the three variants: on the
+    probe's own plans (n_ss 1,024, B = 4 and 16: the rows of all but packed
+    and mt4 at B = 4 read past L1), and with more steps than output blocks
+    (accumulation after a first step) at B = 1, 3."""
+    from tpukk_torch.common import probe_cuda as kp
+
+    drv = _probe_script()
     for variant in drv.VARIANTS:
-        for n_ss, B in ((80, 3), (200, 1)):
+        for n_ss, B in ((80, 3), (200, 1), *((drv.N_SS, b) for b in drv.BS)):
             plan, x = drv.make_plan(variant, n_ss, B, dev)
             n0 = kp.probe_gather_acc.launches
             y = kp.probe_gather_acc(plan, x)
             assert kp.probe_gather_acc.launches == n0 + 1
             plain = kp.probe_plain(plan, x)
             torch.cuda.synchronize()
-            assert float((y - plain).abs().max()) <= 1e-6, (variant, n_ss, B)
+            assert torch.equal(y, plain), (variant, n_ss, B, float((y - plain).abs().max()))
     with pytest.raises(Exception):
         kp.probe_gather_acc(plan, x.double())
+
+
+@pytest.mark.parametrize("variant", ["base", "packed_opt", "mt4"])
+def test_probe_kernel_on_uneven_plans(dev, variant):
+    """Blocks with no step, an mt4 sub-tile that no chunk hits, blocks with
+    several first steps, long lanes, and B = 1: K9 equals its plain version
+    bit for bit."""
+    from tpukk_torch.common import probe_cuda as kp
+
+    rng = np.random.default_rng(6)
+    for n_ss, B, n_blocks in ((300, 3, 7), (90, 1, 12)):
+        dst = rng.integers(0, n_blocks - 2, n_ss)      # the last two blocks get no step
+        first = (rng.random(n_ss) < 0.05).astype(np.int32)
+        S = n_ss * B
+        gt = rng.integers(0, 32, (S * 8, 128), dtype=np.int32)
+        lo = rng.integers(0, 128, (S * 8, 128), dtype=np.int32)
+        v = rng.standard_normal((S * 8, 128)).astype(np.float32)
+        src = rng.integers(0, 5, S)
+        kw = dict(n_blocks=n_blocks, n_src=5, device=dev)
+        if variant == "mt4":
+            plan = kp.build_probe_plan("mt4", dst, (src << 2) | rng.choice([0, 1, 3], S), first,
+                                       v, pk=(gt << 13) | lo, **kw)
+        elif variant == "base":
+            plan = kp.build_probe_plan("base", dst, src, first, v, gt=gt, lo=lo, **kw)
+        else:
+            plan = kp.build_probe_plan("packed_opt", dst, src, first, v, pk=(gt << 13) | lo,
+                                       **kw)
+        x = torch.from_numpy(rng.standard_normal((5 * 32, 128)).astype(np.float32)).to(dev)
+        plain = kp.probe_plain(plan, x)
+        y = kp.probe_gather_acc(plan, x)
+        torch.cuda.synchronize()
+        assert torch.equal(y, plain), (variant, n_ss, B)
+        assert (y.view(n_blocks, -1)[-2:] == 0).all()
 
 
 def _splu_factors(n_side, dtype):

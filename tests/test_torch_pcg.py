@@ -110,3 +110,36 @@ def test_pcg_reports_non_convergence():
     b = torch.ones(At.nrows, dtype=torch.float64)
     _, st = pcg(At, b, tol=1e-14, max_iters=20)
     assert st.num_iters == 20 and not st.converged and st.end_rel_res > 1e-14
+
+
+@pytest.mark.parametrize("prec", ["identity", "jacobi"])
+def test_pcg_iteration_body_matches_tpukk(prec):
+    """``pcg_iteration_body`` in ``tpukk``'s scan-body convention: 3 iterations
+    from the same initial state on a small Laplacian in f64 agree within 1e-12
+    relative, and the caller's carry tensors are left as they were."""
+    from tpukk.sparse.pcg import pcg_iteration_body as j_body
+    from tpukk.sparse.pcg import pcg_initial_state as j_init
+    from tpukk_torch.sparse.pcg import pcg_initial_state, pcg_iteration_body
+
+    Aj = MATRICES["lap30"][0]()
+    At = _port(Aj)
+    b = np.random.default_rng(4).standard_normal(Aj.nrows)
+    pj = jsp.JacobiPrec(Aj) if prec == "jacobi" else jsp.IdentityPrec()
+    pt = JacobiPrec(At) if prec == "jacobi" else IdentityPrec()
+    Ahj, Aht = jsp.SpmvHandle(Aj), SpmvHandle(At)
+    cj = j_init(Ahj, pj, jnp.asarray(b), jnp.zeros(Aj.nrows))
+    ct = pcg_initial_state(Aht, pt, torch.from_numpy(b), torch.zeros(At.nrows, dtype=torch.float64))
+    bj, bt = j_body(Ahj, pj), pcg_iteration_body(Aht, pt)
+    for _ in range(3):
+        given = tuple(t.clone() for t in ct)
+        cj, none_j = bj(cj, None)
+        new, none_t = bt(ct, None)
+        assert none_j is None and none_t is None and len(new) == 4
+        for t, g in zip(ct, given):
+            assert torch.equal(t, g)      # the caller's carry is untouched
+        for t, n in zip(ct[:3], new[:3]):
+            assert n.data_ptr() != t.data_ptr()
+        ct = new
+        for t, j in zip(ct, cj):
+            j = np.asarray(j)
+            assert np.abs(t.numpy() - j).max() <= 1e-12 * max(np.abs(j).max(), 1e-300)

@@ -84,16 +84,38 @@ def test_dia_spmv_plain_matches_pallas_dia(case, rng):
     _close(y.numpy(), ref, Aj.to_scipy(), x, np.float32)
 
 
-@pytest.mark.parametrize("k", [3, 8])
-def test_dia_spmm_plain_matches_pallas_dia_mv(k, rng):
-    Aj = DIA_CASES["lap2d"](np.float32)
+@pytest.mark.parametrize("dtype", [np.float32, np.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("k", [1, 3, 8, 11, 16])
+def test_dia_spmm_plain_matches_pallas_dia_mv(k, dtype, rng):
+    """K2's plain version against ``_dia_mv_call`` (through ``dia_spmm``) in
+    interpret mode, at k that the kernel's vector widths do and do not
+    divide."""
+    Aj = DIA_CASES["lap2d"](dtype)
     pj = j_impl.build_dia_plan(Aj)
-    X = _vec(rng, Aj.ncols, np.float32, k)
+    X = _vec(rng, Aj.ncols, dtype, k)
     ref = np.asarray(jpl.dia_spmm(jpl.build_dia_pallas_plan(pj), jnp.asarray(X), interpret=True))
+    assert ref.dtype == dtype
     pt = dia_plan_from_numpy(pj.diags_host, pj.offsets, Aj.nrows, Aj.ncols, CPU)
+    n0 = kc.dia_spmm.launches
     Y = kc.dia_spmm(pt, torch.from_numpy(X))
+    assert Y.dtype == torch.from_numpy(X).dtype and kc.dia_spmm.launches == n0
     for j in range(k):
-        _close(Y[:, j].numpy(), ref[:, j], Aj.to_scipy(), X[:, j], np.float32)
+        _close(Y[:, j].numpy(), ref[:, j], Aj.to_scipy(), X[:, j], dtype)
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_vector_width_rule(itemsize):
+    """K2's and K7's vector width: 16 bytes where k and X's offset allow it,
+    else the widest narrower width that divides both."""
+    wide = 16 // itemsize
+    for k in (1, 2, 3, 4, 8, 11, 16, 33):
+        for offset in range(0, 16, itemsize):
+            vec = kc.vector_width(k, itemsize, offset)
+            assert vec in (1, 2, 4) and vec <= wide and k % vec == 0
+            assert offset % (vec * itemsize) == 0
+            assert vec * 2 > wide or k % (2 * vec) or offset % (2 * vec * itemsize)
+    assert kc.vector_width(8, itemsize) == wide
+    assert kc.vector_width(8, itemsize, itemsize) == 1
 
 
 @pytest.mark.parametrize("case", sorted(DIA_CASES))

@@ -48,7 +48,7 @@ _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 SOURCES = {
     "dia": {
         "tpukk_dia_spmv": [_I, _P, _P, _I, _P, _P, _I64, _I64, _P],
-        "tpukk_dia_spmm": [_I, _P, _P, _I, _P, _P, _I64, _I64, _I, _P],
+        "tpukk_dia_spmm": [_I, _I, _P, _P, _I, _P, _P, _I64, _I64, _I, _P],
     },
     "csr": {
         "tpukk_csr_spmv": [_I, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P],
@@ -70,7 +70,7 @@ SOURCES = {
         "tpukk_spgemm_rows": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     },
     "probe": {
-        "tpukk_probe_gather_acc": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+        "tpukk_probe_gather_acc": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _P],
     },
 }
 # C signatures and return types of the host planners (csrc/host.cpp)

@@ -8,9 +8,18 @@ chunks each; step g writes output block ``dst[g]`` (one (8, 128) tile, or
 four for "mt4"), overwriting it when ``first[g]`` and accumulating
 otherwise; chunk j of step g gathers from source block s (rows 32·s to
 32·s+31 of x) through an (8, 128) index row pair (gt, lo), or one packed
-stream pk = gt << 13 | lo, and multiplies by an (8, 128) value row.  The
-host sorts the steps by output block once, into a CSR (``step_ptr``,
-``step_ids``) that K9 walks.
+stream pk = gt << 13 | lo, and multiplies by an (8, 128) value row.
+
+K9 walks one chunk list a lane, a lane being an output tile (a block, or one
+of mt4's four sub-tiles of a block).  The host builds the lists once
+(``lane_ptr``, ``lane_rec``): the chunks of the lane's steps in (g, j)
+order, mt4's chunks under their own sub-tile only, each record holding the
+chunk, its source block and whether it ends its step.  Steps before a
+block's last first step are left out (that step overwrites what they
+wrote), and so are a lane's steps without a chunk after it (they add +0);
+the lane's y then starts at +0 and adds each step's sum.  That is the plain
+version's y bit for bit: a sum that starts at +0 is never -0, so +0 + acc
+is acc and y + 0 is y.
 
 ``probe_gather_acc`` is K9's wrapper (``csrc/probe.cu``): on a CPU tensor it
 runs the plain version ``probe_plain`` (the same arithmetic as a torch loop
@@ -27,8 +36,8 @@ import torch
 
 from .errors import check
 
-__all__ = ["ProbePlan", "build_probe_plan", "probe_gather_acc", "probe_plain", "VARIANTS",
-           "SRC_ROWS", "KERNELS", "launch_counts", "reset_launch_counts"]
+__all__ = ["ProbePlan", "build_probe_plan", "lane_lists", "probe_gather_acc", "probe_plain",
+           "VARIANTS", "SRC_ROWS", "KERNELS", "launch_counts", "reset_launch_counts"]
 
 SRC_ROWS = 32                                  # rows of one source block of x
 VARIANTS = {"base": 1, "packed_opt": 1, "mt4": 4}   # output tiles per block
@@ -49,8 +58,8 @@ class ProbePlan:
     gt: torch.Tensor         # (8·B·n_ss, 128) int32
     lo: torch.Tensor | None  # (8·B·n_ss, 128) int32
     v: torch.Tensor          # (8·B·n_ss, 128) f32
-    step_ptr: torch.Tensor   # (n_blocks+1,) int32
-    step_ids: torch.Tensor   # (n_ss,) int32, by block, g order within a block
+    lane_ptr: torch.Tensor   # (n_blocks·tiles + 1,) int32: lane L's records
+    lane_rec: torch.Tensor   # (records, 2) int32: chunk, s << 1 | ends its step
     dst: np.ndarray          # (n_ss,) host output block of every step
     first_host: np.ndarray   # (n_ss,) host copy of first, for the plain version
 
@@ -101,9 +110,8 @@ def build_probe_plan(variant: str, dst, src, first, v, gt=None, lo=None, pk=None
     check(bool(((gt_vals >= 0) & (gt_vals < SRC_ROWS)).all()
                and ((lo_vals >= 0) & (lo_vals < 128)).all()),
           "probe: gt must lie in [0, 32) and lo in [0, 128)")
-    order = np.argsort(dst, kind="stable")
-    step_ptr = np.zeros(n_blocks + 1, np.int64)
-    np.cumsum(np.bincount(dst, minlength=n_blocks), out=step_ptr[1:])
+    lane_ptr, lane_rec = lane_lists(dst, np.asarray(first, np.int64), src, B,
+                                    n_blocks, VARIANTS[variant])
 
     def dev(a, dt=np.int32):
         return torch.from_numpy(np.ascontiguousarray(np.asarray(a).astype(dt))).to(device)
@@ -111,8 +119,33 @@ def build_probe_plan(variant: str, dst, src, first, v, gt=None, lo=None, pk=None
     return ProbePlan(variant=variant, B=B, n_ss=n_ss, n_blocks=n_blocks, n_src=n_src,
                      src=dev(src), first=dev(first), gt=dev(idx),
                      lo=None if lo_ is None else dev(lo_), v=dev(v, np.float32),
-                     step_ptr=dev(step_ptr), step_ids=dev(order), dst=dst,
+                     lane_ptr=dev(lane_ptr), lane_rec=dev(lane_rec), dst=dst,
                      first_host=np.asarray(first, np.int64))
+
+
+def lane_lists(dst: np.ndarray, first: np.ndarray, src: np.ndarray, B: int, n_blocks: int,
+               tiles: int):
+    """K9's chunk list a lane (lane = block·tiles + sub-tile): ``lane_ptr``
+    (n_blocks·tiles + 1,) and ``lane_rec`` (records, 2), each record the
+    chunk g·B + j and s << 1 | (it is the lane's last chunk of step g), in
+    (g, j) order within a lane.  A block's steps before its last first step
+    are dropped, and so are steps that give a lane no chunk (module
+    docstring)."""
+    n_ss = dst.shape[0]
+    g = np.arange(n_ss)
+    cut = np.full(n_blocks, -1, np.int64)
+    np.maximum.at(cut, dst[first != 0], g[first != 0])
+    chunk = np.flatnonzero(np.repeat(g >= cut[dst], B))      # the kept steps' chunks
+    step = chunk // B
+    lane = dst[step] * tiles + (src[chunk] & 3 if tiles == 4 else 0)
+    order = np.argsort(lane, kind="stable")                    # chunk order within a lane
+    chunk, step, lane = chunk[order], step[order], lane[order]
+    ends = np.ones(chunk.shape[0], np.int64)
+    ends[:-1] = (lane[1:] != lane[:-1]) | (step[1:] != step[:-1])
+    s = src[chunk] >> 2 if tiles == 4 else src[chunk]
+    lane_ptr = np.zeros(n_blocks * tiles + 1, np.int64)
+    np.cumsum(np.bincount(lane, minlength=n_blocks * tiles), out=lane_ptr[1:])
+    return lane_ptr, np.stack([chunk, (s << 1) | ends], axis=1)
 
 
 def _gathered(plan: ProbePlan, x: torch.Tensor) -> torch.Tensor:
@@ -161,12 +194,14 @@ def probe_gather_acc(plan: ProbePlan, x: torch.Tensor) -> torch.Tensor:
     _kernels.check_operand(x, "probe_gather_acc", torch.float32, plan.v.device)
     if not _kernels.on_cuda(x, "probe_gather_acc"):
         return probe_plain(plan, x)
+    check(all(t.is_contiguous() for t in (plan.gt, plan.lo, plan.v, plan.lane_rec)
+              if t is not None), "probe_gather_acc: the plan's arrays must be contiguous")
     y = torch.empty(plan.out_rows, 128, dtype=torch.float32, device=x.device)
     err = _kernels.library("probe").tpukk_probe_gather_acc(
-        int(plan.packed), plan.tiles, x.data_ptr(), plan.src.data_ptr(), plan.first.data_ptr(),
-        plan.gt.data_ptr(), None if plan.lo is None else plan.lo.data_ptr(), plan.v.data_ptr(),
-        plan.step_ptr.data_ptr(), plan.step_ids.data_ptr(), y.data_ptr(), plan.n_blocks, plan.B,
-        _kernels.stream_of(x))
+        int(plan.packed), x.data_ptr(), plan.lane_ptr.data_ptr(),
+        plan.lane_rec.data_ptr(), plan.gt.data_ptr(),
+        None if plan.lo is None else plan.lo.data_ptr(), plan.v.data_ptr(), y.data_ptr(),
+        plan.n_blocks * plan.tiles, _kernels.stream_of(x))
     _kernels.check_launch(err, "probe_gather_acc")
     probe_gather_acc.launches += 1
     return y

@@ -15,7 +15,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..common import check, default_device
+from ..common import check, default_device, default_offset, default_ordinal
 
 __all__ = ["StaticCrsGraph", "CsrMatrix", "torch_dtype", "expand_row_ids"]
 
@@ -47,6 +47,21 @@ def _host_index(a, name: str) -> np.ndarray:
         check(int(a.max()) < 2**31 and int(a.min()) >= -2**31,
               f"CsrMatrix: {name} does not fit int32")
     return np.array(a, dtype=np.int32)  # a copy: never aliases the caller's array
+
+
+def _check_index_dtype(dt, name: str) -> None:
+    """``tpukk``'s ordinal/offset keyword: any spelling of int32 (torch,
+    numpy, a string) goes through; anything else raises, because the port's
+    kernels take int32 indices."""
+    if isinstance(dt, torch.dtype):
+        ok = dt == torch.int32
+    else:
+        try:
+            ok = np.dtype(dt) == np.int32
+        except TypeError:
+            ok = False
+    check(ok, f"CsrMatrix: {name} {dt!r} is not supported: the port's kernels take int32 "
+              f"indices")
 
 
 def _host_values(v: torch.Tensor) -> np.ndarray:
@@ -155,14 +170,20 @@ class CsrMatrix(_HostMirrors):
         return obj
 
     @classmethod
-    def from_scipy(cls, sp, value_dtype=None, device=None) -> "CsrMatrix":
+    def from_scipy(cls, sp, value_dtype=None, ordinal_dtype=default_ordinal,
+                   offset_dtype=default_offset, device=None) -> "CsrMatrix":
+        _check_index_dtype(ordinal_dtype, "ordinal_dtype")
+        _check_index_dtype(offset_dtype, "offset_dtype")
         csr = sp.tocsr()
         vals = csr.data if value_dtype is None else csr.data.astype(value_dtype)
         return cls.from_arrays(csr.indptr, csr.indices, vals,
                                nrows=csr.shape[0], ncols=csr.shape[1], device=device)
 
     @classmethod
-    def from_dense(cls, dense, device=None) -> "CsrMatrix":
+    def from_dense(cls, dense, ordinal_dtype=default_ordinal, offset_dtype=default_offset,
+                   device=None) -> "CsrMatrix":
+        _check_index_dtype(ordinal_dtype, "ordinal_dtype")
+        _check_index_dtype(offset_dtype, "offset_dtype")
         dense = dense.cpu().numpy() if isinstance(dense, torch.Tensor) else np.asarray(dense)
         nz = dense != 0
         row_map = np.zeros(dense.shape[0] + 1, dtype=np.int64)

@@ -96,6 +96,8 @@
 #include <atomic>
 #include <type_traits>
 
+#include "vec.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -317,38 +319,7 @@ int launch_spmv(int streamed, int long_rows, const int4* t, int ntiles, const in
 }
 
 // ---- K7 ----------------------------------------------------------------------
-
-// One vector load of V values of X's row through the read-only path, and one
-// vector store of Y's row.
-__device__ __forceinline__ void load_vec(const float* p, float (&v)[4]) {
-  const float4 q = __ldg(reinterpret_cast<const float4*>(p));
-  v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
-}
-__device__ __forceinline__ void load_vec(const float* p, float (&v)[2]) {
-  const float2 q = __ldg(reinterpret_cast<const float2*>(p));
-  v[0] = q.x, v[1] = q.y;
-}
-__device__ __forceinline__ void load_vec(const double* p, double (&v)[2]) {
-  const double2 q = __ldg(reinterpret_cast<const double2*>(p));
-  v[0] = q.x, v[1] = q.y;
-}
-template <typename T>
-__device__ __forceinline__ void load_vec(const T* p, T (&v)[1]) {
-  v[0] = __ldg(p);
-}
-__device__ __forceinline__ void store_vec(float* p, const float (&v)[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-__device__ __forceinline__ void store_vec(float* p, const float (&v)[2]) {
-  *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
-}
-__device__ __forceinline__ void store_vec(double* p, const double (&v)[2]) {
-  *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
-}
-template <typename T>
-__device__ __forceinline__ void store_vec(T* p, const T (&v)[1]) {
-  *p = v[0];
-}
+// (X's rows are read and Y's written by vec.cuh's load_vec and store_vec)
 
 __host__ __device__ constexpr int log2_of(int c) { return c <= 1 ? 0 : 1 + log2_of(c / 2); }
 

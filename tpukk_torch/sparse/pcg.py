@@ -19,7 +19,7 @@ from ..common.tracing import annotate
 from .preconditioner import IdentityPrec, Preconditioner
 from .spmv import SpmvHandle
 
-__all__ = ["PcgStats", "pcg", "pcg_initial_state", "pcg_iteration"]
+__all__ = ["PcgStats", "pcg", "pcg_initial_state", "pcg_iteration", "pcg_iteration_body"]
 
 
 @dataclasses.dataclass
@@ -35,6 +35,27 @@ def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def _nonzero(t: torch.Tensor) -> torch.Tensor:
     return torch.where(t == 0, torch.ones_like(t), t)
+
+
+def pcg_iteration_body(Ah: SpmvHandle, prec: Preconditioner):
+    """One PCG iteration in ``tpukk``'s scan-body convention:
+    ``body(carry, _) -> ((x, r, p, rz), None)``.  Unlike ``pcg_iteration``
+    it builds new x, r and p, so the returned carry never aliases the one it
+    was given (the solver rows of a benchmark replay one carry)."""
+
+    def body(carry, _):
+        x, r, p, rz = carry
+        Ap = Ah(p)
+        alpha = rz / _nonzero(_dot(p, Ap))
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = prec.apply(r)
+        rz_new = _dot(r, z)
+        beta = rz_new / _nonzero(rz)
+        p = z + beta * p
+        return (x, r, p, rz_new), None
+
+    return body
 
 
 @annotate("pcg_initial_state")

@@ -7,7 +7,8 @@ is K6 (``gs_cuda.py``):
 * ``dia_spmv`` (K1, ``csrc/dia.cu``): banded SpMV in f32 and f64 — replaces
   ``_dia_call`` and the double-single ``_dia_ds_call``.
 * ``dia_spmm`` (K2, ``csrc/dia.cu``): banded SpMM, one diagonal pass for all
-  k columns — replaces ``_dia_mv_call``.
+  k columns, column lanes reading X's rows and writing Y's with vector
+  accesses (``vector_width``) — replaces ``_dia_mv_call``.
 * ``csr_spmv`` (K3, ``csrc/csr.cu``): unstructured CSR SpMV, sum or max, f32
   and f64, a block a tile of the plan's entry-balanced tiles of whole rows
   (``build_csr_tiles``), read through L1 or, for a matrix that streams from
@@ -53,6 +54,7 @@ __all__ = [
     "csr_spmm_plain",
     "SpmmGeometry",
     "spmm_geometry",
+    "vector_width",
     "SPMM_MAX_K",
     "KERNELS",
     "launch_counts",
@@ -102,8 +104,20 @@ def dia_spmv(plan: DiaPlan, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def vector_width(k: int, itemsize: int, offset: int = 0) -> int:
+    """Values of a row-major multivector's row that one access moves (K2 and
+    K7): the widest of 16 bytes, 8, or one value that divides k and the
+    array's ``offset`` bytes past a 16-byte boundary (each row must start on
+    a vector boundary)."""
+    vec = 16 // itemsize
+    while vec > 1 and (k % vec or offset % (vec * itemsize)):
+        vec //= 2
+    return vec
+
+
 def dia_spmm(plan: DiaPlan, X: torch.Tensor) -> torch.Tensor:
-    """K2: Y = A·X for a DiaPlan and row-major X of shape (ncols, k), any k."""
+    """K2: Y = A·X for a DiaPlan and row-major X of shape (ncols, k), any k;
+    its column lanes move ``vector_width`` values of X's row at once."""
     _check_dia(plan, X, 2, "dia_spmm")
     if not _on_cuda(X, "dia_spmm"):
         return dia_plain(plan, X)
@@ -112,7 +126,8 @@ def dia_spmm(plan: DiaPlan, X: torch.Tensor) -> torch.Tensor:
     if Y.numel() == 0:
         return Y
     err = _kernels.library("dia").tpukk_dia_spmm(
-        _DTYPE_CODE[X.dtype], plan.diags.data_ptr(), plan.offsets_dev.data_ptr(),
+        _DTYPE_CODE[X.dtype], vector_width(k, X.element_size(), X.data_ptr() % 16),
+        plan.diags.data_ptr(), plan.offsets_dev.data_ptr(),
         len(plan.offsets), X.data_ptr(), Y.data_ptr(), plan.nrows, plan.ncols, k, _stream(X))
     _check_launch(err, "dia_spmm")
     dia_spmm.launches += 1
@@ -299,8 +314,7 @@ def spmm_geometry(mean_entries: float, nrows: int, k: int, itemsize: int,
     entries on average, X with k columns of ``itemsize`` bytes starting
     ``x_offset`` bytes past a 16-byte boundary.
 
-    vec: the widest of 16 bytes, 8, or one value that divides k and X's
-    offset (a row of X must start on a vector boundary).  cols: the power of
+    vec: ``vector_width`` of k and X's offset.  cols: the power of
     two of column lanes that covers k.  slots: a slot takes max(4, cols)
     entries a step (U·C in csr.cu's kernel); the slots double while each
     still fills half a step, then while the rows do not fill
@@ -309,9 +323,7 @@ def spmm_geometry(mean_entries: float, nrows: int, k: int, itemsize: int,
     best or within 1 % of it on the paths' three shapes)."""
     check(1 <= k <= SPMM_MAX_K and itemsize in (4, 8),
           f"spmm geometry: k {k} not in 1..{SPMM_MAX_K} or itemsize {itemsize} not 4/8")
-    vec = 16 // itemsize
-    while vec > 1 and (k % vec or x_offset % (vec * itemsize)):
-        vec //= 2
+    vec = vector_width(k, itemsize, x_offset)
     cols = _pow2_at_least(-(-k // vec))
     per_slot = max(4, cols)
     slots = 1

@@ -141,11 +141,15 @@ def main() -> int:
 
     from tpukk_torch import _kernels
     from tpukk_torch.common import chain_time_slope
+    from tpukk_torch.common import permute as kperm
     from tpukk_torch.common import probe_cuda as kp
-    from tpukk_torch.containers import (CsrMatrix, generate_banded_csr, generate_random_csr,
-                                        generate_structured_laplacian, read_mtx, transpose)
+    from tpukk_torch.containers import (CsrMatrix, bsr2crs, ccs2crs, coo2crs, crs2bsr, crs2ccs,
+                                        crs2coo, detect_block_size, generate_banded_csr,
+                                        generate_random_csr, generate_structured_laplacian,
+                                        read_mtx, sort_crs, transpose)
+    from tpukk_torch.handle import TpukkHandle
     from tpukk_torch.graph import (ColoringAlgorithm, build_triangle_plan, graph_color,
-                                   graph_mis2, graph_mis2_aggregate, triangle_count,
+                                   graph_mis2, graph_mis2_aggregate, rcm, triangle_count,
                                    triangle_count_device, verify_coloring)
     from tpukk_torch.sparse import (ClusteringAlgorithm, GmresHandle, GsAlgorithm, GsHandle,
                                     GsPrec, JacobiPrec, LUPrec, Ortho, SpilukHandle,
@@ -158,7 +162,8 @@ def main() -> int:
                                     spgemm_symbolic, SptrsvAlgorithm, build_iluk_refresh,
                                     cholmod_import, mdf_numeric, mdf_symbolic, MdfHandle,
                                     ParIlutHandle, par_ilut_numeric, par_ilut_symbolic,
-                                    refresh_to_csr, spiluk_refresh, superlu_import)
+                                    refresh_to_csr, spiluk_refresh, spmv_struct,
+                                    superlu_import)
     from tpukk_torch.sparse import gs_cuda as kg
     from tpukk_torch.sparse import spgemm_cuda as ksg
     from tpukk_torch.sparse import spmv_cuda as kc
@@ -436,6 +441,23 @@ def main() -> int:
     perm1m = torch.from_numpy(rng2.permutation(1_000_000).astype(np.int32)).to(dev)
     for dt in (torch.float32, torch.float64):
         hold_perm("random permutation of 1,000,000", perm1m, vec2(1_000_000, dt))
+    # K5's geometry at its edges: rows of k = 2, 3, 8 and 16 (each chunk width
+    # and lane count), n not a multiple of the vector width (the scalar tail),
+    # and src and x viewed one value past a 16-byte boundary (buf[1:]); its
+    # own generator, so that the later phases draw the inputs they drew before
+    pr = np.random.default_rng(14)
+    for n, k in ((1_000_003, 1), (30_001, 2), (30_001, 3), (1_000_000, 8), (30_001, 16)):
+        src = torch.from_numpy(pr.permutation(n).astype(np.int32)).to(dev)
+        src_off = torch.cat([src[:1], src])[1:]
+        for dt in (torch.float32, torch.float64):
+            xk = torch.from_numpy(pr.standard_normal(n * k)).to(dev, dt)
+            shape = (n,) if k == 1 else (n, k)
+            x_off = torch.cat([xk[:1], xk])[1:].view(shape)
+            for label, s_, x_ in (("", src, xk.view(shape)), (", src[1:]", src_off, xk.view(shape)),
+                                  (", x[1:]", src, x_off)):
+                width, lanes = kperm.permute_geometry(n, k, x_.element_size(),
+                                                      s_.data_ptr() % 16, x_.data_ptr() % 16, 0)
+                hold_perm(f"n={n} k={k}{label}, vec={width} lanes={lanes}", s_, x_)
     after = ks.launch_counts()
     require(all(after[k] > before[k] for k in after), f"a launch counter did not rise: {after}")
     emit("kernels_checked_trsv", launches=after)
@@ -471,6 +493,7 @@ def main() -> int:
     rel = host_rel(fem, xg, bg)
     require(stg.converged and rel <= 2e-8, f"gmres fem2d_30k: {stg}, host residual {rel}")
     require(counts["permute_gather"] == 0, f"gmres fem2d_30k: K5 launched {counts}")
+    gmres_fem_counts = counts  # the sixth slice's TpukkHandle run is held to these
     emit("main_gmres_ilu0_fem2d_30k", iters=stg.num_iters, tpukk_cpu_iters=3950,
          within_one_cycle_of_tpukk=abs(stg.num_iters - 3950) <= 50,
          rel_res_reported=stg.end_rel_res, rel_res_host=rel, seconds=wall,
@@ -1203,6 +1226,7 @@ def main() -> int:
          max_rel_err_vs_spiluk_numeric=rerr, tol="1e-12 relative (max norm)", launches=counts)
 
     # ---- 3h. the gather-table probe (K9) ----------------------------------------
+    import importlib
     import importlib.util
 
     spec = importlib.util.spec_from_file_location("probe_ss_cost_torch",
@@ -1226,6 +1250,65 @@ def main() -> int:
                  tol="exact (the plain version's products and sums, in its order)", ok=ok)
             require(ok, f"probe_gather_acc {variant} B={B} disagrees with its plain version")
             probe_plans[(variant, B)] = (plan, x0)
+
+    # ---- 3i. the sixth slice: spmv_struct, TpukkHandle, conversions, examples --
+    ys, counts, _ = counted("spmv_struct lap1000", lambda: spmv_struct(lap, (1000, 1000), x),
+                            ("dia_spmv",))
+    require(counts["dia_spmv"] == 1 and sum(counts.values()) == 1,
+            f"spmv_struct: {counts}, not one K1 launch")
+    hd = SpmvHandle(lap, SpmvAlgorithm.DIA)
+    require(torch.equal(ys, hd(x)), "spmv_struct differs from SpmvHandle(DIA)")
+    emit("main_spmv_struct", matrix="lap1000 f32, grid (1000, 1000), FD", launches=counts,
+         equal_to_spmv_handle_dia=True, max_abs_err_vs_scipy=host_check(lap, x, ys, "spmv_struct"))
+
+    kh = TpukkHandle()
+    spiluk_symbolic(kh.create_spiluk_handle(0), fem)
+    prec_h = LUPrec(*spiluk_numeric(kh.get_spiluk_handle(), fem))
+    hgh = kh.create_gmres_handle(m=50, tol=1e-8, max_restarts=150)
+    (xh, sth), counts, wall = counted("gmres through TpukkHandle",
+                                      lambda: gmres(hgh, fem, bg, prec=prec_h),
+                                      ("csr_spmv", *gmres_needs))
+    rel = host_rel(fem, xh, bg)
+    require(sth.converged and rel <= 2e-8, f"gmres through TpukkHandle: {sth}, host {rel}")
+    require(sth.num_iters == stg.num_iters and counts == gmres_fem_counts,
+            f"gmres through TpukkHandle: {sth.num_iters} iterations, {counts}; the direct "
+            f"handles: {stg.num_iters}, {gmres_fem_counts}")
+    emit("main_tpukk_handle", case="fem2d_30k f64 ILU(0) -> LUPrec -> GMRES(50)",
+         iters=sth.num_iters, direct_iters=stg.num_iters, launches=counts,
+         launches_equal_direct=True, max_abs_diff_vs_direct=float((xh - xg).abs().max()),
+         rel_res_host=rel, seconds=wall)
+
+    conv = {}
+    for label, A, b_ in (("fem2d_30k f64", fem, 2), ("lap1000 f32", lap, 4)):
+        sp_ = A.to_scipy()
+        coo = crs2coo(A)
+        ccs = crs2ccs(A)
+        bsr = crs2bsr(A, b_)
+        require(coo.device == ccs.device == bsr.device == dev, f"{label}: a conversion left "
+                f"the card")
+        # bsr2crs keeps the block order inside a row (as tpukk's): sort_crs after it
+        back = {"COO": coo2crs(coo), "CCS": ccs2crs(ccs),
+                f"BSR b={b_}": sort_crs(bsr2crs(bsr, True))}
+        for kind, B in back.items():
+            same = (B.device == dev and B.dtype == A.dtype
+                    and torch.equal(B.row_map, A.row_map) and torch.equal(B.entries, A.entries)
+                    and torch.equal(B.values, A.values))
+            require(same, f"{label}: the {kind} round trip is not exact")
+        ref_b = sp_.tobsr(blocksize=(b_, b_))
+        require(bool(np.array_equal(bsr.values.cpu().numpy(), ref_b.data)
+                     and np.array_equal(bsr.entries.cpu().numpy(), ref_b.indices)),
+                f"{label}: crs2bsr differs from scipy's blocks")
+        conv[label] = dict(nnz=A.nnz, bsr_block=b_, bsr_blocks=bsr.nnz_blocks,
+                           detect_block_size=detect_block_size(A),
+                           round_trips=list(back), exact=True)
+    emit("main_convert_round_trips", tol="exact", **conv)
+
+    for name in ("graph_wiki", "gmres_ex_real_A", "rcm_reorder_solve", "sptrsv_supernodal",
+                 "banded_spgemm"):
+        mod = importlib.import_module(f"tpukk_torch.examples.{name}")
+        _, counts, wall = counted(f"example {name}", lambda: mod.main(device=dev), ())
+        emit("main_example", example=name, clean_exit=True, seconds=wall,
+             launches={k: v for k, v in counts.items() if v})
 
     # K6's two entries are one kernel: the path runs the fused sweep, the
     # per-color step is its yardstick (and the distributed sweep's step)
@@ -1438,9 +1521,15 @@ def main() -> int:
                tri == "U", lambda: sptrsv_solve(hn, T, bn), dag_rows=fp.num_rows_dag,
                supernode_levels=fp.num_levels_sn)
 
-    def k5_row(label, src, dt):
+    k5_rng = np.random.default_rng(15)  # the new rows' inputs; rng2's draws stay as they were
+
+    def k5_row(label, src, dt, k=1, own_x=False):
+        """Bounds: bytes (src and x read once, out written once) and sectors
+        (src and out once, x's 32-byte sectors that the gathers of each 32
+        consecutive outputs touch, or that each row spans)."""
         n, sz = src.shape[0], torch.finfo(dt).bits // 8
-        xx = vec2(n, dt)
+        shape = (n,) if k == 1 else (n, k)
+        xx = torch.from_numpy(k5_rng.standard_normal(shape)).to(dev, dt) if own_x else vec2(n, dt)
 
         def make(i):
             si = src if i == 0 else src.clone()
@@ -1448,13 +1537,38 @@ def main() -> int:
             return (lambda: ks.permute_gather(si, xi)), (lambda: ks.permute_plain(si, xi))
 
         lib = lambda: torch.index_select(xx, 0, src)  # noqa: E731
-        return timed_kernel(f"K5 permute_gather {label}", make, n * (4 + 2 * sz), 0, dt,
+        sectors = k5_drv.x_sectors(src.cpu().numpy(), k, sz)
+        width, lanes = kperm.permute_geometry(n, k, sz, src.data_ptr() % 16, xx.data_ptr() % 16,
+                                              0)
+        return timed_kernel(f"K5 permute_gather {label}", make, n * (4 + 2 * k * sz), 0, dt,
                             (50, 250), (50, 250), chain_time_slope(lib) * 1e3,
-                            library="torch.index_select(x, 0, src)")
+                            library="torch.index_select(x, 0, src)", vec=width, lanes=lanes,
+                            sectors_bound_ms=(n * (4 + k * sz) + 32 * sectors) / bw * 1e3)
 
+    spec = importlib.util.spec_from_file_location("k5_sweep_torch",
+                                                  ROOT / "scripts" / "k5_sweep_torch.py")
+    k5_drv = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(k5_drv)
     t_k5 = k5_row("random permutation of 1,000,000, f64", perm1m, torch.float64)
     k5_row("random permutation of 1,000,000, f32", perm1m, torch.float32)
     k5_row("superlu row permutation of 30,000, f64", perm30k, torch.float64)
+    to_dev = lambda p: torch.from_numpy(np.asarray(p, np.int32)).to(dev)  # noqa: E731
+    rcm_fem, rcm_lap = to_dev(rcm(fem)), to_dev(rcm(lap))
+    for dt in (torch.float64, torch.float32):
+        k5_row(f"RCM of fem2d_30k (the RCM route's gather), {str(dt)[6:]}", rcm_fem, dt,
+               own_x=True)
+    k5_row("RCM of lap1000, float32", rcm_lap, torch.float32, own_x=True)
+    k5_row(f"ILU(1) refresh invL of fem2d_30k ({rplan.levels['invL'].shape[0]} values), float64",
+           rplan.levels["invL"], torch.float64, own_x=True)
+    k5_row("random permutation of 1,000,000 rows, k=8, float32 (the RCM spmm shape)", perm1m,
+           torch.float32, k=8, own_x=True)
+    # K5's launch floor: one value (warm only: a cold ring of it would be
+    # millions of copies)
+    src1, x1 = perm1m[:1] * 0, torch.ones(1, device=dev)
+    emit("timing_k5_floor", case="K5 permute_gather, launch floor: 1 value, float32",
+         ms=chain_time_slope(lambda: ks.permute_gather(src1, x1)) * 1e3,
+         library_ms=chain_time_slope(lambda: torch.index_select(x1, 0, src1)) * 1e3,
+         library="torch.index_select(x, 0, src)")
 
     def k6_row(label, blk, n):
         cp = blk.csr

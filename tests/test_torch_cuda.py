@@ -383,16 +383,36 @@ sys.exit(3)
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 def test_permute_kernel_matches_plain(dev, dtype):
+    """K5 exactly equal to index_select: vectors of one value a thread and, at
+    1M, of 16 bytes a thread whose length is not a multiple of the vector
+    width (the scalar tail), rows of k = 2, 3, 8 and 16
+    (every chunk width and lane count the geometry picks for them), views of
+    src and x off a 16-byte boundary (the narrower widths), and the empty
+    case."""
+    from tpukk_torch.common.permute import permute_geometry
+
     rng = np.random.default_rng(4)
-    for n, k in ((100_003, None), (5000, 3), (1, None)):
+    n0 = ks.permute_gather.launches
+    launches = 0
+    for n, k in ((1_000_003, None), (100_003, None), (1, None), (3, None), (5000, 2), (5000, 3),
+                 (20_001, 8), (5000, 16)):
         src = torch.from_numpy(rng.permutation(n).astype(np.int32)).to(dev)
         x = _x(n, dtype, dev, k)
-        n0 = ks.permute_gather.launches
-        y = ks.permute_gather(src, x)
-        assert ks.permute_gather.launches == n0 + 1
-        assert torch.equal(y, ks.permute_plain(src, x))
-    assert ks.permute_gather(src[:0], x).shape == (0,)
-    assert ks.permute_gather.launches == n0 + 1
+        for label, s_, x_ in (("aligned", src, x),
+                              ("src off 16 B", torch.cat([src[:1], src])[1:], x),
+                              ("x off 16 B", src,
+                               torch.cat([x.reshape(-1)[:1], x.reshape(-1)])[1:].view(x.shape))):
+            y = ks.permute_gather(s_, x_)
+            launches += 1
+            assert ks.permute_gather.launches == n0 + launches
+            assert torch.equal(y, ks.permute_plain(s_, x_)), (n, k, label)
+        if k is None:
+            assert permute_geometry(n, 1, x.element_size(), 4, 0, 0)[0] == 1
+        else:
+            vec, lanes = permute_geometry(n, k, x.element_size(), 0, x.element_size(), 0)
+            assert vec == 1 and lanes >= min(k, 32)
+    assert ks.permute_gather(src[:0], x).shape == (0, 16)
+    assert ks.permute_gather.launches == n0 + launches
 
 
 def test_ilu_gmres_runs_through_the_kernels(dev):
@@ -424,6 +444,28 @@ def test_rcm_route_runs_through_the_kernels(dev):
     ref = A.to_scipy().astype(np.float64) @ x.double().cpu().numpy()
     bound = abs(A.to_scipy().astype(np.float64)) @ np.abs(x.double().cpu().numpy())
     assert (np.abs(y.double().cpu().numpy() - ref) <= 20 * np.finfo(np.float32).eps * bound).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_spmv_struct_runs_on_k1(dev, dtype):
+    """spmv_struct on a 2-D Laplacian: one K1 launch (a vector) or one K2
+    launch (a multivector), equal to SpmvHandle(DIA) bit for bit."""
+    from tpukk_torch.sparse import spmv_struct
+
+    A = tkc.generate_structured_laplacian(300, 200, dtype=np.float64, device=dev)
+    x = _x(A.ncols, dtype, dev, seed=3)
+    h = SpmvHandle(A, SpmvAlgorithm.DIA)
+    kc.reset_launch_counts()
+    y = spmv_struct(A, (300, 200), x)
+    assert kc.launch_counts()["dia_spmv"] == 1 and sum(kc.launch_counts().values()) == 1
+    assert torch.equal(y, h(x))
+    X = _x(A.ncols, dtype, dev, k=4, seed=4)
+    kc.reset_launch_counts()
+    Y = spmv_struct(A, (300, 200), X)
+    assert kc.launch_counts()["dia_spmm"] == 1 and sum(kc.launch_counts().values()) == 1
+    assert torch.equal(Y, h(X))
+    with pytest.raises(TpuKKError):
+        spmv_struct(A, (200, 300), x)
 
 
 @pytest.mark.parametrize("ortho,sweeps", [("MGS", None), ("CGS2", 3)], ids=["mgs", "jacobi3"])

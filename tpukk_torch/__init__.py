@@ -6,9 +6,11 @@ on the CUDA device unless the caller passes ``device="cpu"``; on the CPU every
 hand-written kernel runs as its plain torch version.  Kernels are built with
 nvcc at first use on a CUDA device, never at import (``_kernels.py``).
 """
+__version__ = "0.1.0"
+
 from . import common, containers, graph, interop, sparse
-from .containers import CsrMatrix
+from .containers import BsrMatrix, CcsMatrix, CooMatrix, CsrMatrix
 from .sparse import SpmvAlgorithm, SpmvHandle, spmm, spmv
 
-__all__ = ["common", "containers", "graph", "interop", "sparse", "CsrMatrix", "SpmvAlgorithm",
-           "SpmvHandle", "spmm", "spmv"]
+__all__ = ["common", "containers", "graph", "interop", "sparse", "BsrMatrix", "CcsMatrix",
+           "CooMatrix", "CsrMatrix", "SpmvAlgorithm", "SpmvHandle", "spmm", "spmv"]

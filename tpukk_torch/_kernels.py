@@ -64,7 +64,7 @@ SOURCES = {
         "tpukk_sptrsv_levels": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     },
     "permute": {
-        "tpukk_permute_gather": [_I, _P, _P, _P, _I64, _I64, _P],
+        "tpukk_permute_gather": [_I, _I, _I, _P, _P, _P, _I64, _I64, _P],
     },
     "spgemm": {
         "tpukk_spgemm_rows": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],

@@ -1,3 +1,6 @@
+from .arith_traits import ArithTraits, arith_traits, is_complex, mag_dtype
+from .controls import Controls, eager_initialize, print_configuration
+from .perf_archive import MetricResult, PerfArchive
 from .errors import TpuKKError, check, check_rank, check_same_dtype
 from .timing import chain_time_slope, sync_fetch
 from .tracing import annotate, profile_region, region_name, trace

@@ -11,7 +11,8 @@ directly, so no routing tables are carried.
 anything else; on a CPU tensor it runs the plain version ``permute_plain``,
 on a CUDA tensor it launches the kernel on the current stream or raises.  It
 adds one to its ``launches`` count each time it launches the kernel, and
-nowhere else.
+nowhere else.  ``permute_geometry`` picks the kernel's vector width and
+lanes a row from n, k, the dtype and the operands' alignment.
 """
 from __future__ import annotations
 
@@ -23,7 +24,11 @@ import torch
 from .errors import check
 
 __all__ = ["PermutePlan", "build_permute_plan", "static_permute", "permute_gather",
-           "permute_plain"]
+           "permute_plain", "permute_geometry", "FILL_THREADS"]
+
+# Half the threads the H100 holds resident (132 SMs × 2,048): K5 gathers
+# several values a thread only where the threads still fill this many
+FILL_THREADS = 132 * 2048 // 2
 
 
 @dataclasses.dataclass
@@ -54,6 +59,38 @@ def permute_plain(src: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return x.index_select(0, src.long())
 
 
+def permute_geometry(n: int, k: int, itemsize: int, src_offset: int = 0, x_offset: int = 0,
+                     out_offset: int = 0) -> tuple[int, int]:
+    """K5's (vec, lanes) for n rows of k values of ``itemsize`` bytes, each
+    operand's address ``*_offset`` bytes past a 16-byte boundary.
+
+    k = 1: a thread gathers ``vec`` consecutive outputs, loading their src
+    entries with one access and storing them with one: the widest of 16
+    bytes of out (4 f32, 2 f64), then halves, whose src and out accesses lie
+    on their own size (a view off that boundary takes a narrower width, down
+    to one value), halved again while the n / vec threads would not fill
+    ``FILL_THREADS`` (one value a thread took 14-51 % less time than 16
+    bytes on the paths' 30,000- and 173,001-value permutations, 16 bytes
+    14-16 % less on lap1000's RCM permutation of 1M; PERF.md, K5); lanes
+    is 1.  k > 1: ``lanes`` lanes a row copy it in chunks of
+    ``vec`` values, the widest of 16 bytes, 8, or one value that divides k
+    and keeps x's and out's rows on a chunk boundary; lanes is the power of
+    two at least the row's chunks, at most 32 (a lane then takes several)."""
+    check(k >= 1 and itemsize in (4, 8), f"permute_geometry: k {k}, itemsize {itemsize}")
+    vec = 16 // itemsize
+    if k == 1:
+        while vec > 1 and (src_offset % (4 * vec) or out_offset % (vec * itemsize)
+                           or n < vec * FILL_THREADS):
+            vec //= 2
+        return vec, 1
+    while vec > 1 and (k % vec or (x_offset | out_offset) % (vec * itemsize)):
+        vec //= 2
+    lanes = 1
+    while lanes < min(k // vec, 32):
+        lanes *= 2
+    return vec, lanes
+
+
 def permute_gather(src: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """K5: out[i] = x[src[i]] for a vector x, or out[i, :] = x[src[i], :] for
     a row-major (n, k) x; src is int32 with values in [0, x.shape[0])."""
@@ -73,9 +110,11 @@ def permute_gather(src: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     out = torch.empty((n,) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
+    vec, lanes = permute_geometry(n, k, x.element_size(), src.data_ptr() % 16,
+                                  x.data_ptr() % 16, out.data_ptr() % 16)
     err = _kernels.library("permute").tpukk_permute_gather(
-        _kernels.DTYPE_CODE[x.dtype], src.data_ptr(), x.data_ptr(), out.data_ptr(), n, k,
-        _kernels.stream_of(x))
+        _kernels.DTYPE_CODE[x.dtype], vec, lanes, src.data_ptr(), x.data_ptr(), out.data_ptr(),
+        n, k, _kernels.stream_of(x))
     _kernels.check_launch(err, "permute_gather")
     permute_gather.launches += 1
     return out

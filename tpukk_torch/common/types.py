@@ -2,7 +2,9 @@
 ``tpukk/common/types.py``.
 
 Scalars default to f32 and ordinals/offsets to i32, as in ``tpukk``.  f64 is
-native on the GPU and the CPU, so it is always supported.
+native on the GPU and the CPU, so it is always supported: ``tpukk``'s
+``enable_x64`` (JAX's switch, ``tpukk/common/types.py:34``) has no
+counterpart.
 
 Device rule: every constructor takes ``device=None`` and ``None`` means
 ``cuda``.  Nothing silently drops to the CPU: without a CUDA device the caller

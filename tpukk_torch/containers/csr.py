@@ -17,7 +17,7 @@ import torch
 
 from ..common import check, default_device, default_offset, default_ordinal
 
-__all__ = ["StaticCrsGraph", "CsrMatrix", "torch_dtype", "expand_row_ids"]
+__all__ = ["StaticCrsGraph", "CsrMatrix", "torch_dtype", "expand_row_ids", "csr_like"]
 
 _NP_TO_TORCH = {
     np.dtype(np.float32): torch.float32,
@@ -297,3 +297,10 @@ class CsrMatrix(_HostMirrors):
     def row_lengths(self) -> np.ndarray:
         rm = self.host_row_map()
         return rm[1:] - rm[:-1]
+
+
+def csr_like(sp, like) -> CsrMatrix:
+    """A scipy matrix as a CsrMatrix on the device of ``like`` (any of the
+    containers), in its value dtype: the result of a host transform."""
+    out = CsrMatrix.from_scipy(sp, device=like.device)
+    return out if out.dtype == like.dtype else out.astype(like.dtype)

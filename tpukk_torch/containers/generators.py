@@ -11,7 +11,10 @@ from __future__ import annotations
 
 import numpy as np
 import scipy.sparse as sps
+import torch
 
+from ..common import default_device
+from .bsr import BsrMatrix
 from .csr import CsrMatrix
 
 __all__ = [
@@ -20,6 +23,7 @@ __all__ = [
     "generate_diag_dominant_csr",
     "generate_banded_csr",
     "generate_fem2d_csr",
+    "generate_random_bsr",
 ]
 
 
@@ -122,3 +126,26 @@ def generate_fem2d_csr(n_nodes: int, dtype=np.float64, seed: int = 0,
     A = A + 1e-3 * sps.identity(n_nodes, format="csr")
     A.sort_indices()
     return CsrMatrix.from_scipy(A, value_dtype=dtype, device=device)
+
+
+def generate_random_bsr(n_block_rows: int, n_block_cols: int, block_size: int,
+                        blocks_per_row: int, dtype=np.float32, seed: int = 0, device=None):
+    """Random BSR matrix with dense (b, b) blocks (the BSR overload of
+    kk_generate_sparse_matrix, sparse/src/KokkosSparse_IOUtils.hpp:383-399):
+    a random CSR pattern at block granularity, every stored block fully
+    dense; the same draws as ``tpukk``'s."""
+    dev = default_device(device)
+    rng = np.random.default_rng(seed)
+    bpr = min(blocks_per_row, n_block_cols)
+    cols = np.concatenate([
+        np.sort(rng.choice(n_block_cols, size=bpr, replace=False))
+        for _ in range(n_block_rows)]) if n_block_rows else np.empty(0, int)
+    row_map = np.arange(n_block_rows + 1, dtype=np.int32) * bpr
+    nnzb = n_block_rows * bpr
+    vals = rng.standard_normal((nnzb, block_size, block_size)).astype(dtype)
+    cols = cols.astype(np.int32)
+    out = BsrMatrix(torch.from_numpy(row_map).to(dev), torch.from_numpy(cols).to(dev),
+                    torch.from_numpy(vals).to(dev), n_block_rows * block_size,
+                    n_block_cols * block_size, block_size)
+    out._prefill(row_map=row_map, entries=cols, values=vals)
+    return out

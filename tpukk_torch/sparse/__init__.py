@@ -12,6 +12,7 @@ from .spgemm import (SpgemmAlgorithm, SpgemmHandle, bspgemm, bspgemm_numeric,
 from .spiluk import (IlukRefreshPlan, SpilukHandle, build_iluk_refresh, refresh_to_csr,
                      spiluk_numeric, spiluk_refresh, spiluk_symbolic)
 from .spmv import SpmvAlgorithm, SpmvHandle, spmm, spmv
+from .spmv_struct import spmv_struct, structured_stencil_offsets
 from .sptrsv import SptrsvAlgorithm, SptrsvHandle, sptrsv_solve, sptrsv_symbolic
 from .sptrsv_cholmod import CholmodSolve, cholmod_import, cholmod_raw_to_csr
 from .sptrsv_superlu import SuperLUSolve, superlu_import

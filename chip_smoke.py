@@ -5,7 +5,10 @@ ILU(0)-preconditioned GMRES with the RCM route, the Gauss-Seidel path
 symbolic/numeric with reuse, banded DIA SpGEMM, a smoothed-aggregation set-up
 through spgemm_jacobi, SpADD, triangle counting), the factor-and-solve path
 (supernodal and imported-factor triangular solves, PAR_ILUT, MDF, the ILU(k)
-device refresh) and the gather-table probe.
+device refresh), the gather-table probe, the sixth slice (spmv_struct,
+TpukkHandle, the conversions, five examples) and the seventh: SpMV on BSR
+matrices (AUTO's DIA expansion of a banded block graph on K1/K2, the BSR
+route in torch ops), bspgemm, bspadd, block Gauss-Seidel, BLAS and LAPACK.
 
     python3 chip_smoke.py
 
@@ -23,7 +26,11 @@ and Pᵀ·A·P on the FEM matrix, SpADD, triangles of the FEM graph; SUPERNODAL
 (the DAG, f32 and f64, held in f64 to the batched plan) against SEQLVLSCHD
 solves of the FEM matrix's SuperLU factors, superlu_import in GMRES, an
 imported CHOLMOD-format Cholesky factor in PCG, PAR_ILUT and MDF factors in
-GMRES, the ILU(1) refresh; the probe's three variants), checks every result
+GMRES, the ILU(1) refresh; the probe's three variants; lap1000 as b = 4 BSR
+through AUTO (one K1 launch, or one K2 for 8 columns) and the pinned BSR
+route, a random 25,000-block-row BSR, bspgemm A·A with reuse, bspadd, block
+GS on a 3-dof elasticity-like matrix and on fem2d_30k as b = 2, BLAS 1/2/3
+and LAPACK at 1M values and 4096² / 2048²), checks every result
 on the host with scipy, asserts that a triangular solve is one K4 launch, an
 LUPrec apply two, an imported factor's apply two and no K5 (its outer
 permutations folded into K4, the bits of K5, K4, K4, K5 kept) and a
@@ -52,6 +59,9 @@ ROOT = Path(__file__).resolve().parent
 # and peak non-tensor-core flop/s by dtype (SXM part at 700 W)
 HBM_BYTES_PER_S = (("h100 pcie", 2.0e12), ("h100 nvl", 3.9e12), ("h100", 3.35e12))
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+# and of a dense matmul at full precision: f32 without TF32 on the CUDA cores,
+# f64 on the FP64 tensor cores
+PEAK_MATMUL_FLOPS = {"float32": 67e12, "float64": 67e12}
 L2_BYTES = 50e6
 
 SOURCES = {"dia_spmv": "tpukk_torch/csrc/dia.cu", "dia_spmm": "tpukk_torch/csrc/dia.cu",
@@ -143,10 +153,12 @@ def main() -> int:
     from tpukk_torch.common import chain_time_slope
     from tpukk_torch.common import permute as kperm
     from tpukk_torch.common import probe_cuda as kp
-    from tpukk_torch.containers import (CsrMatrix, bsr2crs, ccs2crs, coo2crs, crs2bsr, crs2ccs,
-                                        crs2coo, detect_block_size, generate_banded_csr,
-                                        generate_random_csr, generate_structured_laplacian,
-                                        read_mtx, sort_crs, transpose)
+    from tpukk_torch import blas, lapack
+    from tpukk_torch.containers import (BsrMatrix, CsrMatrix, bsr2crs, ccs2crs, coo2crs, crs2bsr,
+                                        crs2ccs, crs2coo, detect_block_size, generate_banded_csr,
+                                        generate_random_bsr, generate_random_csr,
+                                        generate_structured_laplacian, read_mtx, sort_crs,
+                                        transpose)
     from tpukk_torch.handle import TpukkHandle
     from tpukk_torch.graph import (ColoringAlgorithm, build_triangle_plan, graph_color,
                                    graph_mis2, graph_mis2_aggregate, rcm, triangle_count,
@@ -163,7 +175,7 @@ def main() -> int:
                                     cholmod_import, mdf_numeric, mdf_symbolic, MdfHandle,
                                     ParIlutHandle, par_ilut_numeric, par_ilut_symbolic,
                                     refresh_to_csr, spiluk_refresh, spmv_struct,
-                                    superlu_import)
+                                    superlu_import, bspadd, bspgemm_numeric, bspgemm_symbolic)
     from tpukk_torch.sparse import gs_cuda as kg
     from tpukk_torch.sparse import spgemm_cuda as ksg
     from tpukk_torch.sparse import spmv_cuda as kc
@@ -171,7 +183,7 @@ def main() -> int:
     from tpukk_torch.sparse.gauss_seidel import _plan_in
     from tpukk_torch.sparse.gmres import _arnoldi_cycle, _rcm_reorder
     from tpukk_torch.sparse.pcg import pcg_initial_state, pcg_iteration
-    from tpukk_torch.sparse.spmv_impl import build_dia_plan
+    from tpukk_torch.sparse.spmv_impl import build_bsr_rows, build_dia_plan, apply_bsr
 
     dev = torch.device("cuda", 0)
     smi = nvidia_smi()
@@ -1304,11 +1316,345 @@ def main() -> int:
     emit("main_convert_round_trips", tol="exact", **conv)
 
     for name in ("graph_wiki", "gmres_ex_real_A", "rcm_reorder_solve", "sptrsv_supernodal",
-                 "banded_spgemm"):
+                 "banded_spgemm", "sparse_wiki", "blas_wiki", "half_xpy"):
         mod = importlib.import_module(f"tpukk_torch.examples.{name}")
         _, counts, wall = counted(f"example {name}", lambda: mod.main(device=dev), ())
         emit("main_example", example=name, clean_exit=True, seconds=wall,
              launches={k: v for k, v in counts.items() if v})
+
+    # ---- 3j. the seventh slice: SpMV on BSR (AUTO's DIA expansion on K1/K2,
+    # the BSR route in torch ops), bspgemm, bspadd, block GS, BLAS, LAPACK; its
+    # inputs from a generator of its own, so that the timing rows draw theirs
+    # as before ---------------------------------------------------------------------
+    require(not torch.backends.cuda.matmul.allow_tf32
+            and torch.get_float32_matmul_precision() == "highest",
+            "TF32 is on: f32 matmuls would not be computed in f32")
+    rng7 = np.random.default_rng(7)
+
+    def vec7(n, dtype, k=None):
+        return torch.from_numpy(rng7.standard_normal((n,) if k is None else (n, k))).to(dev, dtype)
+
+    bsr_cases = {}
+    for dt, A in ((torch.float32, lap), (torch.float64, lap64)):
+        t = time.perf_counter()
+        Bl = crs2bsr(A, 4)
+        conv_s = time.perf_counter() - t
+        t = time.perf_counter()
+        hB = SpmvHandle(Bl)
+        handle_s = time.perf_counter() - t
+        require(hB.algorithm == SpmvAlgorithm.DIA, f"lap1000 b=4 {dt}: AUTO took {hB.algorithm}")
+        xb = vec7(Bl.ncols, dt)
+        yb, counts, _ = counted(f"bsr AUTO lap1000 {dt}", lambda: hB(xb), ("dia_spmv",))
+        require(counts["dia_spmv"] == 1 and sum(counts.values()) == 1,
+                f"bsr AUTO lap1000 {dt}: {counts}, not one K1 launch")
+        hc = SpmvHandle(bsr2crs(Bl))
+        require(hc.algorithm == SpmvAlgorithm.DIA and torch.equal(yb, hc(xb)),
+                f"bsr AUTO lap1000 {dt} differs from SpmvHandle on bsr2crs")
+        row = dict(blocks=Bl.nnz_blocks, blocks_per_block_row=Bl.nnz_blocks / Bl.n_block_rows,
+                   expansion_nnz=hB.A.nnz, diagonals=len(hB._plan("dia", dt).offsets),
+                   crs2bsr_s=conv_s, auto_handle_s=handle_s, auto_route=hB.algorithm.name,
+                   auto_launches=counts, auto_equal_to_csr_handle=True,
+                   auto_max_abs_err_vs_scipy=host_check(Bl, xb, yb, f"bsr AUTO lap1000 {dt}"))
+        hP = SpmvHandle(Bl, SpmvAlgorithm.BSR)
+        yp, counts, _ = counted(f"bsr pinned lap1000 {dt}", lambda: hP(xb), ())
+        require(sum(counts.values()) == 0, f"the BSR route launched a kernel: {counts}")
+        require(torch.equal(yp, hP(xb)), f"bsr pinned lap1000 {dt}: not the same bits twice")
+        row.update(pinned_route=hP.algorithm.name, pinned_launches=counts,
+                   pinned_same_bits_twice=True,
+                   pinned_max_abs_err_vs_scipy=host_check(Bl, xb, yp, f"bsr pinned {dt}"))
+        if dt == torch.float32:
+            XB = vec7(Bl.ncols, dt, 8)
+            YB, counts, _ = counted("bsr AUTO lap1000 k=8", lambda: hB(XB), ("dia_spmm",))
+            require(counts["dia_spmm"] == 1 and sum(counts.values()) == 1,
+                    f"bsr AUTO lap1000 k=8: {counts}, not one K2 launch")
+            row.update(k8_launches=counts, k8_max_abs_err_vs_scipy=max(
+                host_check(Bl, XB[:, j], YB[:, j], "bsr AUTO k=8") for j in range(8)))
+        bsr_cases[f"lap1000 b=4 {dt}"] = (Bl, hB, xb)
+        emit("main_bsr_spmv", case=f"lap1000 -> crs2bsr(., 4) {dt}",
+             tol="20*eps*(|A||x|)_i vs scipy's BSR product in f64", **row)
+    Rb = generate_random_bsr(25_000, 25_000, 4, 16, dtype=np.float32, seed=0, device=dev)
+    hR = SpmvHandle(Rb)
+    require(hR.algorithm == SpmvAlgorithm.BSR, f"random BSR: AUTO took {hR.algorithm}")
+    xr = vec7(Rb.ncols, torch.float32)
+    yr, counts, _ = counted("bsr AUTO random", lambda: hR(xr), ())
+    require(sum(counts.values()) == 0 and torch.equal(yr, hR(xr)),
+            f"bsr AUTO random: {counts}, or not the same bits twice")
+    bsr_cases["random 25k b=4 f32"] = (Rb, None, xr)
+    emit("main_bsr_spmv", case="generate_random_bsr(25_000, 25_000, 4, 16) f32",
+         blocks=Rb.nnz_blocks, auto_route=hR.algorithm.name, launches=counts,
+         same_bits_twice=True, max_abs_err_vs_scipy=host_check(Rb, xr, yr, "bsr random"),
+         tol="20*eps*(|A||x|)_i vs scipy's BSR product in f64")
+
+    def hold_sparse(label, Cs, ref, bound, k, dtype):
+        """|C - ref| <= k·eps·bound entrywise over scipy matrices in f64 (k an
+        array over bound's entries, or a scalar); C's entries outside
+        bound's pattern are exactly 0."""
+        diff = abs(Cs - ref).tocsr()
+        inv_tol = bound.copy()
+        inv_tol.data = 1.0 / np.maximum(k * torch.finfo(dtype).eps * bound.data, 1e-300)
+        ratio = diff.multiply(inv_tol).tocsr()
+        worst = float(ratio.data.max(initial=0.0))
+        require(ratio.nnz == diff.nnz and worst <= 1.0,
+                f"{label}: values differ from scipy beyond the tolerance ({worst})")
+        return dict(max_abs_err_vs_scipy=float(diff.data.max(initial=0.0)),
+                    max_err_over_tol=worst)
+
+    for label, A, b_ in (("lap1000 b=4 f32", lap, 4), ("fem2d_30k b=2 f64", fem, 2)):
+        Ab_ = crs2bsr(A, b_)
+        hs = SpgemmHandle()
+        t = time.perf_counter()
+        bspgemm_symbolic(hs, Ab_, Ab_)
+        sym_s = time.perf_counter() - t
+        C, counts, wall = counted(f"bspgemm {label}", lambda: bspgemm_numeric(hs, Ab_, Ab_), ())
+        require(sum(counts.values()) == 0, f"bspgemm {label} launched a kernel: {counts}")
+        reuse_ms = event_ms(lambda: bspgemm_numeric(hs, Ab_, Ab_), 3)
+        C2 = bspgemm_numeric(hs, Ab_.with_values(2 * Ab_.values), Ab_)
+        require(torch.equal(C2.values, 2 * C.values), f"bspgemm {label}: 2·A is not exactly 2·C")
+        del C2
+        sa = A.to_scipy().astype(np.float64)
+        sa.sort_indices()
+        bound = abs_product(sa, sa)
+        n_c = ((sa != 0).astype(np.float64) @ (sa != 0).astype(np.float64)).tocsr()
+        n_c.sort_indices()
+        held = hold_sparse(f"bspgemm {label}", C.to_scipy().tocsr().astype(np.float64),
+                           (sa @ sa).tocsr(), bound, n_c.data + 1, A.dtype)
+        emit("main_bspgemm", case=f"A·A, {label}", blocks_a=Ab_.nnz_blocks,
+             blocks_c=C.nnz_blocks, block_products=hs.block_plan.n_products,
+             symbolic_s=sym_s, numeric_ms_first=wall * 1e3, numeric_ms_reuse=reuse_ms,
+             reuse_2A_exactly_2C=True, launches=counts,
+             tol="(n_c+1)*eps*(|A||A|) per scalar entry, entries outside exactly 0", **held)
+        del C, hs
+
+    Ra = generate_random_bsr(15_000, 15_000, 2, 8, dtype=np.float64, seed=1, device=dev)
+    Rb2 = generate_random_bsr(15_000, 15_000, 2, 8, dtype=np.float64, seed=2, device=dev)
+    Cadd, counts, wall = counted("bspadd", lambda: bspadd(2.0, Ra, -0.5, Rb2), ())
+    sra, srb = Ra.to_scipy().tocsr(), Rb2.to_scipy().tocsr()
+    held = hold_sparse("bspadd", Cadd.to_scipy().tocsr(), (2.0 * sra - 0.5 * srb).tocsr(),
+                       (2.0 * abs(sra) + 0.5 * abs(srb)).tocsr(), 2, torch.float64)
+    emit("main_bspadd", case="2·A - 0.5·B, generate_random_bsr(15_000, 15_000, 2, 8) f64, seeds 1, 2",
+         blocks_a=Ra.nnz_blocks, blocks_c=Cadd.nnz_blocks, ms=wall * 1e3,
+         ms_again=event_ms(lambda: bspadd(2.0, Ra, -0.5, Rb2), 3), launches=counts,
+         tol="2*eps*(2|a| + 0.5|b|) per scalar entry", **held)
+    del Cadd, Ra, Rb2
+
+    Ac3 = generate_structured_laplacian(300, 300, dtype=np.float64, device="cpu").to_scipy()
+    Ael = (sps.kron(Ac3, np.eye(3))
+           + sps.kron(sps.eye(Ac3.shape[0]), 0.3 * np.ones((3, 3)) + 3 * np.eye(3))).tocsr()
+    gs_cases = (("elasticity 300x300 b=3 f64",
+                 BsrMatrix.from_scipy_bsr(sps.bsr_matrix(Ael, blocksize=(3, 3)), device=dev), Ael,
+                 SpmvAlgorithm.DIA),
+                ("fem2d_30k b=2 f64", crs2bsr(fem, 2), fem.to_scipy(), SpmvAlgorithm.BSR))
+    for label, Ab_, sp_, route in gs_cases:
+        hg = GsHandle()
+        t = time.perf_counter()
+        gauss_seidel_symbolic(hg, Ab_)
+        gauss_seidel_numeric(hg, Ab_)
+        setup_s = time.perf_counter() - t
+        require(hg._blk["h"].algorithm == route, f"block gs {label}: SpMV route "
+                f"{hg._blk['h'].algorithm}, expected {route}")
+        ncol = len(hg._blk["sets"])
+        xstar = rng7.standard_normal(sp_.shape[0])
+        bgs = torch.from_numpy(sp_ @ xstar).to(dev)
+        xg7, errs_gs, sweep_ms = None, [], []
+        for s in range(5):
+            xg7, counts, wall = counted(
+                f"block gs {label} sweep {s}",
+                lambda: gauss_seidel_apply(hg, Ab_, xg7, bgs, num_sweeps=1),
+                ("dia_spmv",) if route == SpmvAlgorithm.DIA else ())
+            k1 = 2 * ncol if route == SpmvAlgorithm.DIA else 0
+            require(counts["dia_spmv"] == k1 and sum(counts.values()) == k1,
+                    f"block gs {label}: {counts}, expected {k1} K1 launches a symmetric sweep")
+            errs_gs.append(float(np.linalg.norm(xg7.cpu().numpy() - xstar)))
+            sweep_ms.append(wall * 1e3)
+            if s == 0:
+                x_first = xg7.cpu()
+            elif s == 1:
+                x_second = xg7.cpu()
+        require(all(errs_gs[i + 1] < errs_gs[i] for i in range(4)),
+                f"block gs {label}: the error did not fall on every sweep: {errs_gs}")
+        if route == SpmvAlgorithm.DIA:  # tests/test_gauss_seidel.py:182's second check
+            require(errs_gs[-1] < 0.05 * errs_gs[0], f"block gs {label}: {errs_gs}")
+        # the second sweep again, on a CPU copy of the same matrix (each
+        # kernel's plain version): the card's within 1e-12 of max|x|
+        Ah_ = BsrMatrix.from_scipy_bsr(Ab_.to_scipy(), device="cpu")
+        hc_ = GsHandle()
+        gauss_seidel_symbolic(hc_, Ah_)
+        gauss_seidel_numeric(hc_, Ah_)
+        require(hc_._blk["h"].algorithm == route and len(hc_._blk["sets"]) == ncol,
+                f"block gs {label}: the CPU copy took another route or coloring")
+        x_cpu = gauss_seidel_apply(hc_, Ah_, x_first, bgs.cpu(), num_sweeps=1)
+        cpu_err = float((x_second - x_cpu).abs().max())
+        require(cpu_err <= 1e-12 * float(x_cpu.abs().max()),
+                f"block gs {label}: a sweep on the card differs from the CPU's by {cpu_err}")
+        del Ah_, hc_
+        if route == SpmvAlgorithm.DIA:  # K1 at this shape against its plain version
+            plan = hg._blk["h"]._plan("dia", torch.float64)
+            aplan = dataclasses.replace(plan, diags=plan.diags.abs())
+            hold("dia_spmv", f"block gs {label} expansion", kc.dia_spmv(plan, xg7),
+                 kc.dia_plain(plan, xg7), kc.dia_plain(aplan, xg7.abs()), torch.float64)
+        emit("main_block_gs", case=label, rows=Ab_.nrows, block_size=Ab_.block_size,
+             colors=ncol, spmv_route=route.name, k1_launches_per_sweep=2 * ncol
+             if route == SpmvAlgorithm.DIA else 0, setup_s=setup_s, errors=errs_gs,
+             sweep_max_abs_err_vs_cpu=cpu_err, tol="1e-12*max|x| vs the CPU's sweep",
+             sweep_ms_wall=sweep_ms,
+             sweep_ms_events=event_ms(lambda: gauss_seidel_apply(hg, Ab_, None, bgs), 3))
+    del gs_cases, Ael
+
+    # BLAS and LAPACK: each call on the card held to the same call on CPU tensors
+    def hold_plain(label, got, plain, terms, k, dtype, out):
+        """|got - plain| <= k·eps·terms elementwise (terms: the magnitudes the
+        exact result sums, a CPU tensor or a number); k = 0 is exact."""
+        g = got.detach().cpu().double()
+        p = plain.detach().double()
+        err = (g - p).abs()
+        tol = k * torch.finfo(dtype).eps * torch.as_tensor(terms, dtype=torch.float64)
+        ok = bool((err <= tol).all()) if k else bool(torch.equal(g, p))
+        out[label] = float(err.max()) if err.numel() else 0.0
+        require(ok, f"{label}: the card's result differs from the CPU's beyond the tolerance")
+
+    n1 = 1 << 20
+    red = 2 * (64 + math.log2(n1))  # two reduction orders, each within (64 + log2 n)·eps
+    for dt in (torch.float32, torch.float64):
+        xh, yh, zh = (torch.from_numpy(rng7.standard_normal(n1)).to(dt) for _ in range(3))
+        Xh, Yh = (torch.from_numpy(rng7.standard_normal((n1, 8))).to(dt) for _ in range(2))
+        ah, bh = (torch.arange(1, 9, dtype=dt), torch.arange(8, 0, -1).to(dt))
+        xd, yd, zd, Xd, Yd, ad, bd = (t.to(dev) for t in (xh, yh, zh, Xh, Yh, ah, bh))
+        ax, ay, az = xh.abs(), yh.abs(), zh.abs()
+        out = {}
+        cases = (
+            ("axpby", lambda d: blas.axpby(2.0, d[0], -0.5, d[1]), 2 * ax + 0.5 * ay, 4),
+            ("axpy", lambda d: blas.axpy(3.0, d[0], d[1]), 3 * ax + ay, 4),
+            ("scal", lambda d: blas.scal(0.5, d[0]), 0.5 * ax, 0),
+            ("update", lambda d: blas.update(1.0, d[0], 2.0, d[1], 3.0, d[2]),
+             ax + 2 * ay + 3 * az, 4),
+            ("mult", lambda d: blas.mult(0.5, d[2], 2.0, d[0], d[1]), 0.5 * az + 2 * ax * ay, 4),
+            ("abs", lambda d: blas.blas1.abs(d[0]), ax, 0),
+            ("reciprocal", lambda d: blas.reciprocal(d[0]), 1 / ax, 1),
+            ("fill", lambda d: blas.fill(d[0], 3.0), 3.0, 0),
+            ("set", lambda d: blas.set(d[0], d[1]), ay, 0),
+            ("swap", lambda d: torch.stack(blas.swap(d[0], d[1])), torch.stack((ay, ax)), 0),
+            ("rot", lambda d: torch.stack(blas.rot(d[0], d[1], 0.8, 0.6)),
+             torch.stack((0.8 * ax + 0.6 * ay, 0.8 * ay + 0.6 * ax)), 4),
+            ("dot", lambda d: blas.dot(d[0], d[1]), (ax * ay).sum(), red),
+            ("nrm1", lambda d: blas.nrm1(d[0]), ax.sum(), red),
+            ("nrm2_squared", lambda d: blas.nrm2_squared(d[0]), (ax * ax).sum(), red),
+            ("nrm2", lambda d: blas.nrm2(d[0]), (ax * ax).sum().sqrt(), red),
+            ("nrm2w", lambda d: blas.nrm2w(d[0], d[2].abs() + 1.0),
+             ((ax / (az + 1)) ** 2).sum().sqrt(), red),
+            ("nrminf", lambda d: blas.nrminf(d[0]), ax.max(), 0),
+            ("sum", lambda d: blas.blas1.sum(d[0]), ax.sum(), red),
+            ("iamax", lambda d: blas.iamax(d[0]), 0, 0),
+            ("axpby MV (per-column coefficients)", lambda d: blas.axpby(d[5], d[3], d[6], d[4]),
+             Xh.abs() * ah + Yh.abs() * bh, 4),
+            ("dot MV", lambda d: blas.dot(d[3], d[4]), (Xh.abs() * Yh.abs()).sum(0), red),
+            ("nrm2 MV", lambda d: blas.nrm2(d[3]), (Xh * Xh).sum(0).sqrt(), red),
+        )
+        for label, fn, terms, k in cases:
+            hold_plain(label, fn((xd, yd, zd, Xd, Yd, ad, bd)), fn((xh, yh, zh, Xh, Yh, ah, bh)),
+                       terms, k, dt, out)
+        # the rotation constructors on scalars of the card (rotmg on an ordinary
+        # input and on one that takes drotmg's rescaling), and rotm on the vectors
+        for name, args in (("rotg", (3.0, -4.0)), ("rotmg", (2.0, 3.0, 1.5, -0.5)),
+                           ("rotmg rescaled", (1e-12, 2.0, 1.0, 1.0))):
+            fn = blas.rotg if name == "rotg" else blas.rotmg
+            hv = [torch.tensor(v, dtype=dt) for v in args]
+            got, want = fn(*(v.to(dev) for v in hv)), fn(*hv)
+            require(all(g.device == xd.device and g.dtype == dt for g in got),
+                    f"{name} {dt}: not on the card in {dt}")
+            for j, (g, w) in enumerate(zip(got, want)):
+                hold_plain(f"{name} [{j}]", g, w, w.abs(), 16, dt, out)
+        require(float(got[3][0]) == float(want[3][0]) == -1.0,
+                f"rotmg rescaled {dt}: flag {float(got[3][0])}, not LAPACK's -1")
+        hmax = want[3].abs().max()
+        hold_plain("rotm", torch.stack(blas.rotm(xd, yd, want[3].to(dev))),
+                   torch.stack(blas.rotm(xh, yh, want[3])), hmax * torch.stack((ax + ay, ax + ay)),
+                   4, dt, out)
+        got = blas.rotg(3.0, -4.0, device=dev)
+        require(all(g.device == xd.device for g in got), "rotg on numbers: not on the card")
+        for j, (g, w) in enumerate(zip(got, blas.rotg(3.0, -4.0, device="cpu"))):
+            hold_plain(f"rotg numbers [{j}]", g, w, w.abs(), 16, torch.float64, out)
+        emit("main_blas", case=f"blas1 on {n1} values and {n1} x 8, {dt}", max_abs_err=out,
+             tol=f"elementwise 4*eps*(|terms|) (scal, abs, fill, set, swap, nrminf, iamax "
+                 f"exactly; rotg and rotmg 16*eps*|value|), reductions {red:.0f}*eps*sum|terms|, "
+                 f"against the CPU")
+
+    nb3 = 4096
+    blas_rows = {}
+    for dt in (torch.float32, torch.float64):
+        sz = torch.finfo(dt).bits // 8
+        Ah, Bh = (torch.from_numpy(rng7.standard_normal((nb3, nb3))).to(dt) for _ in range(2))
+        vh, wh = (torch.from_numpy(rng7.standard_normal(nb3)).to(dt) for _ in range(2))
+        Ad, Bd, vd, wd = (t.to(dev) for t in (Ah, Bh, vh, wh))
+        out = {}
+        kmm = 2 * (64 + math.log2(nb3))
+        for mode in ("N", "T"):
+            Aop = Ah if mode == "N" else Ah.T
+            hold_plain(f"gemv {mode}", blas.gemv(mode, 2.0, Ad, vd, 0.5, wd),
+                       blas.gemv(mode, 2.0, Ah, vh, 0.5, wh),
+                       2 * (Aop.abs().double() @ vh.abs().double()) + 0.5 * wh.abs(), kmm, dt, out)
+        Cz = torch.zeros(nb3, nb3, dtype=dt, device=dev)
+        Cd = blas.gemm("N", "N", 1.0, Ad, Bd, 0.0, Cz)
+        hold_plain("gemm NN", Cd, blas.gemm("N", "N", 1.0, Ah, Bh, 0.0, Cz.cpu()),
+                   (Ad.abs().double() @ Bd.abs().double()).cpu(), kmm, dt, out)
+        del Cd
+        gemm_ms = chain_time_slope(lambda: blas.gemm("N", "N", 1.0, Ad, Bd, 0.0, Cz), 3, 13,
+                                   reps=3) * 1e3
+        gemv_ms = chain_time_slope(lambda: blas.gemv("N", 2.0, Ad, vd, 0.5, wd)) * 1e3
+        key = str(dt).replace("torch.", "")
+        gemm_bound = 2 * nb3 ** 3 / PEAK_MATMUL_FLOPS[key] * 1e3
+        gemv_bound = max((nb3 * nb3 + 3 * nb3) * sz / bw, 2 * nb3 * nb3 / PEAK_FLOPS[key]) * 1e3
+        blas_rows[key] = dict(gemm_ms=gemm_ms, gemm_bound_ms=gemm_bound,
+                              gemm_TFLOPs=2 * nb3 ** 3 / (gemm_ms * 1e-3) / 1e12,
+                              gemv_ms=gemv_ms, gemv_bound_ms=gemv_bound)
+        emit("main_blas", case=f"gemv / gemm at {nb3}², {dt}", max_abs_err=out,
+             tol=f"{kmm:.0f}*eps*(|A||x|), (|A||B|) elementwise, against the CPU",
+             tf32=torch.backends.cuda.matmul.allow_tf32, **blas_rows[key])
+        del Ad, Bd, Cz, Ah, Bh
+
+    nl = 2048
+    Al = torch.from_numpy(rng7.standard_normal((nl, nl))).to(dev)
+    bl = torch.from_numpy(rng7.standard_normal((nl, 4))).to(dev)
+    eps64 = torch.finfo(torch.float64).eps
+    res = {}
+
+    def residual(label, r, scale):
+        """max|r| <= n·eps·scale, the residual of a backward-stable factorization."""
+        res[label] = float(r.abs().max() / scale)
+        require(res[label] <= nl * eps64, f"lapack {label}: residual {res[label]} over n*eps")
+
+    xl = lapack.gesv(Al, bl)
+    residual("gesv", Al @ xl - bl, float((Al.abs() @ xl.abs() + bl.abs()).max()))
+    U, s, Vh = lapack.svd(Al)
+    residual("svd", (U * s) @ Vh - Al, float(s[0]))
+    require(torch.allclose(lapack.svd(Al, compute_uv=False), s, rtol=nl * eps64, atol=0),
+            "lapack svd: compute_uv=False gives other singular values")
+    Sl = Al @ Al.T + nl * torch.eye(nl, dtype=torch.float64, device=dev)
+    Ll = lapack.cholesky(Sl)
+    residual("cholesky", Ll @ Ll.T - Sl, float(Sl.abs().max()))
+    lu, piv, perm = lapack.getrf(Al)
+    require(int(piv.min()) >= 0 and int(piv.max()) < nl and torch.equal(
+        perm.sort().values.long(), torch.arange(nl, device=dev)),
+        "lapack getrf: pivots out of range or no permutation")
+    Lf = torch.tril(lu, -1) + torch.eye(nl, dtype=torch.float64, device=dev)
+    residual("getrf", Lf @ torch.triu(lu) - Al[perm.long()],
+             float((Lf.abs() @ torch.triu(lu).abs()).max()))
+    xr2 = lapack.getrs(lu, piv, bl)
+    residual("getrs", Al @ xr2 - bl, float((Al.abs() @ xr2.abs() + bl.abs()).max()))
+    Q, Rq = lapack.geqrf(Al)
+    residual("geqrf", Q @ Rq - Al, float(Al.abs().max()))
+    residual("geqrf orthogonality", Q.T @ Q - torch.eye(nl, dtype=torch.float64, device=dev), 1.0)
+    Tl = torch.tril(Al) + nl * torch.eye(nl, dtype=torch.float64, device=dev)
+    Xl = lapack.trtri(Tl, "L")
+    residual("trtri", Xl @ Tl - torch.eye(nl, dtype=torch.float64, device=dev),
+             float((Xl.abs() @ Tl.abs()).max()))
+    gesv_ms = event_ms(lambda: lapack.gesv(Al, bl), 5)
+    gesv_flops = 2 / 3 * nl ** 3 + 2 * 4 * nl ** 2
+    emit("main_lapack", case=f"{nl}² f64, 4 right-hand sides", residual_over_scale=res,
+         tol="max|residual| <= n*eps*scale", gesv_ms=gesv_ms,
+         gesv_bound_ms=gesv_flops / PEAK_MATMUL_FLOPS["float64"] * 1e3,
+         cholesky_ms=event_ms(lambda: lapack.cholesky(Sl), 5),
+         svd_ms=event_ms(lambda: lapack.svd(Al), 1))
+    del Al, Sl, U, Vh, Q, Rq, Lf, lu, Tl, Xl
 
     # K6's two entries are one kernel: the path runs the fused sweep, the
     # per-color step is its yardstick (and the distributed sweep's step)
@@ -1757,6 +2103,107 @@ def main() -> int:
     for variant, B in (("base", 16), ("packed_opt", 4), ("packed_opt", 16), ("mt4", 4),
                        ("mt4", 16)):
         k9_row(variant, B)
+
+    # the BSR route (torch ops), K1 on the DIA expansion that AUTO takes on a
+    # banded block graph, and cuSPARSE's BSR product, each beside its bound
+    def warm_cold(make, nbytes):
+        """make(i) -> a call on copy i of the inputs: (L2-warm ms, L2-cold ms)."""
+        ms = chain_time_slope(make(0)) * 1e3
+        ring = [make(i) for i in range(max(2, math.ceil(3 * L2_BYTES / nbytes)))]
+        return ms, chain_time_slope(rotating(ring)) * 1e3
+
+    def bsr_row(label, Bm, dt, hB=None):
+        """Bound: the blocks, their int32 block columns and row map read once,
+        x read and y written once (the DIA expansion: its diagonals, x and y)."""
+        sz = torch.finfo(dt).bits // 8
+        nbytes = (Bm.nnz_blocks * (Bm.block_size ** 2 * sz + 4) + (Bm.n_block_rows + 1) * 4
+                  + (Bm.nrows + Bm.ncols) * sz)
+        bp = build_bsr_rows(Bm, dt)
+        x0 = vec7(Bm.ncols, dt)
+
+        def make_bsr(i):
+            p = bp if i == 0 else dataclasses.replace(bp, values=bp.values.clone(),
+                                                      cols=bp.cols.clone(),
+                                                      lengths=bp.lengths.clone())
+            xi = x0 if i == 0 else x0.clone()
+            return lambda: apply_bsr(p, xi)
+
+        def make_lib(i):
+            arrs = (Bm.row_map, Bm.entries, bp.values)
+            S = torch.sparse_bsr_tensor(*(a.clone() if i else a for a in arrs), Bm.shape,
+                                        check_invariants=False)
+            xi = x0 if i == 0 else x0.clone()
+            return lambda: S.matmul(xi)
+
+        host_check(Bm, x0, make_lib(0)(), f"cuSPARSE BSR {label}")
+        ms, ms_cold = warm_cold(make_bsr, nbytes)
+        lib_ms, lib_cold = warm_cold(make_lib, nbytes)
+        b_ms, by = bound_ms(nbytes, 2 * Bm.nnz_blocks * Bm.block_size ** 2, dt)
+        row = dict(case=f"BSR route {label}", ms=ms, ms_l2_cold=ms_cold, bound_ms=b_ms,
+                   bound_by=by, working_set_MB=nbytes / 1e6, library_ms=lib_ms,
+                   library_ms_l2_cold=lib_cold,
+                   library="cuSPARSE bsrmv: torch.sparse_bsr_tensor(...) @ x")
+        if hB is not None:
+            plan = hB._plan("dia", dt)
+            nd = len(plan.offsets)
+            dbytes = (nd + 2) * Bm.nrows * sz
+
+            def make_dia(i):
+                p = plan if i == 0 else dataclasses.replace(plan, diags=plan.diags.clone())
+                xi = x0 if i == 0 else x0.clone()
+                return lambda: kc.dia_spmv(p, xi)
+
+            k1_ms, k1_cold = warm_cold(make_dia, dbytes)
+            row.update(k1_expansion_ms=k1_ms, k1_expansion_ms_l2_cold=k1_cold,
+                       k1_expansion_plain_ms=chain_time_slope(lambda: kc.dia_plain(plan, x0)) * 1e3,
+                       k1_expansion_bound_ms=bound_ms(dbytes, 2 * nd * Bm.nrows, dt)[0],
+                       k1_expansion_diagonals=nd, k1_expansion_MB=dbytes / 1e6)
+            if dt == torch.float32:  # AUTO's 2-D route: K2 on the expansion, k = 8
+                X0 = vec7(Bm.ncols, dt, 8)
+                kbytes = (nd + 2 * 8) * Bm.nrows * sz
+
+                def make_k2(i):
+                    p = plan if i == 0 else dataclasses.replace(plan, diags=plan.diags.clone())
+                    Xi = X0 if i == 0 else X0.clone()
+                    return lambda: kc.dia_spmm(p, Xi)
+
+                Sb = torch.sparse_bsr_tensor(Bm.row_map, Bm.entries, bp.values, Bm.shape,
+                                             check_invariants=False)
+                host_check(Bm, X0[:, 7], Sb.matmul(X0)[:, 7], f"cuSPARSE BSR k=8 {label}")
+                k2_ms, k2_cold = warm_cold(make_k2, kbytes)
+                row.update(k2_expansion_k8_ms=k2_ms, k2_expansion_k8_ms_l2_cold=k2_cold,
+                           k2_expansion_k8_plain_ms=chain_time_slope(
+                               lambda: kc.dia_plain(plan, X0)) * 1e3,
+                           k2_expansion_k8_bound_ms=bound_ms(kbytes, 16 * nd * Bm.nrows, dt)[0],
+                           bsr_route_k8_ms=chain_time_slope(lambda: apply_bsr(bp, X0)) * 1e3,
+                           library_k8_ms=chain_time_slope(lambda: Sb.matmul(X0)) * 1e3)
+        emit("timing_bsr", **row)
+
+    for key, (Bm, hB, _) in bsr_cases.items():
+        bsr_row(key, Bm, Bm.dtype, hB)
+
+    # plain versions the kernel table lacked: K2's at odd k on lap1000, and K3's
+    # max (MIS2's step) on fem2d_30k's distance-2 pattern, beside the kernel
+    fill = {}
+    for dt, pl in ((torch.float32, plan), (torch.float64, plan64)):
+        for k in (3, 11, 33):
+            Xk = vec7(lap.ncols, dt, k)
+            fill[f"K2 lap1000 {dt} k={k}"] = dict(
+                ms=chain_time_slope(lambda: kc.dia_spmm(pl, Xk)) * 1e3,
+                plain_ms=chain_time_slope(lambda: kc.dia_plain(pl, Xk), 3, 13, reps=3) * 1e3)
+            del Xk
+    fs = fem.to_scipy()
+    d2 = ((fs @ fs).tocsr() + fs).tolil()
+    d2.setdiag(0)  # MIS2's graph: distance 1 and 2, no self loops
+    d2 = d2.tocsr()
+    d2.eliminate_zeros()
+    d2.data[:] = 1.0
+    cp2 = kc.build_csr_plan(CsrMatrix.from_scipy(d2, device=dev), torch.float64)
+    pr = vec7(d2.shape[1], torch.float64).abs()
+    fill[f"K3 max, fem2d_30k's distance-2 pattern ({d2.nnz} nnz) f64"] = dict(
+        ms=chain_time_slope(lambda: kc.csr_spmv(cp2, pr, "max")) * 1e3,
+        plain_ms=chain_time_slope(lambda: kc.csr_plain(cp2, pr, "max")) * 1e3)
+    emit("timing_plain_fill", rows=fill)
 
     # ---- 5. where a PCG and a GMRES iteration's time goes (torch.profiler) -----
     for label, A, iters, prec in (("lap1000 f64 Jacobi", lap64, 20, JacobiPrec(lap64)),

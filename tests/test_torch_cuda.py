@@ -10,8 +10,11 @@ the probe kernel K9; K4 with the level permutations folded in (src/dst), at
 each lane width, replayed in a CUDA graph, and trapping on a plan that does
 not order its triangle; K6's fused sweep equal to the per-color path it
 replaces bit for bit, one launch per GsPrec apply, replayed in a CUDA graph,
-and trapping on a plan whose steps cannot finish.  Every test skips without a CUDA device: the
-kernels have no CPU mode.
+and trapping on a plan whose steps cannot finish; the BSR route's same bits on two calls,
+block Gauss-Seidel's two K1 launches a color a symmetric sweep, bspgemm's exact reuse,
+getrf's 0-based pivots (tpukk's, recorded as constants) and the rotation constructors'
+placement on the card.  Every test skips without a CUDA
+device: the kernels have no CPU mode.
 
 This file imports neither JAX nor tpukk, so it runs on a GPU host that has
 neither, without tests/conftest.py (which imports JAX)::
@@ -1193,3 +1196,129 @@ def test_par_ilut_on_the_card_equals_the_cpu(dev):
         g, w = G.to_scipy(), W.to_scipy()
         assert np.array_equal(g.indptr, w.indptr) and np.array_equal(g.indices, w.indices)
         assert abs(g - w).max() <= 1e-8 * abs(w).max()
+
+
+# ---- the BSR route, block Gauss-Seidel and LAPACK's pivots on the card -------
+
+def _elasticity_bsr(n, dev):
+    """kron(Laplacian, I3) + kron(I, 0.3·1 + 3·I3) as b = 3 BSR (the matrix of
+    tests/test_gauss_seidel.py:182): a banded block graph."""
+    Ac = tkc.generate_structured_laplacian(n, n, dtype=np.float64, device="cpu").to_scipy()
+    Ab = (sps.kron(Ac, np.eye(3))
+          + sps.kron(sps.eye(Ac.shape[0]), 0.3 * np.ones((3, 3)) + 3 * np.eye(3)))
+    return tkc.BsrMatrix.from_scipy_bsr(sps.bsr_matrix(Ab, blocksize=(3, 3)), device=dev), Ab
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_bsr_route_gives_the_same_bits_twice_on_the_card(dev, dtype):
+    """The BSR route's block-row sums have no atomics: two calls on one input
+    give the same bits, 1-D and 2-D, each held to scipy within
+    20·eps·(|A||x|); AUTO on a banded BSR is one K1 launch equal to
+    SpmvHandle(DIA) on bsr2crs(A)."""
+    R = tkc.generate_random_bsr(2000, 2000, 4, 9, dtype=np.float64, seed=5, device=dev)
+    R = R.with_values(R.values.to(dtype))
+    h = SpmvHandle(R)
+    assert h.algorithm == SpmvAlgorithm.BSR
+    kc.reset_launch_counts()
+    for x in (_x(R.ncols, dtype, dev, seed=1), _x(R.ncols, dtype, dev, k=6, seed=2)):
+        y = h(x)
+        assert torch.equal(y, h(x))
+        sp = R.to_scipy().astype(np.float64)
+        xh = x.double().cpu().numpy()
+        err = np.abs(y.double().cpu().numpy() - sp @ xh)
+        assert (err <= 20 * torch.finfo(dtype).eps * (abs(sp) @ np.abs(xh))).all()
+    assert sum(kc.launch_counts().values()) == 0
+    B = tkc.crs2bsr(tkc.generate_structured_laplacian(200, 200, dtype=np.float64, device=dev), 4)
+    B = B.with_values(B.values.to(dtype))
+    hb = SpmvHandle(B)
+    assert hb.algorithm == SpmvAlgorithm.DIA
+    x = _x(B.ncols, dtype, dev, seed=3)
+    kc.reset_launch_counts()
+    y = hb(x)
+    assert kc.launch_counts()["dia_spmv"] == 1
+    assert torch.equal(y, SpmvHandle(tkc.bsr2crs(B), SpmvAlgorithm.DIA)(x))
+
+
+def test_block_gs_is_two_k1_launches_a_color_per_symmetric_sweep(dev):
+    """Block GS on a banded block graph: each color of each half-sweep is one
+    SpMV of the handle (AUTO: DIA, one K1 launch), so a symmetric sweep is
+    colors × 2 K1 launches; the sweeps equal the CPU's within 1e-12."""
+    A, Ab = _elasticity_bsr(30, dev)
+    xstar = np.random.default_rng(4).standard_normal(Ab.shape[0])
+    b = torch.from_numpy(Ab @ xstar)
+    out = {}
+    for d in (dev, "cpu"):
+        Ad = A if d is dev else tkc.BsrMatrix.from_scipy_bsr(A.to_scipy(), device="cpu")
+        h = GsHandle()
+        gauss_seidel_symbolic(h, Ad)
+        gauss_seidel_numeric(h, Ad)
+        assert h._blk["h"].algorithm == SpmvAlgorithm.DIA
+        kc.reset_launch_counts()
+        x = gauss_seidel_apply(h, Ad, None, b.to(d), num_sweeps=3)
+        if d is dev:
+            assert kc.launch_counts()["dia_spmv"] == 3 * 2 * len(h._blk["sets"])
+        out[str(d)] = x.cpu().numpy()
+    g, c = out[str(dev)], out["cpu"]
+    assert np.abs(g - c).max() <= 1e-12 * np.abs(c).max()
+    assert np.linalg.norm(g - xstar) < 0.05 * np.linalg.norm(xstar)
+
+
+def test_bspgemm_reuse_is_exact_on_the_card(dev):
+    """bspgemm's block products summed in pair order: 2·A gives exactly 2·C,
+    and C is held to scipy within (n_c + 1)·eps·(|A||B|)."""
+    A = tkc.generate_random_bsr(500, 500, 4, 6, dtype=np.float32, seed=6, device=dev)
+    from tpukk_torch.sparse import SpgemmHandle, bspgemm_numeric, bspgemm_symbolic
+
+    h = SpgemmHandle()
+    bspgemm_symbolic(h, A, A)
+    C = bspgemm_numeric(h, A, A)
+    assert torch.equal(bspgemm_numeric(h, A.with_values(2 * A.values), A).values, 2 * C.values)
+    assert torch.equal(bspgemm_numeric(h, A, A).values, C.values)
+    sp = A.to_scipy().astype(np.float64)
+    ref = (sp @ sp).toarray()
+    bound = (abs(sp) @ abs(sp)).toarray()
+    n_c = 6 * 4 + 1
+    err = np.abs(C.to_scipy().toarray() - ref)
+    assert (err <= n_c * torch.finfo(torch.float32).eps * bound + 1e-30).all()
+
+
+# tpukk's getrf (jax.lax.linalg.lu) on np.random.default_rng(21).standard_normal((8, 8)),
+# f64 and f32: its 0-based pivots and its permutation (A[perm] = L·U)
+TPUKK_GETRF_PIVOTS = np.array([2, 4, 2, 3, 6, 6, 6, 7])
+TPUKK_GETRF_PERM = np.array([2, 4, 0, 3, 6, 1, 5, 7])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_getrf_pivots_follow_tpukk_on_the_card(dev, dtype):
+    """torch.linalg.lu_factor's 1-based pivots come back 0-based, as
+    tpukk's; getrs takes them and solves."""
+    from tpukk_torch import lapack
+
+    A = torch.from_numpy(np.random.default_rng(21).standard_normal((8, 8))).to(dev, dtype)
+    lu, piv, perm = lapack.getrf(A)
+    np.testing.assert_array_equal(piv.cpu().numpy(), TPUKK_GETRF_PIVOTS)
+    np.testing.assert_array_equal(perm.cpu().numpy(), TPUKK_GETRF_PERM)
+    b = _x(8, dtype, dev, seed=7)
+    x = lapack.getrs(lu, piv, b)
+    assert float((A @ x - b).abs().max()) <= 1e3 * torch.finfo(dtype).eps * float(b.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_rotation_constructors_on_the_card(dev, dtype):
+    """rotg and rotmg put numbers on the CUDA device by default and keep a
+    card tensor's device; rotmg's drotmg rescaling and rotm agree with the
+    CPU's within 16·eps of each value."""
+    from tpukk_torch import blas
+
+    for fn, args in ((blas.rotg, (3.0, -4.0)), (blas.rotmg, (1e-12, 2.0, 1.0, 1.0))):
+        assert all(t.device.type == "cuda" for t in fn(*args))
+        got = fn(*(torch.tensor(v, dtype=dtype, device=dev) for v in args))
+        want = fn(*(torch.tensor(v, dtype=dtype) for v in args))
+        for g, w in zip(got, want):
+            assert g.device == dev and g.dtype == dtype
+            assert bool(((g.cpu() - w).abs() <= 16 * torch.finfo(dtype).eps * w.abs()).all())
+    x, y = _x(1000, dtype, dev, seed=3), _x(1000, dtype, dev, seed=4)
+    xr, yr = blas.rotm(x, y, want[3].to(dev))
+    xc, yc = blas.rotm(x.cpu(), y.cpu(), want[3])
+    tol = 4 * torch.finfo(dtype).eps * float(want[3].abs().max()) * (x.abs() + y.abs()).cpu()
+    assert bool(((xr.cpu() - xc).abs() <= tol).all() and ((yr.cpu() - yc).abs() <= tol).all())

@@ -6,7 +6,8 @@ which globs examples/, does not collect them.
 
 Tolerance: colorings, MIS-2 roots, RCB parts, bandwidths, supernode counts
 and iteration counts exactly; f64 solutions and products 1e-12 relative (max
-norm); f32 products and solves 1e-5 relative.  The f32 GMRES of
+norm); f32 products and solves 1e-5 relative (blas_wiki's reductions and
+products too); bf16 axpy exactly (one rounding of the same f32 value).  The f32 GMRES of
 rcm_reorder_solve is held to its residual only: its count is set by rounding
 (ROADMAP, section C).
 """
@@ -19,9 +20,10 @@ import torch
 import tpukk.containers as jkc
 import tpukk.graph as jg
 import tpukk.sparse as js
+from tpukk import blas as jblas
 
 NAMES = ["graph_wiki", "gmres_ex_real_A", "rcm_reorder_solve", "sptrsv_supernodal",
-         "banded_spgemm"]
+         "banded_spgemm", "sparse_wiki", "blas_wiki", "half_xpy"]
 
 
 def _main(name, capsys):
@@ -104,6 +106,62 @@ def test_banded_spgemm(capsys):
         np.testing.assert_array_equal(out[key].host_row_map(), C.host_row_map())
         np.testing.assert_array_equal(out[key].host_entries(), C.host_entries())
         assert _rel(out[key].values, C.host_values_full()) <= 1e-12
+
+
+def test_sparse_wiki(capsys):
+    out, printed = _main("sparse_wiki", capsys)
+    A = jkc.generate_structured_laplacian(32, 32, dtype=np.float32)
+    x = np.ones(A.ncols, np.float32)
+    assert _rel(out["y"], np.asarray(js.spmv(A, x))) <= 1e-5
+    assert out["C"].nnz == js.spadd(1.0, A, 1.0, A).nnz
+    C2 = js.spgemm(A, A)
+    assert out["C2"].nnz == C2.nnz and _rel(out["C2"].values, C2.host_values_full()) <= 1e-5
+    B = jkc.crs2bsr(jkc.generate_structured_laplacian(64, dtype=np.float32), 4)
+    assert js.SpmvHandle(B).algorithm.name == "DIA"
+    assert _rel(out["yb"], np.asarray(js.spmv(B, np.ones(B.ncols, np.float32)))) <= 1e-5
+    sp = A.to_scipy()
+    sp.setdiag(sp.diagonal() + 1.0)
+    Add = jkc.CsrMatrix.from_scipy(sp.tocsr())
+    h = js.GsHandle(js.GsAlgorithm.POINT)
+    js.gauss_seidel_symbolic(h, Add)
+    js.gauss_seidel_numeric(h, Add)
+    xs = js.gauss_seidel_apply(h, Add, None, np.ones(Add.nrows, np.float32), num_sweeps=5)
+    assert _rel(out["xs"], np.asarray(xs)) <= 1e-5
+    assert "bsr spmv" in printed and "rel residual" in printed
+
+
+def test_blas_wiki(capsys):
+    out, printed = _main("blas_wiki", capsys)
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal(1000).astype(np.float32)
+    y = rng.standard_normal(1000).astype(np.float32)
+    want = dict(
+        abs=jblas.blas1.abs(x)[0], axpy=jblas.axpy(2.0, x, y)[0], dot=jblas.dot(x, y),
+        fill=jblas.fill(x, 3.0)[0], mult=jblas.mult(1.0, y, 2.0, x, y)[0], nrm1=jblas.nrm1(x),
+        nrm2=jblas.nrm2(x), nrminf=jblas.nrminf(x), reciprocal=jblas.reciprocal(x)[0],
+        scal=jblas.scal(0.5, x)[0], update=jblas.update(1.0, x, 2.0, y, 0.0, y)[0])
+    A = rng.standard_normal((64, 32)).astype(np.float32)
+    v = rng.standard_normal(32).astype(np.float32)
+    want["gemv"] = jblas.gemv("N", 1.0, A, v, 0.0, np.zeros(64, np.float32))[0]
+    B = rng.standard_normal((32, 16)).astype(np.float32)
+    want["gemm"] = jblas.gemm("N", "N", 1.0, A, B, 0.0, np.zeros((64, 16), np.float32))[0, 0]
+    for key, w in want.items():
+        assert out[key].dtype == torch.float32
+        assert abs(float(out[key]) - float(w)) <= 1e-5 * max(1.0, abs(float(w))), key
+    assert int(out["iamax"]) == int(jblas.iamax(x))
+    assert "gemm ->" in printed
+
+
+def test_half_xpy(capsys):
+    import jax.numpy as jnp
+
+    out, printed = _main("half_xpy", capsys)
+    x = jnp.asarray(np.linspace(0, 1, 4096), jnp.bfloat16)
+    y = jnp.asarray(np.linspace(1, 0, 4096), jnp.bfloat16)
+    z = np.asarray(jblas.axpy(2.0, x, y).astype(jnp.float32))
+    assert out["z"].dtype == torch.bfloat16
+    np.testing.assert_array_equal(out["z"].float().numpy(), z)
+    assert "torch.bfloat16" in printed
 
 
 @pytest.mark.parametrize("name", NAMES)

@@ -37,6 +37,7 @@ from scipy.sparse.linalg import spsolve_triangular
 import tpukk.containers as jkc
 import tpukk.sparse as jsp
 from tpukk.sparse import gauss_seidel as jgs
+from tpukk_torch.common import TpuKKError
 from tpukk_torch.interop import csr_from_numpy, gs_symbolic_from_numpy
 from tpukk_torch.sparse import (ClusteringAlgorithm, GsAlgorithm, GsHandle, GsPrec, JacobiPrec,
                                 backward_sweep, forward_sweep, gauss_seidel_apply,
@@ -296,7 +297,9 @@ def test_gsprec_takes_fewer_pcg_iterations_than_jacobi_on_fem():
 
 def test_refuses_block_matrices_and_misuse():
     At = _port(jkc.generate_diag_dominant_csr(30, 3, dtype=np.float64, seed=8))
-    with pytest.raises(NotImplementedError, match="A2"):
+    # block matrices are ported (tests/test_torch_bsr.py); what is neither a
+    # CsrMatrix nor a BsrMatrix is refused
+    with pytest.raises(TpuKKError, match="CsrMatrix or a BsrMatrix"):
         gauss_seidel_symbolic(GsHandle(), object())
     h = GsHandle()
     with pytest.raises(Exception, match="symbolic first"):

@@ -28,6 +28,7 @@ from tpukk.sparse.spadd import spadd_symbolic as jspadd_symbolic
 from tpukk_torch.graph import (build_triangle_plan, triangle_count, triangle_count_device,
                                triangle_count_per_row)
 from tpukk_torch.graph.triangle import count_plain
+from tpukk_torch.common import TpuKKError
 from tpukk_torch.interop import csr_from_numpy
 from tpukk_torch.sparse import (SpaddHandle, bspadd, bspgemm, bspgemm_numeric,
                                 bspgemm_symbolic, spadd, spadd_numeric, spadd_symbolic)
@@ -161,7 +162,9 @@ def test_empty_graph_has_no_triangles():
                                      (bspgemm_numeric, (None,) * 3),
                                      (bspadd, (1.0, None, 1.0, None))])
 def test_block_variants_raise_naming_the_bsr_item(fn, args):
-    with pytest.raises(Exception, match="queue A item 2"):
+    """The block variants are ported (tests/test_torch_bsr.py); operands that
+    are not BsrMatrix are refused, naming what is required."""
+    with pytest.raises(TpuKKError, match="BsrMatrix"):
         fn(*args)
 
 

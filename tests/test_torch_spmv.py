@@ -575,7 +575,8 @@ def test_handle_caches_plans_and_refuses_unported(rng):
         sp = At.to_scipy().astype(np.float32).astype(np.float64)
         ref = (sp.T if mode == "T" else sp) @ x.float().double().numpy()
         np.testing.assert_allclose(yd.numpy(), ref, rtol=1e-12, atol=1e-12)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the BSR route is ported; on a CsrMatrix it is refused (it needs blocks)
+    with pytest.raises(TpuKKError, match="BsrMatrix"):
         SpmvHandle(At, SpmvAlgorithm.BSR)
     Ac = At.with_values(At.values.to(torch.complex128))
     with pytest.raises(NotImplementedError, match="ROADMAP"):

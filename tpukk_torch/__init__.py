@@ -8,9 +8,9 @@ nvcc at first use on a CUDA device, never at import (``_kernels.py``).
 """
 __version__ = "0.1.0"
 
-from . import common, containers, graph, interop, sparse
+from . import blas, common, containers, graph, interop, lapack, sparse
 from .containers import BsrMatrix, CcsMatrix, CooMatrix, CsrMatrix
 from .sparse import SpmvAlgorithm, SpmvHandle, spmm, spmv
 
-__all__ = ["common", "containers", "graph", "interop", "sparse", "BsrMatrix", "CcsMatrix",
-           "CooMatrix", "CsrMatrix", "SpmvAlgorithm", "SpmvHandle", "spmm", "spmv"]
+__all__ = ["blas", "common", "containers", "graph", "interop", "lapack", "sparse", "BsrMatrix",
+           "CcsMatrix", "CooMatrix", "CsrMatrix", "SpmvAlgorithm", "SpmvHandle", "spmm", "spmv"]

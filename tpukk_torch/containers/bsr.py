@@ -2,8 +2,9 @@
 (sparse/src/KokkosSparse_BsrMatrix.hpp): int32 ``row_map`` and block-column
 ids, and the values as a dense (nnz_blocks, b, b) tensor, on one device.
 
-The container only: the BSR SpMV, SpGEMM, SpADD and block Gauss-Seidel
-routes are not ported yet (ROADMAP queue A, item A2).
+Its SpMV routes are in ``sparse/spmv.py`` (``SpmvHandle`` on a BsrMatrix),
+its SpGEMM and SpADD in ``sparse/spgemm.py`` and ``sparse/spadd.py``
+(``bspgemm``, ``bspadd``), block Gauss-Seidel in ``sparse/gauss_seidel.py``.
 """
 from __future__ import annotations
 

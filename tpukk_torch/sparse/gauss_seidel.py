@@ -28,8 +28,15 @@ it), and so is the zero start (rows not yet written read 0, no fill);
 ``permuted=True`` keeps x and b in the permuted space for chained applies.
 A rank-2 b sweeps its columns
 together (K6 takes up to 16; wider ones go in chunks of 16) where ``tpukk``
-vmaps the single-column sweep.  Block (BSR) Gauss-Seidel raises, naming
-ROADMAP A2.
+vmaps the single-column sweep.
+
+* Block (BSR) Gauss-Seidel (the reference's block_gauss_seidel,
+  Test_Sparse_block_gauss_seidel.hpp), for a ``BsrMatrix``: symbolic colors
+  the block graph; numeric inverts the b×b diagonal blocks in one batch
+  (``torch.linalg.inv``) and builds ``SpmvHandle(A)``; each color of each
+  half-sweep is one matvec of that handle (one K1 launch where the block
+  graph is banded, AUTO's DIA route) and batched block updates
+  x_c ← (1-ω)·x_c + ω·D_c⁻¹·((b - A·x)_c + D_c·x_c), as in ``tpukk``.
 """
 from __future__ import annotations
 
@@ -41,7 +48,7 @@ import torch
 
 from ..common import check
 from ..common.tracing import annotate
-from ..containers import CsrMatrix
+from ..containers import BsrMatrix, CsrMatrix, StaticCrsGraph
 from ..graph.coloring import ColoringAlgorithm, color_sets, graph_color
 from . import gs_cuda
 from .spmv import SpmvHandle, _compute_dtype
@@ -49,8 +56,6 @@ from .spmv import SpmvHandle, _compute_dtype
 __all__ = ["GsAlgorithm", "ClusteringAlgorithm", "GsHandle", "gauss_seidel_symbolic",
            "gauss_seidel_numeric", "forward_sweep", "backward_sweep", "symmetric_sweep",
            "gauss_seidel_apply"]
-
-_BSR = "block (BSR) Gauss-Seidel waits on the BSR route (ROADMAP queue A, item A2)"
 
 
 class GsAlgorithm(enum.Enum):
@@ -93,6 +98,8 @@ class GsHandle:
         self.omega = 1.0
         # TWOSTAGE
         self._tw = None
+        # block (BSR): diagonal blocks, their inverses, the SpMV handle, color sets
+        self._blk = None
 
     @property
     def _blocks(self) -> dict:
@@ -100,17 +107,24 @@ class GsHandle:
         return {dt: plan.blocks for dt, plan in self._plans.items()}
 
 
-def _check_csr(A) -> None:
-    if not isinstance(A, CsrMatrix):
-        raise NotImplementedError(_BSR)
+def _check_matrix(A) -> None:
+    check(isinstance(A, (CsrMatrix, BsrMatrix)),
+          "gauss_seidel: a CsrMatrix or a BsrMatrix is required")
     check(A.nrows == A.ncols, "gauss_seidel: square matrix required")
 
 
 @annotate("gauss_seidel_symbolic")
-def gauss_seidel_symbolic(handle: GsHandle, A: CsrMatrix):
+def gauss_seidel_symbolic(handle: GsHandle, A):
     """Coloring and the color order (cf. gauss_seidel.hpp:46 →
-    graph_color_symbolic); CLUSTER clusters first."""
-    _check_csr(A)
+    graph_color_symbolic); CLUSTER clusters first.  A BsrMatrix routes to
+    block GS (the reference's block_gauss_seidel overloads): its block graph
+    is colored."""
+    _check_matrix(A)
+    if isinstance(A, BsrMatrix):
+        graph = StaticCrsGraph.from_arrays(A.host_row_map(), A.host_entries(), A.n_block_rows,
+                                           A.n_block_cols, device=A.device)
+        set_color_order(handle, graph, graph_color(graph, handle.coloring_algorithm))
+        return
     if handle.algorithm == GsAlgorithm.POINT:
         set_color_order(handle, A, graph_color(A, handle.coloring_algorithm))
     elif handle.algorithm == GsAlgorithm.CLUSTER:
@@ -136,6 +150,7 @@ def set_color_order(handle: GsHandle, A: CsrMatrix, colors, cluster_labels=None)
         colors, offsets, order, inv)
     handle.cluster_labels = cluster_labels
     handle._plans = {}
+    handle._blk = None
     handle.is_symbolic_called = True
 
 
@@ -187,14 +202,16 @@ def _cluster_colors(handle: GsHandle, A: CsrMatrix, labels: np.ndarray) -> np.nd
 
 
 @annotate("gauss_seidel_numeric")
-def gauss_seidel_numeric(handle: GsHandle, A: CsrMatrix, omega: float = 1.0):
+def gauss_seidel_numeric(handle: GsHandle, A, omega: float = 1.0):
     """K6's sweep plan: the permuted matrix's off-diagonal part, one CSR
     block per color, and 1/diag (cf. gauss_seidel.hpp:175); TWOSTAGE builds
-    its SpMV handles."""
-    _check_csr(A)
+    its SpMV handles; a BsrMatrix its diagonal blocks and their inverses."""
+    _check_matrix(A)
     check(handle.is_symbolic_called, "gauss_seidel_numeric: symbolic first")
     handle.omega = float(omega)
-    if handle.algorithm == GsAlgorithm.TWOSTAGE:
+    if isinstance(A, BsrMatrix):
+        _block_numeric(handle, A)
+    elif handle.algorithm == GsAlgorithm.TWOSTAGE:
         _twostage_numeric(handle, A)
     else:
         plan = _sweep_plan(handle, A)
@@ -233,6 +250,29 @@ def _sweep_plan(handle: GsHandle, A: CsrMatrix) -> gs_cuda.GsSweepPlan:
                                        handle.color_offsets, handle.order, A.device)
 
 
+def _block_numeric(handle: GsHandle, A: BsrMatrix) -> None:
+    """The diagonal block of each block row (``tpukk``'s check and message
+    where one lacks it), their inverses in one batch, and for each color its
+    block rows with their D and D⁻¹, in the compute dtype."""
+    rm = A.host_row_map().astype(np.int64)
+    ent = A.host_entries()
+    nb = A.n_block_rows
+    rows = np.repeat(np.arange(nb), np.diff(rm))
+    dpos = np.full(nb, -1, np.int64)
+    hits = np.nonzero(ent == rows)[0]
+    dpos[rows[hits]] = hits
+    check(bool((dpos >= 0).all()), "block GS: every block row needs a diagonal block")
+    dt = torch.promote_types(A.dtype, torch.float32)
+    D = A.values.to(dt)[torch.from_numpy(dpos).to(A.device)]
+    Dinv = torch.linalg.inv(D)
+    sets = []
+    for c in range(len(handle.color_offsets) - 1):
+        I = torch.from_numpy(handle.order[handle.color_offsets[c]:handle.color_offsets[c + 1]]
+                             .astype(np.int64)).to(A.device)
+        sets.append((I, D[I], Dinv[I]))
+    handle._blk = dict(h=SpmvHandle(A), sets=sets, bs=A.block_size)
+
+
 def _twostage_numeric(handle: GsHandle, A: CsrMatrix) -> None:
     import scipy.sparse as sps
 
@@ -265,6 +305,21 @@ def _plan_in(handle: GsHandle, dtype: torch.dtype) -> gs_cuda.GsSweepPlan:
         plan = handle._plans[dtype] = next(iter(handle._plans.values())).to(dtype)
     plan.reps = handle.cluster_inner_sweeps if handle.algorithm == GsAlgorithm.CLUSTER else 1
     return plan
+
+
+def _block_half_sweep(handle: GsHandle, x: torch.Tensor, b: torch.Tensor,
+                      forward: bool) -> torch.Tensor:
+    """One half-sweep of block GS over the colors in order (or reversed),
+    x updated in place: a color is one matvec and batched block updates."""
+    blk, omega = handle._blk, handle.omega
+    nb = x.shape[0] // blk["bs"]
+    xb = x.view(nb, blk["bs"], -1)
+    for I, D, Dinv in (blk["sets"] if forward else reversed(blk["sets"])):
+        r = (b - blk["h"].matvec(x)).view(nb, blk["bs"], -1)
+        xI = xb[I]
+        xc = torch.bmm(Dinv.to(x.dtype), r[I] + torch.bmm(D.to(x.dtype), xI))
+        xb.index_copy_(0, I, (1.0 - omega) * xI + omega * xc)
+    return x
 
 
 def _twostage_half_sweep(handle: GsHandle, x: torch.Tensor, b: torch.Tensor,
@@ -310,7 +365,7 @@ def symmetric_sweep(handle: GsHandle, A: CsrMatrix, x, b, num_sweeps: int = 1):
 
 
 @annotate("gauss_seidel_apply")
-def gauss_seidel_apply(handle: GsHandle, A: CsrMatrix, x, b, num_sweeps: int = 1,
+def gauss_seidel_apply(handle: GsHandle, A, x, b, num_sweeps: int = 1,
                        direction: str = "symmetric", permuted: bool = False):
     """Sweeps on A·x = b; returns the new x in x's dtype (b's when x is
     None, the init_zero_x_vector flag).  x is not modified.  A rank-2 b of
@@ -326,6 +381,19 @@ def gauss_seidel_apply(handle: GsHandle, A: CsrMatrix, x, b, num_sweeps: int = 1
           f"gauss_seidel_apply: b must be ({A.nrows},) or ({A.nrows}, k) on {A.device}")
     check(x is None or x.shape == b.shape, "gauss_seidel_apply: x and b shapes differ")
     out_dtype = b.dtype if x is None else x.dtype  # tpukk's result dtype
+    fwd = direction in ("forward", "symmetric")
+    bwd = direction in ("backward", "symmetric")
+    if handle._blk is not None:
+        # block GS: x and b stay in the natural order (permuted is not used)
+        dt = _compute_dtype(A, b)
+        b = b.to(dt).contiguous()
+        x = torch.zeros_like(b) if x is None else x.to(dt, copy=True).contiguous()
+        for _ in range(num_sweeps):
+            if fwd:
+                x = _block_half_sweep(handle, x, b, True)
+            if bwd:
+                x = _block_half_sweep(handle, x, b, False)
+        return x.to(out_dtype)
     if b.ndim == 2 and b.shape[1] > gs_cuda.GS_MAX_K and handle.algorithm != GsAlgorithm.TWOSTAGE:
         w = gs_cuda.GS_MAX_K
         return torch.cat([gauss_seidel_apply(handle, A, None if x is None else x[:, j:j + w],
@@ -333,8 +401,6 @@ def gauss_seidel_apply(handle: GsHandle, A: CsrMatrix, x, b, num_sweeps: int = 1
                           for j in range(0, b.shape[1], w)], dim=1)
     dt = _compute_dtype(A, b)
     b = b.to(dt).contiguous()
-    fwd = direction in ("forward", "symmetric")
-    bwd = direction in ("backward", "symmetric")
     if handle.algorithm == GsAlgorithm.TWOSTAGE:
         x = torch.zeros_like(b) if x is None else x.to(dt)
         for _ in range(num_sweeps):

@@ -15,23 +15,29 @@ Two phases, with the reference handle's reuse contract
 the row-wise numeric (and routes banded operands with full diagonals to DIA),
 DENSE_ACC a dense accumulator in torch ops for a narrow B, DEBUG scipy on the
 host, DIA the offset convolution of ``spgemm_dia.py``.
+
+Block (BSR) SpGEMM, ``bspgemm_symbolic``/``bspgemm_numeric``/``bspgemm``, is
+XLA work in ``tpukk`` and torch ops here: C's block pattern from the same
+host symbolic on the block graphs, a block pair plan on the host, and a
+batched ``bmm`` of the block pairs summed into C's blocks in pair order.
 """
 from __future__ import annotations
 
+import dataclasses
 import enum
 from typing import Optional
 
 import numpy as np
 import torch
 
-from ..common import TpuKKError, check
+from ..common import check
 from ..common.tracing import annotate
 from ..containers import CsrMatrix, StaticCrsGraph, expand_row_ids
 from .spgemm_cuda import SpgemmRowPlan, build_row_plan, spgemm_rows
 
 __all__ = ["SpgemmAlgorithm", "SpgemmHandle", "spgemm_symbolic", "spgemm_numeric",
-           "spgemm", "spgemm_jacobi", "symbolic_plain", "bspgemm_symbolic",
-           "bspgemm_numeric", "bspgemm"]
+           "spgemm", "spgemm_jacobi", "symbolic_plain", "BlockPairPlan",
+           "build_block_pair_plan", "bspgemm_symbolic", "bspgemm_numeric", "bspgemm"]
 
 
 class SpgemmAlgorithm(enum.Enum):
@@ -51,6 +57,7 @@ class SpgemmHandle:
         self.row_plan: Optional[SpgemmRowPlan] = None
         self.dia_plan = None
         self.c_graph: Optional[StaticCrsGraph] = None  # C's pattern on A's device
+        self.block_plan: Optional["BlockPairPlan"] = None  # bspgemm's pair plan
 
     @property
     def is_symbolic_called(self) -> bool:
@@ -200,16 +207,127 @@ def spgemm_jacobi(handle: SpgemmHandle, A: CsrMatrix, B: CsrMatrix, omega,
     return spadd(1.0, B, 1.0, scaled)
 
 
-_BSR = "BSR matrices are not ported yet (ROADMAP queue A item 2, the BSR route)"
+# ---------------------------------------------------------------------------
+# Block (BSR) SpGEMM — the bspgemm entry points
+# (sparse/impl/KokkosSparse_bspgemm_impl*.hpp, the BlockHashmapAccumulator
+# path).  The symbolic phase runs on the block graph; the numeric phase turns
+# each scalar product of the CSR case into a (b×b)·(b×b) block product.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class BlockPairPlan:
+    """The block products of C = A·B, C block by C block, in (A entry, B
+    entry) order within a C block: the flat index of each value of the A
+    block and of the B block of each product (block · b² + j, int32 where
+    it fits), and the number of products of each C block (the segment
+    sum's lengths)."""
+
+    a_flat: torch.Tensor  # (P·b²,)
+    b_flat: torch.Tensor  # (P·b²,)
+    c_len: torch.Tensor   # (nnz_blocks_c,) int64
+    nnzb_a: int           # the operands' block counts, checked on reuse
+    nnzb_b: int
+
+    @property
+    def n_products(self) -> int:
+        return int(self.c_len.sum())
 
 
+def build_block_pair_plan(rm_a, ent_a, rm_b, ent_b, rm_c, ent_c, ncols_c: int, block_size: int,
+                          device) -> BlockPairPlan:
+    """Host: expand every block product in (A entry, B entry) order, find its
+    C block by its (row, column) key in C's sorted pattern, and order the
+    products by C block, stably."""
+    rm_a, rm_b, rm_c = (np.asarray(r, np.int64) for r in (rm_a, rm_b, rm_c))
+    ent_a, ent_b, ent_c = (np.asarray(e, np.int64) for e in (ent_a, ent_b, ent_c))
+    expand = (rm_b[1:] - rm_b[:-1])[ent_a]          # products of each A entry
+    a_idx = np.repeat(np.arange(ent_a.size), expand)
+    start = np.repeat(np.cumsum(expand) - expand, expand)
+    b_idx = np.repeat(rm_b[ent_a], expand) + (np.arange(a_idx.size) - start)
+    rows_a = np.repeat(np.arange(rm_a.size - 1), np.diff(rm_a))
+    m = max(ncols_c, 1)
+    keys_c = np.repeat(np.arange(rm_c.size - 1), np.diff(rm_c)) * m + ent_c
+    c_pos = np.searchsorted(keys_c, rows_a[a_idx] * m + ent_b[b_idx])
+    order = np.argsort(c_pos, kind="stable")
+    c_len = np.bincount(c_pos, minlength=ent_c.size)
+    bb = block_size * block_size
+    flat_dt = np.int32 if max(ent_a.size, ent_b.size) * bb < 2**31 else np.int64
+
+    def flat(idx):
+        f = (idx[order, None] * bb + np.arange(bb)).astype(flat_dt)
+        return torch.from_numpy(f.reshape(-1)).to(device)
+
+    return BlockPairPlan(flat(a_idx), flat(b_idx), torch.from_numpy(c_len).to(device),
+                         ent_a.size, ent_b.size)
+
+
+def _check_bsr_pair(A, B, name: str) -> None:
+    from ..containers import BsrMatrix
+
+    check(isinstance(A, BsrMatrix) and isinstance(B, BsrMatrix),
+          f"{name}: BsrMatrix inputs required")
+    check(A.block_size == B.block_size, f"{name}: equal block sizes required")
+    check(A.ncols == B.nrows, f"{name}: inner dimension mismatch")
+    check(A.device == B.device, f"{name}: A on {A.device}, B on {B.device}")
+
+
+@annotate("bspgemm_symbolic")
 def bspgemm_symbolic(handle: SpgemmHandle, A, B):
-    raise TpuKKError(f"bspgemm_symbolic: {_BSR}")
+    """C's block pattern (host C++ on the block graphs) and the block pair
+    plan, kept in the handle on A's device."""
+    from .. import native
+
+    _check_bsr_pair(A, B, "bspgemm")
+    rm_c, ent_c = native.spgemm_symbolic(A.host_row_map(), A.host_entries(), A.n_block_rows,
+                                         B.n_block_cols, B.host_row_map(), B.host_entries())
+    handle.block_plan = build_block_pair_plan(A.host_row_map(), A.host_entries(),
+                                              B.host_row_map(), B.host_entries(), rm_c, ent_c,
+                                              B.n_block_cols, A.block_size, A.device)
+    handle.row_plan = handle.dia_plan = None
+    handle.c_graph = StaticCrsGraph.from_arrays(rm_c, ent_c, A.n_block_rows, B.n_block_cols,
+                                                device=A.device)
+    handle.nrows_c, handle.ncols_c, handle.block_size = A.nrows, B.ncols, A.block_size
+    return handle.row_map_c
 
 
+@annotate("bspgemm_numeric")
 def bspgemm_numeric(handle: SpgemmHandle, A, B):
-    raise TpuKKError(f"bspgemm_numeric: {_BSR}")
+    """C's blocks: the pair plan's block products in the compute dtype (A's,
+    at least f32, as ``tpukk``'s), summed into each C block in pair order
+    (``segment_reduce``: no atomics, the same bits every call).  New values
+    on the symbolic phase's patterns re-run only this."""
+    from ..containers import BsrMatrix
+
+    _check_bsr_pair(A, B, "bspgemm_numeric")
+    check(handle.block_plan is not None, "bspgemm_numeric: call bspgemm_symbolic first")
+    plan = handle.block_plan
+    check((A.nnz_blocks, B.nnz_blocks, A.block_size) == (plan.nnzb_a, plan.nnzb_b,
+                                                          handle.block_size),
+          "bspgemm_numeric: operands differ from the symbolic phase's")
+    dt = torch.promote_types(A.dtype, torch.float32)
+    check(not dt.is_complex, "bspgemm: complex values are not ported (ROADMAP queue A item 3)")
+    b = A.block_size
+    # gathers of single values: index_select of the b·b-value blocks ran 6-14×
+    # slower on the H100 (scripts/bsr_parts_torch.py)
+    pa = A.values.reshape(-1).index_select(0, plan.a_flat).view(-1, b, b).to(dt)
+    pb = B.values.reshape(-1).index_select(0, plan.b_flat).view(-1, b, b).to(dt)
+    if b <= 4:
+        # b products and a sum over them an entry: cuBLAS's batched bmm of
+        # millions of 2×2 and 4×4 products took 6-70× as long on the H100
+        prod = (pa[:, :, :, None] * pb[:, None, :, :]).sum(2)
+    else:
+        prod = torch.bmm(pa, pb)
+    vals = torch.segment_reduce(prod, "sum", lengths=plan.c_len, axis=0,
+                                unsafe=True).to(A.dtype)
+    g = handle.c_graph
+    C = BsrMatrix(g.row_map, g.entries, vals, handle.nrows_c, handle.ncols_c, handle.block_size)
+    C._prefill(row_map=g.host_row_map(), entries=g.host_entries())
+    return C
 
 
+@annotate("bspgemm")
 def bspgemm(A, B):
-    raise TpuKKError(f"bspgemm: {_BSR}")
+    """No-reuse convenience: C = A·B for BSR operands."""
+    h = SpgemmHandle(SpgemmAlgorithm.KK)
+    bspgemm_symbolic(h, A, B)
+    return bspgemm_numeric(h, A, B)

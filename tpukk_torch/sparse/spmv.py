@@ -23,8 +23,14 @@ ONEHOT             K3 ``csr_spmv``; a 2-D x with         their plain versions
 RCM                K5 ``permute_gather``, the AUTO       their plain versions
                    route of P·A·Pᵀ, K5 back
 ELL/SEGSUM/DENSE   torch ops                             torch ops
+BSR                torch ops (``spmv_impl.apply_bsr``)   torch ops
 DS                 the AUTO route, in native f64         the same
 =================  ====================================  =====================
+
+A ``BsrMatrix`` takes ``tpukk``'s routes (spmv.py:64-83): AUTO expands it to
+scalar CSR (``bsr2crs``, the blocks' explicit zeros kept) and takes DIA on
+that CSR where its diagonals pass the gate below (≤ 256 of them, stored
+within 4× the nnz); otherwise, and for any pinned algorithm, BSR.
 """
 from __future__ import annotations
 
@@ -38,16 +44,31 @@ from .. import native
 from ..common import check
 from ..common.permute import build_permute_plan, static_permute
 from ..common.tracing import profile_region, region_name
-from ..containers import CsrMatrix
+from ..containers import BsrMatrix, CsrMatrix, bsr2crs
 from ..containers.sort_crs import transpose as _transpose
 from . import spmv_cuda, spmv_impl
 from .spmv_impl import SpmvAlgorithm
 
 __all__ = ["SpmvAlgorithm", "SpmvHandle", "spmv", "spmm"]
 
-_NOT_PORTED = {
-    SpmvAlgorithm.BSR: "the BSR route is not ported yet (ROADMAP queue A, item A2)",
-}
+
+def _dia_gate(A: CsrMatrix, max_diags: int) -> bool:
+    """A's diagonals number at most ``max_diags`` and, stored dense, stay
+    within 4x of its nnz: the DIA route's condition."""
+    offs = spmv_impl.detect_dia_offsets(A, max_diags=max_diags)
+    return offs is not None and len(offs) * A.nrows <= 4 * max(A.nnz, 1)
+
+
+def _bsr_route(A: BsrMatrix, algorithm: SpmvAlgorithm):
+    """(matrix, route) of a BSR matrix (``tpukk`` spmv.py:64-83): AUTO takes
+    DIA on the scalar expansion of a banded block graph (each block diagonal
+    gives 2b-1 scalar diagonals, so the DIA kernels stream it), else BSR;
+    a pinned algorithm is BSR."""
+    if algorithm == SpmvAlgorithm.AUTO:
+        csr = bsr2crs(A)
+        if _dia_gate(csr, spmv_cuda.DIA_MAX_DIAGS):
+            return csr, SpmvAlgorithm.DIA
+    return A, SpmvAlgorithm.BSR
 
 
 def _choose_algorithm(A: CsrMatrix) -> SpmvAlgorithm:
@@ -57,8 +78,7 @@ def _choose_algorithm(A: CsrMatrix) -> SpmvAlgorithm:
     depend on the device, so the CPU takes the same routes."""
     if A.nrows * A.ncols <= 256 * 256:
         return SpmvAlgorithm.DENSE
-    offs = spmv_impl.detect_dia_offsets(A, max_diags=32)
-    if offs is not None and len(offs) * A.nrows <= 4 * max(A.nnz, 1):
+    if _dia_gate(A, 32):
         # dense-diagonal storage is within 4x of CSR nnz → streaming wins
         return SpmvAlgorithm.DIA
     if A.dtype in (torch.float32, torch.float64):
@@ -76,19 +96,22 @@ class SpmvHandle:
     """Reusable SpMV plan — analog of SPMVHandle
     (KokkosSparse_spmv_handle.hpp:91-135, setup caching across calls)."""
 
-    def __init__(self, A: CsrMatrix, algorithm: SpmvAlgorithm = SpmvAlgorithm.AUTO):
-        check(isinstance(A, CsrMatrix), "SpmvHandle: CSR matrices only (BSR: ROADMAP queue A)")
+    def __init__(self, A, algorithm: SpmvAlgorithm = SpmvAlgorithm.AUTO):
+        check(isinstance(A, (CsrMatrix, BsrMatrix)),
+              "SpmvHandle: a CsrMatrix or a BsrMatrix is required")
         if A.dtype.is_complex:
             raise NotImplementedError(
                 "complex SpMV is not ported yet (ROADMAP queue A, item A3)")
-        if algorithm in _NOT_PORTED:
-            raise NotImplementedError(_NOT_PORTED[algorithm])
-        self.A = A
         self._user_algorithm = algorithm
-        # DS: native f64 on this hardware, so it is AUTO's route computed in f64
-        self.algorithm = (_choose_algorithm(A)
-                          if algorithm in (SpmvAlgorithm.AUTO, SpmvAlgorithm.DS)
-                          else algorithm)
+        if isinstance(A, BsrMatrix):
+            self.A, self.algorithm = _bsr_route(A, algorithm)
+        else:
+            check(algorithm != SpmvAlgorithm.BSR, "SpmvHandle: the BSR route needs a BsrMatrix")
+            self.A = A
+            # DS: native f64 on this hardware, so it is AUTO's route computed in f64
+            self.algorithm = (_choose_algorithm(A)
+                              if algorithm in (SpmvAlgorithm.AUTO, SpmvAlgorithm.DS)
+                              else algorithm)
         self._plans = {}
         self._transposed: Optional["SpmvHandle"] = None
 
@@ -111,6 +134,8 @@ class SpmvHandle:
             return spmv_impl.build_segsum_plan(A, dtype)
         if key == "dense":
             return A.to_dense().to(dtype)
+        if key == "bsr_rows":
+            return spmv_impl.build_bsr_rows(A, dtype)
         raise KeyError(key)  # pragma: no cover
 
     def _rcm_plan(self):
@@ -143,6 +168,7 @@ class SpmvHandle:
 
     def transposed(self) -> "SpmvHandle":
         if self._transposed is None:
+            check(isinstance(self.A, CsrMatrix), "transpose mode: CSR only for now")
             self._transposed = SpmvHandle(_transpose(self.A), self.algorithm)
         return self._transposed
 
@@ -168,6 +194,8 @@ class SpmvHandle:
             return spmv_impl.apply_segsum(self._plan("segsum", dt), x)
         if alg == SpmvAlgorithm.DENSE:
             return spmv_impl.apply_dense(self._plan("dense", dt), x)
+        if alg == SpmvAlgorithm.BSR:
+            return spmv_impl.apply_bsr(self._plan("bsr_rows", dt), x)
         if alg == SpmvAlgorithm.RCM:
             perm_h, to_p, from_p = self._rcm_plan()
             return static_permute(from_p, perm_h.matvec(static_permute(to_p, x)))
@@ -188,7 +216,8 @@ class SpmvHandle:
         _check_dims(h.A, x, y)
         # algorithm-labelled region, the pushRegion analog
         # (sparse/src/KokkosSparse_spmv.hpp:261-266)
-        ds = self._user_algorithm == SpmvAlgorithm.DS
+        # a pinned DS on a BSR matrix is the BSR route at x's dtype, as in tpukk
+        ds = self._user_algorithm == SpmvAlgorithm.DS and self.algorithm != SpmvAlgorithm.BSR
         with profile_region(region_name("spmv", m, h.algorithm.name)):
             ax = h.matvec(x.double() if ds else x)
             if y is None or _is_zero(beta):
@@ -207,7 +236,7 @@ def _is_one(c):
     return isinstance(c, (int, float)) and c == 1
 
 
-def _check_dims(A: CsrMatrix, x: torch.Tensor, y):
+def _check_dims(A, x: torch.Tensor, y):
     check(isinstance(x, torch.Tensor), "spmv: x must be a torch tensor")
     check(x.device == A.device, f"spmv: x on {x.device}, matrix on {A.device}")
     check(x.ndim in (1, 2), f"spmv: x must be rank 1 or 2, got rank {x.ndim}")
@@ -220,7 +249,7 @@ def _check_dims(A: CsrMatrix, x: torch.Tensor, y):
 _handle_cache: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
-def _cached_handle(A: CsrMatrix) -> SpmvHandle:
+def _cached_handle(A) -> SpmvHandle:
     h = _handle_cache.get(A)
     if h is None:
         h = _handle_cache[A] = SpmvHandle(A)
@@ -229,8 +258,8 @@ def _cached_handle(A: CsrMatrix) -> SpmvHandle:
 
 def spmv(A, x, alpha=1.0, beta=0.0, y=None, mode: str = "N",
          algorithm: SpmvAlgorithm = SpmvAlgorithm.AUTO):
-    """Handle-less overload (KokkosSparse_spmv.hpp:77): builds, and for AUTO
-    caches per matrix, a handle."""
+    """Handle-less overload (KokkosSparse_spmv.hpp:77) for a CsrMatrix or a
+    BsrMatrix: builds, and for AUTO caches per matrix, a handle."""
     h = _cached_handle(A) if algorithm == SpmvAlgorithm.AUTO else SpmvHandle(A, algorithm)
     return h(x, alpha=alpha, beta=beta, y=y, mode=mode)
 

@@ -73,6 +73,9 @@ _on_cuda = _kernels.on_cuda
 # K1 / K2: DIA
 # ----------------------------------------------------------------------
 
+DIA_MAX_DIAGS = 256  # csrc/dia.cu's kMaxDiags: the offsets a block stages
+
+
 def dia_plain(plan: DiaPlan, x: torch.Tensor) -> torch.Tensor:
     """Plain version of K1 and K2: shifted-slice sums (``apply_dia``)."""
     return apply_dia(plan, x)
@@ -82,7 +85,7 @@ def _check_dia(plan: DiaPlan, x: torch.Tensor, ndim: int, name: str) -> None:
     check(x.ndim == ndim, f"{name}: x must be rank-{ndim}, got rank {x.ndim}")
     check(x.shape[0] == plan.ncols, f"{name}: x has {x.shape[0]} rows, plan {plan.ncols} cols")
     check(plan.diags.dtype in _DTYPE_CODE, f"{name}: plan dtype {plan.diags.dtype} not f32/f64")
-    check(len(plan.offsets) <= 256, f"{name}: at most 256 diagonals")
+    check(len(plan.offsets) <= DIA_MAX_DIAGS, f"{name}: at most {DIA_MAX_DIAGS} diagonals")
     _check_operand(x, name, plan.diags.dtype, plan.diags.device)
     check(plan.diags.is_contiguous() and plan.offsets_dev.device == x.device,
           f"{name}: plan arrays must be contiguous and on x's device")

@@ -9,6 +9,11 @@ ops:
 * SEGSUM — per-entry products summed into rows with ``index_add_``.
 * DENSE — densify a tiny matrix and ``torch.matmul`` (f32 matmuls run in full
   f32: ``torch.backends.cuda.matmul.allow_tf32`` is False by default).
+* BSR — gather x's blocks by block column, one (b×b)·(b×k) product a stored
+  block (elementwise products summed a row for a vector, ``torch.bmm`` for a
+  multivector), and a segment sum over each block row's run
+  of blocks in CSR order (``torch.segment_reduce``: no atomics, so two calls
+  on the same input give the same bits).
 
 Plans are built once per (matrix, compute dtype) on the host and moved to the
 matrix's device (the symbolic/numeric split of the reference's SPMVHandle,
@@ -24,7 +29,7 @@ import numpy as np
 import torch
 
 from ..common import check, round_up
-from ..containers import CsrMatrix, expand_row_ids
+from ..containers import BsrMatrix, CsrMatrix, expand_row_ids
 
 __all__ = [
     "SpmvAlgorithm",
@@ -32,13 +37,16 @@ __all__ = [
     "EllPlan",
     "DiaPlan",
     "SegsumPlan",
+    "BsrPlan",
     "detect_dia_offsets",
     "build_dia_plan",
     "build_ell_plan",
     "build_segsum_plan",
+    "build_bsr_rows",
     "apply_dia",
     "apply_ell",
     "apply_segsum",
+    "apply_bsr",
     "apply_dense",
 ]
 
@@ -51,7 +59,7 @@ class SpmvAlgorithm(enum.Enum):
     ELL = "ell"            # bucketed padded rows (replaces MERGE_PATH)
     SEGSUM = "segsum"      # per-nnz segmented reduction (replaces NATIVE)
     DENSE = "dense"        # densify + matmul
-    BSR = "bsr"            # block CSR (not ported yet: ROADMAP queue A)
+    BSR = "bsr"            # block CSR: batched block products + block-row sums
     DIA = "dia"            # diagonal-offset streaming: the DIA CUDA kernels
     PALLAS = "pallas"      # tpukk's hand-written kernel path: the DIA CUDA kernels
     ONEHOT = "onehot"      # unstructured route: the CSR CUDA kernel
@@ -253,6 +261,51 @@ def apply_segsum(plan: SegsumPlan, x: torch.Tensor) -> torch.Tensor:
     prod = (plan.vals if x.ndim == 1 else plan.vals[:, None]) * xg
     out = torch.zeros((plan.nrows,) + tuple(x.shape[1:]), dtype=prod.dtype, device=x.device)
     return out.index_add_(0, plan.rows, prod)
+
+
+# ----------------------------------------------------------------------
+# BSR — batched block products, summed over each block row
+# ----------------------------------------------------------------------
+
+@dataclasses.dataclass
+class BsrPlan:
+    """A BSR matrix's blocks in the compute dtype, the x index of each of
+    their columns, and the number of blocks in each block row, on the
+    matrix's device."""
+
+    values: torch.Tensor    # (nnz_blocks, b, b)
+    cols: torch.Tensor      # (nnz_blocks * b,) int32: block column · b + j
+    lengths: torch.Tensor   # (n_block_rows,) int64 blocks a block row
+    n_block_rows: int
+    block_size: int
+
+
+def build_bsr_rows(A: BsrMatrix, dtype: torch.dtype) -> BsrPlan:
+    """The BSR route's plan (``tpukk``'s per-block row ids, here as block-row
+    lengths for the segment sum)."""
+    b = A.block_size
+    rm = A.host_row_map().astype(np.int64)
+    cols = (A.host_entries().astype(np.int64)[:, None] * b + np.arange(b)).astype(np.int32)
+    return BsrPlan(A.values.to(dtype).contiguous(), torch.from_numpy(cols.reshape(-1)).to(A.device),
+                   torch.from_numpy(np.diff(rm)).to(A.device), A.n_block_rows, b)
+
+
+def apply_bsr(plan: BsrPlan, x: torch.Tensor) -> torch.Tensor:
+    """y = A·x for BSR, x of shape (ncols,) or (ncols, k) in the plan's dtype:
+    gather x's blocks, one (b×b)·(b×k) product a stored block, and each block
+    row's products summed in CSR order."""
+    b = plan.block_size
+    # a gather of single values: torch's row gathers of b-value rows ran 40×
+    # slower on the H100 (scripts/bsr_parts_torch.py)
+    xg = x.index_select(0, plan.cols).view(-1, b, *x.shape[1:])  # (nnzb, b[, k])
+    if x.ndim == 1:
+        # b products and a sum over them a row: cuBLAS's batched bmm of 1M
+        # (4×4)·(4×1) products took 5× as long on the H100
+        prod = (plan.values * xg[:, None, :]).sum(-1)
+    else:
+        prod = torch.bmm(plan.values, xg)
+    yb = torch.segment_reduce(prod, "sum", lengths=plan.lengths, axis=0, unsafe=True)
+    return yb.reshape((plan.n_block_rows * b,) + tuple(x.shape[1:]))
 
 
 # ----------------------------------------------------------------------

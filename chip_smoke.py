@@ -6,9 +6,15 @@ symbolic/numeric with reuse, banded DIA SpGEMM, a smoothed-aggregation set-up
 through spgemm_jacobi, SpADD, triangle counting), the factor-and-solve path
 (supernodal and imported-factor triangular solves, PAR_ILUT, MDF, the ILU(k)
 device refresh), the gather-table probe, the sixth slice (spmv_struct,
-TpukkHandle, the conversions, five examples) and the seventh: SpMV on BSR
+TpukkHandle, the conversions, five examples), the seventh: SpMV on BSR
 matrices (AUTO's DIA expansion of a banded block graph on K1/K2, the BSR
-route in torch ops), bspgemm, bspadd, block Gauss-Seidel, BLAS and LAPACK.
+route in torch ops), bspgemm, bspadd, block Gauss-Seidel, BLAS and LAPACK;
+and the eighth, complex values: SpMV modes N/T/C/H on a 1M-row magnetic
+Laplacian (K1, complex128 and complex64), on rand100k with complex64 values
+and on fem2d_30k + 0.5i·diag (K3), Jacobi PCG on the magnetic Laplacian,
+GMRES on the complex FEM matrix (Jacobi, imported complex SuperLU factors,
+RCM on K5's real views), SEQLVLSCHD and SUPERNODAL solves (K4), A·A with
+reuse (K8), SpADD and bspgemm in complex.
 
     python3 chip_smoke.py
 
@@ -59,6 +65,7 @@ ROOT = Path(__file__).resolve().parent
 # and peak non-tensor-core flop/s by dtype (SXM part at 700 W)
 HBM_BYTES_PER_S = (("h100 pcie", 2.0e12), ("h100 nvl", 3.9e12), ("h100", 3.35e12))
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+PARTS = {"complex64": "float32", "complex128": "float64"}  # a complex type's parts
 # and of a dense matmul at full precision: f32 without TF32 on the CUDA cores,
 # f64 on the FP64 tensor cores
 PEAK_MATMUL_FLOPS = {"float32": 67e12, "float64": 67e12}
@@ -779,7 +786,8 @@ def main() -> int:
         rm, ent = C.host_row_map(), C.host_entries()
         pattern = bool(np.array_equal(rm, bound.indptr) and np.array_equal(ent, bound.indices))
         require(pattern, f"{label}: pattern differs from scipy's structural product")
-        Cs = sps.csr_matrix((C.values.double().cpu().numpy(), ent, rm), shape=C.shape)
+        wide = np.complex128 if C.dtype.is_complex else np.float64
+        Cs = sps.csr_matrix((C.values.cpu().numpy().astype(wide), ent, rm), shape=C.shape)
         diff = abs(Cs - ref).tocsr()
         inv_tol = bound.copy()
         inv_tol.data = 1.0 / np.maximum(k * torch.finfo(dtype).eps * bound.data, 1e-300)
@@ -980,11 +988,13 @@ def main() -> int:
         """|x - x_ref| <= M(T)⁻¹·(c·eps·|T||x|) elementwise (M(T) the
         comparison matrix), in f64 on the host; x_ref = spsolve_triangular
         (c = 40), or another solve, each within 40 of the exact one (c = 80)."""
-        T64 = Tsp.astype(np.float64).tocsr()
-        xh, bh = x.double().cpu().numpy(), b.double().cpu().numpy()
-        against = "spsolve_triangular in f64" if ref is None else "the batched plan"
+        wide = np.complex128 if x.dtype.is_complex else np.float64
+        T64 = Tsp.astype(wide).tocsr()
+        xh, bh = (t.cpu().numpy().astype(wide) for t in (x, b))
+        against = f"spsolve_triangular in {np.dtype(wide).name}" if ref is None \
+            else "the batched plan"
         ref = spla.spsolve_triangular(T64, bh, lower=lower) if ref is None \
-            else ref.double().cpu().numpy()
+            else ref.cpu().numpy().astype(wide)
         Ta = abs(T64).tocsr()
         M = -Ta                      # the diagonal is stored: setdiag keeps the pattern
         M.setdiag(Ta.diagonal())
@@ -1656,6 +1666,299 @@ def main() -> int:
          svd_ms=event_ms(lambda: lapack.svd(Al), 1))
     del Al, Sl, U, Vh, Q, Rq, Lf, lu, Tl, Xl
 
+    # ---- 3k. the eighth slice: complex values (K1, K3, K4 and K8 in complex64
+    # and complex128, K5 on real views): SpMV modes N/T/C/H, Hermitian PCG,
+    # GMRES, triangular solves, SpGEMM, SpADD, bspgemm; inputs from a generator
+    # of their own --------------------------------------------------------------
+    from tpukk_torch.sparse import spadd
+
+    rng_c = np.random.default_rng(21)
+    c64, c128 = torch.complex64, torch.complex128
+
+    def cvec(n, dtype):
+        return torch.from_numpy(rng_c.standard_normal(n) + 1j * rng_c.standard_normal(n)).to(
+            dev, dtype)
+
+    def magnetic_laplacian(nx, ny, phi=0.01):
+        """4I − Σ e^{iθ} over the grid's neighbours in the Landau gauge: x-edges
+        real, the y-edge (i_x, i_y)–(i_x, i_y + 1) with θ = 2πφ·i_x; Hermitian
+        and positive definite, lap1000's pattern."""
+        n = nx * ny
+        ix = np.arange(n) % nx
+        ex = (ix[:-1] < nx - 1).astype(float)
+        ey = np.exp(2j * np.pi * phi * ix[:-nx])
+        H = sps.diags([-ey.conj(), -ex, np.full(n, 4.0), -ex, -ey], [-nx, -1, 0, 1, nx],
+                      format="csr").astype(np.complex128)
+        H.eliminate_zeros()
+        H.sort_indices()
+        return H
+
+    def host_check_c(op, x, got, label):
+        """|got - op·x| <= 20·eps·(|op||x|) elementwise, complex128 on the host."""
+        xh = x.cpu().numpy().astype(np.complex128)
+        ref = op @ xh
+        bound = abs(op) @ np.abs(xh)
+        err = np.abs(got.cpu().numpy().astype(np.complex128) - ref)
+        require(bool((err <= 20 * torch.finfo(got.dtype).eps * bound + 1e-300).all()),
+                f"{label}: wrong vs scipy")
+        return float(err.max())
+
+    t0 = time.perf_counter()
+    Hs = magnetic_laplacian(1000, 1000)
+    mag = {c128: CsrMatrix.from_scipy(Hs, device=dev),
+           c64: CsrMatrix.from_scipy(Hs.astype(np.complex64), device=dev)}
+    rsc = rnd.to_scipy().astype(np.complex64)
+    rsc.data = rsc.data + 1j * rng_c.standard_normal(rsc.nnz).astype(np.float32)
+    rnd_c = CsrMatrix.from_scipy(rsc, device=dev)
+    fs = fem.to_scipy()
+    fsc = (fs.astype(np.complex128) + 0.5j * sps.diags(fs.diagonal())).tocsr()
+    fsc.sort_indices()
+    fem_c = CsrMatrix.from_scipy(fsc, device=dev)
+    emit("complex_matrices", seconds=time.perf_counter() - t0,
+         magnetic_lap1000=[Hs.shape[0], Hs.nnz, "complex128 and complex64, phi 0.01"],
+         rand100k=[rsc.shape[0], rsc.nnz, "complex64"],
+         fem2d_30k_shifted=[fsc.shape[0], fsc.nnz, "complex128, A + 0.5i diag(A)"])
+    require(Hs.nnz == lap.nnz, f"magnetic lap1000: {Hs.nnz} nnz, lap1000 {lap.nnz}")
+
+    cplx_plans = {}
+    for label, A, sp, route, kern in (
+            ("magnetic lap1000 c128", mag[c128], Hs, SpmvAlgorithm.DIA, "dia_spmv"),
+            ("magnetic lap1000 c64", mag[c64], Hs.astype(np.complex64), SpmvAlgorithm.DIA,
+             "dia_spmv"),
+            ("rand100k c64", rnd_c, rsc, SpmvAlgorithm.ONEHOT, "csr_spmv"),
+            ("fem2d_30k + 0.5i diag c128", fem_c, fsc, SpmvAlgorithm.ONEHOT, "csr_spmv")):
+        dt = A.dtype
+        # the kernel against its plain version at this shape
+        xk = cvec(A.ncols, dt)
+        if route == SpmvAlgorithm.DIA:
+            pl = build_dia_plan(A, dtype=dt)
+            apl = dataclasses.replace(pl, diags=pl.diags.abs())
+            hold("dia_spmv", label, kc.dia_spmv(pl, xk), kc.dia_plain(pl, xk),
+                 kc.dia_plain(apl, xk.abs()), dt)
+        else:
+            pl = kc.build_csr_plan(A, dt)
+            apl = dataclasses.replace(pl, values=pl.values.abs())
+            hold("csr_spmv", f"{label} sum", kc.csr_spmv(pl, xk), kc.csr_plain(pl, xk),
+                 kc.csr_plain(apl, xk.abs()), dt)
+        cplx_plans[label] = (A, pl, xk)
+        hc = SpmvHandle(A)
+        require(hc.algorithm == route, f"{label}: AUTO took {hc.algorithm}, not {route}")
+        xc = cvec(A.ncols, dt)
+        modes = {}
+        for mode, op in (("N", sp), ("T", sp.T), ("C", sp.conj()), ("H", sp.conj().T)):
+            hc(xc, mode=mode)  # the transposed and conjugated handles, built outside the counts
+            yc, counts, _ = counted(f"complex spmv {label} {mode}", lambda: hc(xc, mode=mode),
+                                    (kern,))
+            require(counts[kern] == 1 and sum(counts.values()) == 1,
+                    f"complex spmv {label} {mode}: {counts}")
+            modes[mode] = host_check_c(op.astype(np.complex128).tocsr(), xc, yc,
+                                       f"complex spmv {label} {mode}")
+        emit("main_complex_spmv", case=label, route=route.name, kernel=kern, dtype=str(dt),
+             nnz=A.nnz, max_abs_err_vs_scipy=modes, launches_per_call=1,
+             tol="20*eps*(|op(A)||x|)_i, complex128 on the host")
+
+    # Jacobi PCG on the Hermitian positive definite H + 0.01·I (K1)
+    Hp = (Hs + 0.01 * sps.identity(Hs.shape[0], format="csr")).tocsr()
+    Hp.sort_indices()
+    Hpm = CsrMatrix.from_scipy(Hp, device=dev)
+    bH = cvec(Hpm.nrows, c128)
+    AhH, precH = SpmvHandle(Hpm), JacobiPrec(Hpm)
+    AhH._plan("dia", c128)
+    (xH, stH), counts, wall = counted(
+        "pcg magnetic lap1000", lambda: pcg(AhH, bH, tol=1e-8, max_iters=5000, prec=precH),
+        ("dia_spmv",))
+    bHh = bH.cpu().numpy()
+    relH = float(np.linalg.norm(bHh - Hp @ xH.cpu().numpy()) / np.linalg.norm(bHh))
+    require(stH.converged and relH <= 1e-7, f"pcg magnetic lap1000: {stH}, host residual {relH}")
+    emit("main_pcg_magnetic_lap1000", dtype="complex128", prec="Jacobi", iters=stH.num_iters,
+         rel_res_host=relH, tol="1e-7 host-checked (PCG limit)", seconds=wall,
+         us_per_iter=wall / stH.num_iters * 1e6, launches=counts)
+    del AhH, precH, xH
+
+    # GMRES(50) on the complex-shifted FEM matrix: Jacobi; imported complex
+    # SuperLU factors (SUPERNODAL: two K4 launches an apply, no K5); RCM (K5)
+    bgc = cvec(fem_c.nrows, c128)
+
+    def gmres_c(label, handle, prec, needs):
+        (xg, stg), counts, wall = counted(label, lambda: gmres(handle, fem_c, bgc, prec=prec),
+                                          needs)
+        bh = bgc.cpu().numpy()
+        rel = float(np.linalg.norm(bh - fsc @ xg.cpu().numpy()) / np.linalg.norm(bh))
+        require(stg.converged and rel <= 2e-8, f"{label}: {stg}, host residual {rel}")
+        return dict(iters=stg.num_iters, rel_res_host=rel, seconds=wall,
+                    us_per_iter=wall / stg.num_iters * 1e6, launches=counts)
+
+    gm_rows = {"jacobi": gmres_c("gmres complex jacobi",
+                                 GmresHandle(m=50, tol=1e-8, max_restarts=50, reorder="none"),
+                                 JacobiPrec(fem_c), ("csr_spmv",))}
+    t = time.perf_counter()
+    lu_c = spla.splu(fsc.tocsc())
+    slu_c = superlu_import(lu_c, SptrsvAlgorithm.SUPERNODAL, device=dev)
+    import_c_s = time.perf_counter() - t
+    _, counts, _ = counted("complex superlu apply", lambda: slu_c.apply(bgc), ("sptrsv_levels",))
+    require(counts["sptrsv_levels"] == 2 and sum(counts.values()) == 2,
+            f"complex superlu apply: {counts}, not two K4 launches")
+    gm_rows["superlu SUPERNODAL"] = gmres_c("gmres complex superlu",
+                                            GmresHandle(m=50, tol=1e-8, max_restarts=5), slu_c,
+                                            ("sptrsv_levels", "csr_spmv"))
+    gm_rows["superlu SUPERNODAL"].update(apply_launches=counts, import_s=import_c_s)
+    gm_rows["none, reorder=rcm"] = gmres_c(
+        "gmres complex rcm", GmresHandle(m=50, tol=1e-8, max_restarts=100, reorder="rcm"), None,
+        ("permute_gather", "csr_spmv"))
+    emit("main_gmres_complex_fem2d30k", matrix="fem2d_30k + 0.5i diag(A), complex128", m=50,
+         tol="2e-8 host-checked", **gm_rows)
+
+    # K5 on complex values, exactly (complex64 moves as f64, complex128 as rows
+    # of two f64): at the complex GMRES's RCM permutation, SuperLU's 30,000-row
+    # pivoting and the timed 1M permutation, as vectors and as (n, k) rows
+    rcm_src = SpmvHandle(fem_c)._rcm_plan()[1].src
+    prng = np.random.default_rng(22)  # leaves rng_c's later draws as they were
+    for label, src, k in (("fem2d_30k RCM (complex GMRES)", rcm_src, 1),
+                          ("superlu row permutation of 30,000", perm30k, 1),
+                          ("random permutation of 1,000,000", perm1m, 1),
+                          ("fem2d_30k RCM (complex GMRES)", rcm_src, 4),
+                          ("fem2d_30k RCM (complex GMRES)", rcm_src, 3),
+                          ("random permutation of 1,000,000", perm1m, 2)):
+        n = src.shape[0]
+        xs = prng.standard_normal((n, k)) + 1j * prng.standard_normal((n, k))
+        for dt in (c64, c128):
+            xv = torch.from_numpy(xs[:, 0] if k == 1 else xs).to(dev, dt)
+            hold_perm(f"{label}, k={k}", src, xv)
+
+    # triangular solves: SEQLVLSCHD on the magnetic Laplacian's triangles (1,999
+    # levels, one K4 launch a solve), SUPERNODAL on the complex SuperLU factors
+    cplx_k4 = {}
+    for tri, lower, Tsp in (("L", True, sps.tril(Hs).tocsr()), ("U", False, sps.triu(Hs).tocsr())):
+        Tsp.sort_indices()
+        Tm = CsrMatrix.from_scipy(Tsp, device=dev)
+        hs = SptrsvHandle(lower=lower)
+        sptrsv_symbolic(hs, Tm)
+        require(hs.plan.dtype == c128 and hs.plan.words.numel() == 4 * Tm.nrows,
+                f"magnetic {tri}: plan {hs.plan.dtype}, {hs.plan.words.numel()} words")
+        label = f"magnetic lap1000 {tri} c128 SEQLVLSCHD, {hs.num_levels} levels"
+        hold_trsv(f"{label}, src = dst = order", hs.plan, cvec(Tm.nrows, c128), hs.plan.order,
+                  hs.plan.order)
+        bt = cvec(Tm.nrows, c128)
+        xt, counts, _ = counted(label, lambda: sptrsv_solve(hs, Tm, bt), ("sptrsv_levels",))
+        require(counts["sptrsv_levels"] == 1 and sum(counts.values()) == 1,
+                f"{label}: {counts}, not one K4 launch")
+        emit("main_sptrsv_complex", case=label, levels=hs.num_levels, launches=counts,
+             us_per_solve=event_ms(lambda: sptrsv_solve(hs, Tm, bt), 5) * 1e3,
+             vs_scipy=solve_vs_scipy(label, Tsp, xt, bt, lower))
+        cplx_k4[f"magnetic lap1000 {tri}"] = (hs, Tm)
+    for tri, lower, hn, Tm in (("L", True, slu_c.Lh, slu_c.L), ("U", False, slu_c.Uh, slu_c.U)):
+        fp = hn.sn_plan
+        require(isinstance(fp, FusedSupernodalPlan) and fp.dtype == c128,
+                f"complex supernodal {tri}: not the complex128 DAG")
+        label = f"fem2d_30k + 0.5i diag SuperLU {tri} c128 SUPERNODAL"
+        hold_dag(label, fp, cvec(Tm.nrows, c128))
+        bt = cvec(Tm.nrows, c128)
+        xt, counts, _ = counted(label, lambda: sptrsv_solve(hn, Tm, bt), ("sptrsv_levels",))
+        require(counts["sptrsv_levels"] == 1 and sum(counts.values()) == 1,
+                f"{label}: {counts}, not one K4 launch")
+        emit("main_sptrsv_complex", case=label, dag_rows=fp.num_rows_dag,
+             dag_k4_levels=fp.num_levels, supernodes=fp.num_supernodes, launches=counts,
+             us_per_solve=event_ms(lambda: sptrsv_solve(hn, Tm, bt), 20) * 1e3,
+             vs_scipy=solve_vs_scipy(label, Tm.to_scipy().tocsr(), xt, bt, lower))
+        cplx_k4[f"fem2d_30k SuperLU {tri}"] = (hn, Tm)
+
+    # SpGEMM A·A with reuse (K8, bit for bit to its plain version), SpADD, bspgemm
+    cplx_k8 = {}
+    for label, A, sp in (("fem2d_30k + 0.5i diag c128", fem_c, fsc), ("rand100k c64", rnd_c, rsc)):
+        hh = SpgemmHandle(SpgemmAlgorithm.KK)
+        spgemm_symbolic(hh, A, A)
+        plan = hh.row_plan
+        require(plan is not None and hh.dia_plan is None, f"spgemm {label}: not on the row plan")
+        hold_k8(f"{label} A·A", plan, A.values, A.values)
+        C, counts, wall = counted(f"complex spgemm {label}", lambda: spgemm_numeric(hh, A, A),
+                                  ("spgemm_rows",))
+        A2 = A.with_values(2 * A.values)
+        C2, counts2, wall2 = counted(f"complex spgemm reuse {label}",
+                                     lambda: spgemm_numeric(hh, A2, A2), ("spgemm_rows",))
+        require(torch.equal(C2.values, 4 * C.values), f"spgemm {label}: reuse on 2·A is not 4·C")
+        s128 = sp.astype(np.complex128)
+        ref = (s128 @ s128).tocsr()
+        ref.sort_indices()
+        checked = hold_scipy(f"complex spgemm {label}", C, ref, abs_product(s128, s128),
+                             n_products(plan) + 1, C.dtype)
+        emit("main_spgemm_complex", case=f"{label} A·A", nnz_c=C.nnz, bins=plan.bins,
+             numeric_s=wall, reuse_s=wall2, reuse_exact_4C=True, launches=counts, **checked,
+             tol="(n_c+1)*eps*(|A||A|) per entry vs scipy in complex128")
+        cplx_k8[label] = (hh, A, C, int(n_products(plan).sum()))
+        plan._expand = None
+        if label.startswith("fem2d"):
+            S, counts, wall = counted("complex spadd", lambda: spadd(1 + 2j, C, 3 - 1j, fem_c), ())
+            Sref = ((1 + 2j) * ref + (3 - 1j) * fsc).tocsr()
+            serr = float(abs(S.to_scipy() - Sref).max())
+            require(serr <= 8 * torch.finfo(c128).eps * float(abs(Sref).max()),
+                    f"complex spadd: {serr} from scipy")
+            emit("main_spgemm_complex", case="spadd (1+2i)·A·A + (3−i)·A, fem2d_30k c128",
+                 nnz=S.nnz, max_abs_err_vs_scipy=serr, seconds=wall, launches=counts)
+    # complex128 K8 bit for bit on every bin of the kernel, which the paths'
+    # matrices do not all reach: each lane count in shared memory (random
+    # matrices of 10,000, 20,000 and 140,000 rows), a row past the shared-memory
+    # cap (global accumulator), rows of B or of A that repeat a column
+    brng = np.random.default_rng(23)
+
+    def crandom(nr, nc, density, seed):
+        M = sps.random(nr, nc, density=density, random_state=np.random.default_rng(seed),
+                       format="csr")
+        M.data = brng.standard_normal(M.nnz) + 1j * brng.standard_normal(M.nnz)
+        return M
+
+    arrow = crandom(3000, 3000, 4.0 / 3000, 5).tolil()
+    arrow[0, :] = brng.standard_normal(3000) + 0.5j
+    arrow[:, 0] = brng.standard_normal((3000, 1)) - 0.5j
+    rep_rm, rep_ent = [0], []
+    for i in range(300):
+        cols = list(brng.choice(300, size=6, replace=False))
+        if i % 3 == 0:
+            cols.insert(int(brng.integers(0, 6)), cols[-1])
+        rep_ent += cols
+        rep_rm.append(len(rep_ent))
+    rep = CsrMatrix.from_arrays(np.array(rep_rm), np.array(rep_ent),
+                                brng.standard_normal(len(rep_ent)) + 1j, nrows=300, ncols=300,
+                                device=dev)
+    kinds = set()
+    for label, A, B in (*((f"random {n}", CsrMatrix.from_scipy(crandom(n, n, 4 / n, n), device=dev),
+                           None) for n in (10_000, 20_000, 140_000)),
+                        ("arrow 3000", CsrMatrix.from_scipy(arrow.tocsr(), device=dev), None),
+                        ("dense 40x40", CsrMatrix.from_scipy(crandom(40, 40, 1.0, 6), device=dev),
+                         None),
+                        ("B repeats columns",
+                         CsrMatrix.from_scipy(crandom(200, 300, 5 / 300, 7), device=dev), rep),
+                        ("A repeats columns", rep,
+                         CsrMatrix.from_scipy(crandom(300, 250, 5 / 250, 8), device=dev))):
+        B = A if B is None else B
+        hh = SpgemmHandle(SpgemmAlgorithm.KK)
+        spgemm_symbolic(hh, A, B)
+        hold_k8(f"complex128 {label}", hh.row_plan, A.values, B.values)
+        kinds |= {("global" if b["global_memory"] else "shared", b["lanes"])
+                  for b in hh.row_plan.bins}
+        kinds |= {"dups"} if hh.row_plan.dups else set()
+    require({("global", 32), "dups", *(("shared", lanes) for lanes in ksg.ROW_LANES)} <= kinds,
+            f"complex128 K8 bins checked: {sorted(map(str, kinds))}")
+    Bf = crs2bsr(fem_c, 2)
+    hb = SpgemmHandle(SpgemmAlgorithm.KK)
+    t = time.perf_counter()
+    bspgemm_symbolic(hb, Bf, Bf)
+    bsym_s = time.perf_counter() - t
+    Cb, counts, wall = counted("complex bspgemm", lambda: bspgemm_numeric(hb, Bf, Bf), ())
+    B2 = Bf.with_values(2 * Bf.values)
+    Cb2, _, wall2 = counted("complex bspgemm reuse", lambda: bspgemm_numeric(hb, B2, B2), ())
+    require(torch.equal(Cb2.values, 4 * Cb.values), "complex bspgemm: reuse on 2·A is not 4·C")
+    bs = Bf.to_scipy().tocsr()
+    bbound = (abs(bs) @ abs(bs)).tocsr()
+    inv = bbound.copy()
+    inv.data = 1.0 / np.maximum(inv.data, 1e-300)
+    bratio = float(abs(Cb.to_scipy().tocsr() - bs @ bs).multiply(inv).max())
+    require(bratio <= 1e-12, f"complex bspgemm: {bratio}·(|A||A|) from scipy")
+    emit("main_spgemm_complex", case="bspgemm fem2d_30k + 0.5i diag as b = 2, c128 (torch ops)",
+         nnz_blocks=Cb.nnz_blocks, symbolic_s=bsym_s, numeric_s=wall, reuse_s=wall2,
+         reuse_exact_4C=True, max_err_over_abs_product=bratio, tol="1e-12*(|A||A|)",
+         launches=counts)
+    del Bf, B2, Cb, Cb2, hb
+
     # K6's two entries are one kernel: the path runs the fused sweep, the
     # per-color step is its yardstick (and the distributed sweep's step)
     path = {k: v for k, v in total.items() if k != "gs_color_step"}
@@ -1665,7 +1968,10 @@ def main() -> int:
 
     # ---- 4. timing: kernel, plain version, cuSPARSE, bound --------------------
     def bound_ms(nbytes: float, flops: float, dtype) -> tuple:
-        tb, tf = nbytes / bw, flops / PEAK_FLOPS[str(dtype).replace("torch.", "")]
+        key = str(dtype).replace("torch.", "")
+        # complex operations are counted as the real ones they take (8 a
+        # complex multiply-add), at the peak rate of the parts' type
+        tb, tf = nbytes / bw, flops / PEAK_FLOPS[PARTS.get(key, key)]
         return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
 
     def rotating(fns):
@@ -1684,18 +1990,27 @@ def main() -> int:
         kern, plain, lib = make(0)
         ms = chain_time_slope(kern) * 1e3
         plain_ms = chain_time_slope(plain) * 1e3
-        library_ms = chain_time_slope(lib) * 1e3
+        try:
+            lib()
+            library_ms, library_error = chain_time_slope(lib) * 1e3, None
+        except (RuntimeError, NotImplementedError) as e:
+            if not dt.is_complex:  # a real row's yardstick must run
+                raise
+            library_ms, library_error = None, str(e)[:200]  # torch may lack a complex call
         ring = [make(i) for i in range(max(2, math.ceil(3 * L2_BYTES / nbytes)))]
         ms_cold = chain_time_slope(rotating([r[0] for r in ring])) * 1e3
-        library_ms_cold = chain_time_slope(rotating([r[2] for r in ring])) * 1e3
+        library_ms_cold = None if library_ms is None else \
+            chain_time_slope(rotating([r[2] for r in ring])) * 1e3
         del ring
         b_ms, by = bound_ms(nbytes, flops, dt)
         row = dict(case=label, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
                    bound_by=by, working_set_MB=nbytes / 1e6, ms_l2_cold=ms_cold,
                    library_ms_l2_cold=library_ms_cold, **extra)
+        if library_error is not None:
+            row["library_error"] = library_error
         if spmv:
-            row["useful_csr_GBps"] = csr_bytes(A, torch.finfo(dt).bits // 8) / (ms * 1e-3) / 1e9
-            row["useful_csr_GBps_l2_cold"] = (csr_bytes(A, torch.finfo(dt).bits // 8)
+            row["useful_csr_GBps"] = csr_bytes(A, dt.itemsize) / (ms * 1e-3) / 1e9
+            row["useful_csr_GBps_l2_cold"] = (csr_bytes(A, dt.itemsize)
                                               / (ms_cold * 1e-3) / 1e9)
         emit("timing", **row)
         return row
@@ -1750,10 +2065,11 @@ def main() -> int:
 
     def k3_row(label, A, dt):
         cp = kc.build_csr_plan(A, dt)
-        sz = torch.finfo(dt).bits // 8
+        sz = dt.itemsize
         nbytes = (A.nrows + 1) * 4 + A.nnz * (4 + sz) + (A.ncols + A.nrows) * sz
-        return timed(f"K3 csr_spmv {label}", A, csr_make(A, cp, vec(A.ncols, dt)),
-                     nbytes, 2 * A.nnz, dt, tiles=int(cp.tiles.shape[0]),
+        xx = cvec(A.ncols, dt) if dt.is_complex else vec(A.ncols, dt)
+        return timed(f"K3 csr_spmv {label}", A, csr_make(A, cp, xx), nbytes,
+                     (8 if dt.is_complex else 2) * A.nnz, dt, tiles=int(cp.tiles.shape[0]),
                      tile_entries=kc.csr_tile_entries(cp.streamed), tile_rows=kc.TILE_ROWS,
                      mode="stream" if cp.streamed else "direct", long_rows=cp.long_rows)
 
@@ -1792,10 +2108,10 @@ def main() -> int:
     ent_fl = np.r_[0, np.stack([np.arange(nfl - 1), np.arange(1, nfl)], 1).ravel()]
     val_fl = np.r_[1.0, np.tile([-0.5, 1.0], nfl - 1)]
     floor_us = {}
-    for dt in (torch.float64, torch.float32):
+    for dt in (torch.float64, torch.float32, torch.complex128):
         fl = ks.build_level_plan(rm_fl, ent_fl, val_fl.astype(str(dt).replace("torch.", "")), nfl,
                                  np.arange(1, nfl + 1), True, dev)
-        bfl = vec2(nfl, dt)
+        bfl = cvec(nfl, dt) if dt.is_complex else vec2(nfl, dt)
         ms = event_ms(lambda: ks.sptrsv_levels(fl, bfl), 3)
         floor_us[dt] = ms * 1e3 / nfl
         emit("timing_k4_floor", case=f"K4 unit lower-bidiagonal, {nfl} rows = levels, {dt}",
@@ -1808,8 +2124,8 @@ def main() -> int:
         read once, b read and x written once; chain_bound_ms: levels x the
         bidiagonal floor."""
         dt = plan.dtype
-        sz, N, nnz = torch.finfo(dt).bits // 8, plan.n, plan.cols.shape[0]
-        bp = vec2(n_out, dt)
+        sz, N, nnz = dt.itemsize, plan.n, plan.cols.shape[0]
+        bp = cvec(n_out, dt) if dt.is_complex else vec2(n_out, dt)
 
         def make(i):
             if i == 0:
@@ -1826,7 +2142,7 @@ def main() -> int:
 
         # torch's one call for x = T⁻¹b (sparse CSR T, cuSPARSE), natural order
         tri = torch.sparse_csr_tensor(lib_T.row_map, lib_T.entries, lib_T.values, lib_T.shape)
-        b2 = vec2(lib_T.nrows, dt).reshape(-1, 1)
+        b2 = (cvec(lib_T.nrows, dt) if dt.is_complex else vec2(lib_T.nrows, dt)).reshape(-1, 1)
         try:
             lib_ms, lib_err = event_ms(lambda: torch.triangular_solve(b2, tri, upper=upper), 3), \
                 None
@@ -1835,7 +2151,8 @@ def main() -> int:
         nbytes = ((N + 1) * 4 + nnz * (4 + sz) + N * sz + 2 * n_out * sz
                   + 4 * N * ((src is not None) + (dst is not None)))
         lv = plan.num_levels
-        row = timed_kernel(label, make, nbytes, 2 * nnz + 2 * N, dt, kk, plain_kk, lib_ms,
+        ops = (8 * nnz + 8 * N) if dt.is_complex else (2 * nnz + 2 * N)
+        row = timed_kernel(label, make, nbytes, ops, dt, kk, plain_kk, lib_ms,
                            levels=lv, rows=N, nnz_strict=nnz,
                            chain_bound_ms=lv * floor_us[dt] * 1e-3,
                            library="torch.triangular_solve(b, T_csr), natural order",
@@ -1873,9 +2190,14 @@ def main() -> int:
         """Bounds: bytes (src and x read once, out written once) and sectors
         (src and out once, x's 32-byte sectors that the gathers of each 32
         consecutive outputs touch, or that each row spans)."""
-        n, sz = src.shape[0], torch.finfo(dt).bits // 8
+        n, sz = src.shape[0], dt.itemsize
         shape = (n,) if k == 1 else (n, k)
-        xx = torch.from_numpy(k5_rng.standard_normal(shape)).to(dev, dt) if own_x else vec2(n, dt)
+        if dt.is_complex:  # K5 moves it as f64 (complex64) or rows of two f64 (complex128)
+            xx = cvec(n * k, dt).view(shape)
+        else:
+            xx = torch.from_numpy(k5_rng.standard_normal(shape)).to(dev, dt) if own_x \
+                else vec2(n, dt)
+        gk, gsz = (2 * k, 8) if dt == torch.complex128 else (k, min(sz, 8))
 
         def make(i):
             si = src if i == 0 else src.clone()
@@ -1883,9 +2205,9 @@ def main() -> int:
             return (lambda: ks.permute_gather(si, xi)), (lambda: ks.permute_plain(si, xi))
 
         lib = lambda: torch.index_select(xx, 0, src)  # noqa: E731
-        sectors = k5_drv.x_sectors(src.cpu().numpy(), k, sz)
-        width, lanes = kperm.permute_geometry(n, k, sz, src.data_ptr() % 16, xx.data_ptr() % 16,
-                                              0)
+        sectors = k5_drv.x_sectors(src.cpu().numpy(), gk, gsz)
+        width, lanes = kperm.permute_geometry(n, gk, gsz, src.data_ptr() % 16,
+                                              xx.data_ptr() % 16, 0)
         return timed_kernel(f"K5 permute_gather {label}", make, n * (4 + 2 * k * sz), 0, dt,
                             (50, 250), (50, 250), chain_time_slope(lib) * 1e3,
                             library="torch.index_select(x, 0, src)", vec=width, lanes=lanes,
@@ -2038,14 +2360,14 @@ def main() -> int:
     k7_row("fem2d_30k strict lower f64 (TWOSTAGE inner SpMM)", fem_lower, torch.float64, 8,
            X_lower)
 
-    def k8_row(key, kk, plain_kk):
+    def k8_row(key, kk, plain_kk, cases=None):
         """Bound: the compulsory bytes of C = A·A (A's CSR read once, C's row map
         and columns read once, C's values written once); own_MB: what K8's
         design moves (A once, the B row of each A entry once, its two row-map
         words included, C's pattern and values once, the row order)."""
-        hh, A, C, products = spgemm_cases[key]
+        hh, A, C, products = (spgemm_cases if cases is None else cases)[key]
         plan, dt = hh.row_plan, A.dtype
-        sz = torch.finfo(dt).bits // 8
+        sz = dt.itemsize
         nbytes = (A.nrows + 1) * 4 + A.nnz * (4 + sz) + (C.nrows + 1) * 4 + C.nnz * (4 + sz)
         own_bytes = ((A.nrows + 1) * 4 + A.nnz * (4 + sz) + A.nnz * 8 + products * (4 + sz)
                      + (C.nrows + 1) * 4 + C.nnz * (4 + sz) + plan.order.numel() * 4)
@@ -2063,7 +2385,8 @@ def main() -> int:
             lib_ms, lib_err = event_ms(lambda: S @ S, 3), None
         except (RuntimeError, NotImplementedError) as e:  # the yardstick only
             lib_ms, lib_err = None, str(e)[:200]
-        row = timed_kernel(f"K8 spgemm_rows {key} A·A", make, nbytes, 2 * products, dt, kk,
+        row = timed_kernel(f"K8 spgemm_rows {key} A·A", make, nbytes,
+                           (8 if dt.is_complex else 2) * products, dt, kk,
                            plain_kk, lib_ms,
                            library="torch.sparse_csr_tensor(A) @ torch.sparse_csr_tensor(A) "
                                    "(cuSPARSE SpGEMM, its symbolic phase included)",
@@ -2205,6 +2528,36 @@ def main() -> int:
         plain_ms=chain_time_slope(lambda: kc.csr_plain(cp2, pr, "max")) * 1e3)
     emit("timing_plain_fill", rows=fill)
 
+    # complex instances (the eighth slice): K1, K3, K4 and K8 in complex64 and
+    # complex128 and K5 on complex128's rows of two f64, each beside its plain
+    # version, its byte bound and torch's one call where torch has one
+    cx = {}
+    for key, dt in (("magnetic lap1000 c128", c128), ("magnetic lap1000 c64", c64)):
+        A, pl, xk = cplx_plans[key]
+        nd, sz = len(pl.offsets), dt.itemsize
+        row = timed(f"K1 dia_spmv {key} (PCG route)", A, dia_make(A, pl, xk, kc.dia_spmv),
+                    (nd + 2) * A.nrows * sz, 8 * A.nnz, dt)
+        cx.setdefault("dia_spmv", row)
+    cx["csr_spmv"] = k3_row("rand100k c64 (AUTO route)", rnd_c, c64)
+    k3_row("fem2d_30k + 0.5i diag c128 (GMRES route)", fem_c, c128)
+    hs, Tm = cplx_k4["magnetic lap1000 L"]
+    bk4 = cvec(Tm.nrows, c128)
+    cx["sptrsv_levels"] = k4_row(
+        "K4 sptrsv_levels magnetic lap1000 L c128, src = dst = order", hs.plan, hs.plan.order,
+        hs.plan.order, Tm.nrows, (2, 6), (1, 3), Tm, False, lambda: sptrsv_solve(hs, Tm, bk4))
+    hn, Tm = cplx_k4["fem2d_30k SuperLU L"]
+    fp = hn.sn_plan
+    k4_row("K4 sptrsv_levels fem2d_30k + 0.5i diag SuperLU L c128, supernodal DAG, b through "
+           "src, x through dst", fp.plan, fp.src, fp.dst, fp.n, (10, 50), (2, 6), Tm, False,
+           lambda: sptrsv_solve(hn, Tm, bk4[:Tm.nrows]), dag_rows=fp.num_rows_dag,
+           supernode_levels=fp.num_levels_sn)
+    cx["spgemm_rows"] = k8_row("fem2d_30k + 0.5i diag c128", (50, 250), (5, 25), cplx_k8)
+    k8_row("rand100k c64", (10, 50), (2, 6), cplx_k8)
+    cx["permute_gather"] = k5_row("random permutation of 1,000,000, complex128 (rows of two f64)",
+                                  perm1m, c128)
+    k5_row("random permutation of 1,000,000, complex64 (as f64)", perm1m, c64)
+    del cplx_k8, cplx_plans
+
     # ---- 5. where a PCG and a GMRES iteration's time goes (torch.profiler) -----
     for label, A, iters, prec in (("lap1000 f64 Jacobi", lap64, 20, JacobiPrec(lap64)),
                                   ("fem2d_30k f64 Jacobi", fem, 50, JacobiPrec(fem)),
@@ -2267,11 +2620,16 @@ def main() -> int:
                       ("sptrsv_levels", t_k4), ("permute_gather", t_k5),
                       ("gs_sweep", t_k6), ("csr_spmm", t_k7), ("spgemm_rows", t_k8),
                       ("probe_gather_acc", t_k9)):
-        total_k.append(dict(name=name, route="cuda", source=SOURCES[name],
-                            replaces=REPLACES[name], launches=path[name],
-                            max_abs_err=errs[name], ms=row["ms"], plain_ms=row["plain_ms"],
-                            bound_ms=row["bound_ms"], bound_by=row["bound_by"],
-                            library_ms=row["library_ms"]))
+        entry = dict(name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
+                     launches=path[name], max_abs_err=errs[name], ms=row["ms"],
+                     plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+                     library_ms=row["library_ms"],
+                     dtypes=["float32"] if name == "probe_gather_acc" else
+                     ["float32", "float64"] + (["complex64", "complex128"] if name in cx else []))
+        if name in cx:  # its complex row (K5: complex values moved as real views)
+            entry["complex"] = {k: cx[name][k] for k in ("case", "ms", "plain_ms", "bound_ms",
+                                                         "bound_by", "library_ms")}
+        total_k.append(entry)
     print(json.dumps({"kernels": total_k}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": gpu,

@@ -163,10 +163,23 @@ def test_transpose_modes_on_bsr():
 
 
 def test_complex_bsr_names_a3():
-    Bt = _port(_matrix("random_b3", np.float64))
-    Bc = Bt.with_values(Bt.values.to(torch.complex128))
-    with pytest.raises(NotImplementedError, match="A3"):
-        ts.SpmvHandle(Bc)
+    """Complex BSR SpMV (ROADMAP A3a): the BSR route's segment sum over the
+    real and imaginary parts, held to tpukk's product on the same blocks."""
+    Bj = _matrix("random_b3", np.float64)
+    rng = np.random.default_rng(9)
+    sp = Bj.to_scipy()
+    spc = sps.bsr_matrix((sp.data * (1 + 0.5j) + 0.25j * rng.standard_normal(sp.data.shape),
+                          sp.indices, sp.indptr), shape=sp.shape)
+    Bjc = jkc.BsrMatrix.from_scipy_bsr(spc)
+    hc = ts.SpmvHandle(_port(Bjc))
+    assert hc.algorithm == SpmvAlgorithm.BSR
+    x = rng.standard_normal(sp.shape[1]) + 1j * rng.standard_normal(sp.shape[1])
+    ref = np.asarray(js.SpmvHandle(Bjc)(jnp.asarray(x)))
+    np.testing.assert_allclose(hc(torch.from_numpy(x)).numpy(), ref, rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(ref, spc @ x, rtol=1e-12, atol=1e-12)
+    # mode C: the BSR route on the conjugated blocks
+    np.testing.assert_allclose(hc(torch.from_numpy(x), mode="C").numpy(), spc.conj() @ x,
+                               rtol=1e-12, atol=1e-12)
 
 
 # ---------------------------------------------------------------------------

@@ -13,7 +13,11 @@ replaces bit for bit, one launch per GsPrec apply, replayed in a CUDA graph,
 and trapping on a plan whose steps cannot finish; the BSR route's same bits on two calls,
 block Gauss-Seidel's two K1 launches a color a symmetric sweep, bspgemm's exact reuse,
 getrf's 0-based pivots (tpukk's, recorded as constants) and the rotation constructors'
-placement on the card.  Every test skips without a CUDA
+placement on the card; complex values (K1, K3, K4 and K8 in complex64 and
+complex128 against their plain versions, K8 bit for bit, K4 replayed in a CUDA
+graph, K5 on complex views exactly, the complex SpMV modes, PCG, GMRES with
+imported factors and RCM through the kernels, and K2, K6, K7 and K9 refusing
+complex input).  Every test skips without a CUDA
 device: the kernels have no CPU mode.
 
 This file imports neither JAX nor tpukk, so it runs on a GPU host that has
@@ -263,9 +267,11 @@ def _ilu0(A):
 
 
 def _solve_residual_ok(T, x, b, dtype):
-    """|T·x - b| <= 20·eps·(|T|·|x|) per element, in f64 on the host."""
-    sp = T.to_scipy().astype(np.float64)
-    xh, bh = x.double().cpu().numpy(), b.double().cpu().numpy()
+    """|T·x - b| <= 20·eps·(|T|·|x|) per element, in f64 (complex128 for
+    complex x) on the host."""
+    wide = np.complex128 if x.dtype.is_complex else np.float64
+    sp = T.to_scipy().astype(wide)
+    xh, bh = (t.cpu().numpy().astype(wide) for t in (x, b))
     bound = abs(sp) @ np.abs(xh)
     return bool((np.abs(sp @ xh - bh) <= 20 * torch.finfo(dtype).eps * bound).all())
 
@@ -1322,3 +1328,281 @@ def test_rotation_constructors_on_the_card(dev, dtype):
     xc, yc = blas.rotm(x.cpu(), y.cpu(), want[3])
     tol = 4 * torch.finfo(dtype).eps * float(want[3].abs().max()) * (x.abs() + y.abs()).cpu()
     assert bool(((xr.cpu() - xc).abs() <= tol).all() and ((yr.cpu() - yc).abs() <= tol).all())
+
+
+# ---------------------------------------------------------------------------
+# complex values (ROADMAP A3a): K1, K3, K4 and K8 take complex64 and
+# complex128, K5 moves them as real views; K2, K6, K7 and K9 refuse them
+# ---------------------------------------------------------------------------
+
+CDTYPES = [torch.complex64, torch.complex128]
+
+
+def _cx(n, dtype, dev, seed=0):
+    r = np.random.default_rng(seed)
+    return torch.from_numpy(r.standard_normal(n) + 1j * r.standard_normal(n)).to(dev, dtype)
+
+
+def _complexified(sp, seed):
+    """A real scipy matrix with random imaginary parts on its entries."""
+    c = sp.tocsr().astype(np.complex128)
+    c.data = c.data + 1j * np.random.default_rng(seed).standard_normal(c.nnz)
+    c.sort_indices()
+    return c
+
+
+@pytest.mark.parametrize("dtype", CDTYPES, ids=["c64", "c128"])
+def test_complex_dia_and_csr_kernels_match_plain(dev, dtype):
+    """K1 on a square and a rectangular band, K3's sum on an unstructured
+    matrix and on rows longer than a tile, in both of K3's modes: each
+    within 20·eps·(|A||x|) of its plain version, one launch a call."""
+    bands = [tkc.generate_structured_laplacian(64, 64, dtype=np.float64, device="cpu").to_scipy(),
+             sps.diags([1.0, 2.0, 3.0], [-3, 0, 40], shape=(300, 500))]
+    for i, sp in enumerate(bands):
+        A = tkc.CsrMatrix.from_scipy(_complexified(sp, i), device=dev)
+        p = spmv_impl.build_dia_plan(A, dtype=dtype)
+        ap = dataclasses.replace(p, diags=p.diags.abs())
+        x = _cx(A.ncols, dtype, dev, seed=i)
+        n0 = kc.dia_spmv.launches
+        assert _held(kc.dia_spmv(p, x), kc.dia_plain(p, x), kc.dia_plain(ap, x.abs()), dtype)
+        assert kc.dia_spmv.launches == n0 + 1
+    long_rows = sps.random(64, 5000, density=0.0006, random_state=2, format="lil")
+    long_rows[5, :] = 1.0
+    long_rows[40, :700] = -0.5
+    for i, sp in enumerate([sps.random(3000, 3000, 0.01, random_state=1, format="csr")
+                            + sps.identity(3000), long_rows.tocsr()]):
+        A = tkc.CsrMatrix.from_scipy(_complexified(sp, 10 + i), device=dev)
+        x = _cx(A.ncols, dtype, dev, seed=i)
+        for streamed in (False, True):
+            cp = kc.build_csr_plan(A, dtype, streamed)
+            acp = dataclasses.replace(cp, values=cp.values.abs())
+            n0 = kc.csr_spmv.launches
+            assert _held(kc.csr_spmv(cp, x), kc.csr_plain(cp, x), kc.csr_plain(acp, x.abs()),
+                         dtype), (i, streamed)
+            assert kc.csr_spmv.launches == n0 + 1
+
+
+@pytest.mark.parametrize("dtype", CDTYPES, ids=["c64", "c128"])
+def test_complex_sptrsv_kernel_matches_plain(dev, dtype):
+    """K4 on complex triangles (the lower and upper parts of a diagonally
+    dominant matrix, and the supernodal DAGs of complex SuperLU factors) at
+    both lane widths, within M(T)⁻¹·(40·eps·|T||x|) of its plain version,
+    the same bits on every call; sptrsv_solve is one K4 launch."""
+    import scipy.sparse.linalg as spla
+
+    from tpukk_torch.sparse.sptrsv_supernodal import build_supernodal_fused_plan
+
+    A = _complexified(tkc.generate_diag_dominant_csr(3000, 8, dtype=np.float64, seed=5,
+                                                     device="cpu").to_scipy(), 3)
+    for lower, T in ((True, sps.tril(A).tocsr()), (False, sps.triu(A).tocsr())):
+        Tm = tkc.CsrMatrix.from_scipy(T, device=dev).astype(dtype)
+        h = SptrsvHandle(lower=lower)
+        sptrsv_symbolic(h, Tm)
+        assert h.plan.dtype == dtype
+        b = _cx(T.shape[0], dtype, dev, seed=2)
+        for lanes in (16, 32):
+            plan = dataclasses.replace(h.plan, lanes=lanes)
+            _held_folded(plan, b, plan.order, plan.order)
+        ks.reset_launch_counts()
+        x = sptrsv_solve(h, Tm, b)
+        assert ks.launch_counts() == {"sptrsv_levels": 1, "permute_gather": 0}
+        assert _solve_residual_ok(Tm, x, b, dtype)
+    lu = spla.splu(_complexified(tkc.generate_structured_laplacian(
+        30, 30, dtype=np.float64, device="cpu").to_scipy(), 4).tocsc())
+    for lower, T in ((True, lu.L.tocsr()), (False, lu.U.tocsr())):
+        T.sort_indices()
+        fp = build_supernodal_fused_plan(T.indptr, T.indices, T.data.astype(
+            np.complex64 if dtype == torch.complex64 else np.complex128), T.shape[0], lower, 32,
+            device=dev)
+        _held_folded(fp.plan, _cx(T.shape[0], dtype, dev, seed=5), fp.src, fp.dst)
+
+
+def test_complex_sptrsv_kernel_replays_in_a_cuda_graph(dev):
+    """A captured complex128 K4 launch (four tagged words a value) replays
+    with the epoch it advances itself, on a new b each time, equal to an
+    eager call."""
+    A = _complexified(tkc.generate_structured_laplacian(40, 40, dtype=np.float64,
+                                                        device="cpu").to_scipy(), 6)
+    L = tkc.CsrMatrix.from_scipy(sps.tril(A).tocsr(), device=dev)
+    h = SptrsvHandle(lower=True)
+    sptrsv_symbolic(h, L)
+    assert h.plan.words.numel() == 4 * L.nrows
+    b = _cx(L.nrows, torch.complex128, dev, seed=3)
+    idx = (h.plan.order, h.plan.order)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ks.sptrsv_levels(h.plan, b, *idx)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = ks.sptrsv_levels(h.plan, b, *idx)
+    for seed in (4, 5, 6):
+        b.copy_(_cx(L.nrows, torch.complex128, dev, seed=seed))
+        out.zero_()
+        g.replay()
+        ref = ks.sptrsv_levels(h.plan, b, *idx)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("dtype", CDTYPES, ids=["c64", "c128"])
+def test_complex_permute_is_exact(dev, dtype):
+    """K5 moves complex64 as f64 and complex128 as rows of two f64: exactly
+    index_select's values, one launch a call, vectors and rows of k = 3."""
+    rng = np.random.default_rng(7)
+    for n, k in ((1_000_003, None), (30_000, None), (5000, 3)):
+        src = torch.from_numpy(rng.permutation(n).astype(np.int32)).to(dev)
+        x = _cx(n if k is None else n * k, dtype, dev, seed=n)
+        x = x if k is None else x.view(n, k)
+        n0 = ks.permute_gather.launches
+        y = ks.permute_gather(src, x)
+        assert ks.permute_gather.launches == n0 + 1
+        assert y.dtype == dtype and torch.equal(y, ks.permute_plain(src, x))
+
+
+@pytest.mark.parametrize("dtype", CDTYPES, ids=["c64", "c128"])
+def test_complex_spgemm_kernel_matches_plain(dev, dtype):
+    """K8 on complex values equals its plain version bit for bit on every
+    pair case (a row past the shared-memory cap, repeated columns, lanes in
+    a group) and on every lane count of a shared-memory bin: both form a
+    product from its parts and add in pair order; a CUDA graph replays it,
+    and numeric reuse with 2·A gives exactly 4·C."""
+    from tpukk_torch.sparse import SpgemmHandle, spgemm_numeric, spgemm_symbolic
+    from tpukk_torch.sparse import spgemm_cuda as ksg
+
+    def cvals(M, shift):
+        v = M.values.double()
+        return torch.complex(v, v.roll(shift) * 0.5).to(dtype)
+
+    for label, A, B in _pair_cases(dev):
+        B = A if B is None else B
+        h = SpgemmHandle()
+        spgemm_symbolic(h, A, B)
+        plan = h.row_plan
+        a, b = cvals(A, 1), cvals(B, 2)
+        n0 = ksg.spgemm_rows.launches
+        got = ksg.spgemm_rows(plan, a, b)
+        assert ksg.spgemm_rows.launches == n0 + 1, label
+        plain = ksg.spgemm_rows_plain(plan, a, b)
+        torch.cuda.synchronize()
+        assert torch.equal(got, plain), label
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        y = ksg.spgemm_rows(plan, a, b)
+    y.zero_()
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(y, got)
+    # the shared-memory bins of 1 to 16 lanes a row, which the pair cases leave out
+    lanes = set()
+    for n in (10_000, 140_000):
+        S = sps.random(n, n, density=4 / n, random_state=np.random.default_rng(11), format="csr")
+        A = tkc.CsrMatrix.from_scipy(S, device=dev)
+        h = SpgemmHandle()
+        spgemm_symbolic(h, A, A)
+        lanes |= {bn["lanes"] for bn in h.row_plan.bins}
+        a = cvals(A, 1)
+        got = ksg.spgemm_rows(h.row_plan, a, a)
+        assert torch.equal(got, ksg.spgemm_rows_plain(h.row_plan, a, a)), n
+    assert lanes >= {1, 2, 4, 8, 16}
+    A = tkc.generate_random_csr(2000, 2000, 8, seed=2, dtype=np.float64, device=dev)
+    A = A.with_values(cvals(A, 3))
+    h = SpgemmHandle()
+    spgemm_symbolic(h, A, A)
+    C = spgemm_numeric(h, A, A)
+    A2 = A.with_values(2 * A.values)
+    assert torch.equal(spgemm_numeric(h, A2, A2).values, 4 * C.values)
+
+
+def test_real_only_kernels_refuse_complex_on_the_card(dev):
+    """K2 (dia_spmm), K7 (csr_spmm) and K6 (gs_sweep, gs_color_step) raise
+    NotImplementedError naming A3b on complex input, and K9 refuses it,
+    before any launch; a complex 2-D x on the DIA and ONEHOT routes raises."""
+    from tpukk_torch.common import probe_cuda as kp
+
+    lap = tkc.generate_structured_laplacian(30, 30, dtype=np.float64, device=dev)
+    Ac = lap.astype(torch.complex128)
+    X = torch.zeros((lap.nrows, 4), dtype=torch.complex128, device=dev)
+    z = torch.zeros(lap.nrows, dtype=torch.complex128, device=dev)
+    counts = (kc.launch_counts(), kg.launch_counts(), kp.launch_counts())
+    with pytest.raises(NotImplementedError, match="A3b"):
+        kc.dia_spmm(spmv_impl.build_dia_plan(Ac, dtype=torch.complex128), X)
+    with pytest.raises(NotImplementedError, match="A3b"):
+        kc.csr_spmm(kc.build_csr_plan(Ac, torch.complex128), X)
+    h = GsHandle()
+    gauss_seidel_symbolic(h, lap)
+    gauss_seidel_numeric(h, lap)
+    plan = next(iter(h._plans.values())).to(torch.complex128)
+    with pytest.raises(NotImplementedError, match="A3b"):
+        kg.gs_sweep(plan, None, z, 1.0)
+    with pytest.raises(NotImplementedError, match="A3b"):
+        kg.gs_color_step(plan.blocks[0], z.clone(), z, 1.0)
+    with pytest.raises(NotImplementedError, match="A3b"):
+        gauss_seidel_apply(h, lap, None, z)
+    pplan, px = _probe_script().make_plan("base", 80, 3, dev)
+    with pytest.raises(TpuKKError, match="dtype"):
+        kp.probe_gather_acc(pplan, px.to(torch.complex64))
+    for A in (Ac, tkc.generate_random_csr(2000, 2000, 8, seed=1, dtype=np.float64,
+                                          device=dev).astype(torch.complex128)):
+        with pytest.raises(NotImplementedError, match="A3b"):
+            spmm(A, torch.zeros((A.ncols, 3), dtype=torch.complex128, device=dev))
+    assert (kc.launch_counts(), kg.launch_counts(), kp.launch_counts()) == counts
+
+
+def test_complex_paths_run_through_the_kernels(dev):
+    """Complex SpMV on the card: a banded matrix on K1 and an unstructured
+    one on K3 in modes N, T, C and H, against scipy; Jacobi PCG on a
+    magnetic Laplacian (K1); GMRES with imported complex SuperLU factors
+    (two K4 launches an apply, no K5) and with reorder="rcm" (K5 on complex
+    views, K3)."""
+    import scipy.sparse.linalg as spla
+
+    from tpukk_torch.common.permute import permute_gather
+    from tpukk_torch.sparse import superlu_import
+
+    band = _complexified(tkc.generate_structured_laplacian(60, 60, dtype=np.float64,
+                                                           device="cpu").to_scipy(), 1)
+    rnd = _complexified(tkc.generate_random_csr(3000, 3000, 8, seed=2, dtype=np.float64,
+                                                device="cpu").to_scipy(), 2)
+    for sp, route, kern in ((band, SpmvAlgorithm.DIA, kc.dia_spmv),
+                            (rnd, SpmvAlgorithm.ONEHOT, kc.csr_spmv)):
+        A = tkc.CsrMatrix.from_scipy(sp, device=dev)
+        h = SpmvHandle(A)
+        assert h.algorithm == route
+        x = _cx(A.ncols, torch.complex128, dev, seed=3)
+        xh = x.cpu().numpy()
+        for mode, op in (("N", sp), ("T", sp.T), ("C", sp.conj()), ("H", sp.conj().T)):
+            n0 = kern.launches
+            y = h(x, mode=mode).cpu().numpy()
+            assert kern.launches == n0 + 1
+            assert np.abs(y - op @ xh).max() <= 1e-12 * np.abs(op @ xh).max()
+    # a Hermitian positive definite magnetic Laplacian (Landau gauge), Jacobi PCG
+    nx = 40
+    ix = np.arange(nx * nx) % nx
+    ex = (ix[:-1] < nx - 1).astype(float)
+    ey = np.exp(2j * np.pi * 0.01 * ix[:-nx])
+    H = sps.diags([-ey.conj(), -ex, np.full(nx * nx, 4.01), -ex, -ey], [-nx, -1, 0, 1, nx],
+                  format="csr").astype(np.complex128)
+    H.eliminate_zeros()
+    Hm = tkc.CsrMatrix.from_scipy(H, device=dev)
+    b = _cx(H.shape[0], torch.complex128, dev, seed=4)
+    n0 = kc.dia_spmv.launches
+    x, st = pcg(Hm, b, tol=1e-10, max_iters=2000, prec=JacobiPrec(Hm))
+    assert st.converged and kc.dia_spmv.launches > n0
+    bh = b.cpu().numpy()
+    assert np.linalg.norm(bh - H @ x.cpu().numpy()) <= 1e-9 * np.linalg.norm(bh)
+    # GMRES with complex SuperLU factors, and in RCM-permuted space
+    A = tkc.CsrMatrix.from_scipy(rnd + 8 * sps.identity(3000, format="csr"), device=dev)
+    slu = superlu_import(spla.splu(A.to_scipy().tocsc()), device=dev)
+    b = _cx(3000, torch.complex128, dev, seed=5)
+    ks.reset_launch_counts()
+    y = slu.apply(b)
+    assert ks.launch_counts() == {"sptrsv_levels": 2, "permute_gather": 0}
+    x, st = gmres(GmresHandle(m=20, tol=1e-10, max_restarts=5), A, b, prec=slu)
+    assert st.converged
+    n0 = permute_gather.launches
+    x, st = gmres(GmresHandle(m=30, tol=1e-10, max_restarts=20, reorder="rcm"), A, b)
+    assert st.converged and permute_gather.launches >= n0 + 3
+    bh = b.cpu().numpy()
+    assert np.linalg.norm(bh - A.to_scipy() @ x.cpu().numpy()) <= 1e-9 * np.linalg.norm(bh)

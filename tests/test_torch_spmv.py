@@ -578,9 +578,14 @@ def test_handle_caches_plans_and_refuses_unported(rng):
     # the BSR route is ported; on a CsrMatrix it is refused (it needs blocks)
     with pytest.raises(TpuKKError, match="BsrMatrix"):
         SpmvHandle(At, SpmvAlgorithm.BSR)
-    Ac = At.with_values(At.values.to(torch.complex128))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SpmvHandle(Ac)
+    # complex values are ported (A3a): a complex128 handle takes the ONEHOT
+    # route (K3) and equals tpukk's product
+    Ac = At.with_values(At.values.to(torch.complex128) * (1 + 0.5j))
+    xc = torch.complex(x, x.flip(0))
+    hc = SpmvHandle(Ac)
+    assert hc.algorithm == SpmvAlgorithm.ONEHOT
+    ref = np.asarray(jsp.spmv(jkc.CsrMatrix.from_scipy(Ac.to_scipy()), jnp.asarray(xc.numpy())))
+    np.testing.assert_allclose(hc(xc).numpy(), ref, rtol=1e-12, atol=1e-12)
 
 
 @pytest.mark.parametrize("itemsize", [4, 8], ids=["f32", "f64"])

@@ -5,7 +5,7 @@ from .errors import TpuKKError, check, check_rank, check_same_dtype
 from .timing import chain_time_slope, sync_fetch
 from .tracing import annotate, profile_region, region_name, trace
 from .types import (default_device, default_offset, default_ordinal,
-                    default_scalar, supported_scalars)
+                    default_scalar, result_dtype, supported_scalars)
 # utils.permute is not re-exported: the name belongs to the submodule
 # common.permute (static permutation plans, K5)
 from .utils import (cdiv, exclusive_scan, inclusive_scan, inverse_permutation,

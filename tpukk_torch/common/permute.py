@@ -8,11 +8,18 @@ Mosaic has no fast dynamic gather; the H100 gathers from device memory
 directly, so no routing tables are carried.
 
 ``permute_gather`` is K5's wrapper: it checks its operands and raises on
-anything else; on a CPU tensor it runs the plain version ``permute_plain``,
-on a CUDA tensor it launches the kernel on the current stream or raises.  It
-adds one to its ``launches`` count each time it launches the kernel, and
-nowhere else.  ``permute_geometry`` picks the kernel's vector width and
-lanes a row from n, k, the dtype and the operands' alignment.
+anything else; it takes f32, f64, complex64 and complex128.  K5 has no
+complex instance and needs none: a permutation moves values and does no
+arithmetic, so a complex64 value moves as the 8 bytes of one f64
+(``view(torch.float64)``) and a complex128 value as the 16-byte row of two
+f64 (``view_as_real``, K5's k > 1 path), and the bits that arrive are the
+complex values that ``tpukk``'s routed permutation (``_rowperm3_call``,
+``_rowperm_call``) moves.  On a CPU tensor it runs the plain version
+``permute_plain``, on a CUDA tensor it launches the kernel on the current
+stream or raises.  It adds one to its ``launches`` count each time it
+launches the kernel, and nowhere else.  ``permute_geometry`` picks the
+kernel's vector width and lanes a row from n, k, the dtype and the
+operands' alignment.
 """
 from __future__ import annotations
 
@@ -50,7 +57,8 @@ def build_permute_plan(src, device) -> PermutePlan:
 
 
 def static_permute(plan: PermutePlan, x: torch.Tensor) -> torch.Tensor:
-    """x[plan.src] along the first axis, in x's dtype (f32/f64 on CUDA)."""
+    """x[plan.src] along the first axis, in x's dtype (f32, f64, complex64
+    or complex128 on CUDA)."""
     return permute_gather(plan.src, x)
 
 
@@ -102,9 +110,15 @@ def permute_gather(src: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     check(src.device == x.device, f"permute_gather: src on {src.device}, x on {x.device}")
     if not _kernels.on_cuda(x, "permute_gather"):
         return permute_plain(src, x)
-    check(x.dtype in _kernels.DTYPE_CODE, f"permute_gather: dtype {x.dtype} not f32/f64")
     check(x.is_contiguous() and src.is_contiguous(),
           "permute_gather: x and src must be contiguous")
+    if x.dtype == torch.complex64:
+        return permute_gather(src, x.view(torch.float64)).view(torch.complex64)
+    if x.dtype == torch.complex128:
+        rows = torch.view_as_real(x).reshape(x.shape[0], -1)  # (n, 2) or (n, 2k) f64
+        return torch.view_as_complex(permute_gather(src, rows).reshape(
+            (src.shape[0],) + tuple(x.shape[1:]) + (2,)))
+    code = _kernels.dtype_code(x.dtype, _kernels.DTYPE_CODE, "permute_gather")
     n = src.shape[0]
     k = 1 if x.ndim == 1 else x.shape[1]
     out = torch.empty((n,) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
@@ -113,7 +127,7 @@ def permute_gather(src: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     vec, lanes = permute_geometry(n, k, x.element_size(), src.data_ptr() % 16,
                                   x.data_ptr() % 16, out.data_ptr() % 16)
     err = _kernels.library("permute").tpukk_permute_gather(
-        _kernels.DTYPE_CODE[x.dtype], vec, lanes, src.data_ptr(), x.data_ptr(), out.data_ptr(),
+        code, vec, lanes, src.data_ptr(), x.data_ptr(), out.data_ptr(),
         n, k, _kernels.stream_of(x))
     _kernels.check_launch(err, "permute_gather")
     permute_gather.launches += 1

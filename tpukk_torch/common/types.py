@@ -22,6 +22,7 @@ __all__ = [
     "default_offset",
     "supported_scalars",
     "default_device",
+    "result_dtype",
 ]
 
 default_scalar = torch.float32
@@ -45,3 +46,10 @@ def default_device(device=None) -> torch.device:
             "no CUDA device is available: pass device='cpu' to run on the "
             "CPU through the kernels' plain versions")
     return torch.device("cuda", torch.cuda.current_device())
+
+
+def result_dtype(given: torch.dtype, computed: torch.dtype) -> torch.dtype:
+    """An output's dtype: the caller's ``given`` dtype, unless the work ran in
+    a complex ``computed`` dtype on a real one, whose imaginary part ``given``
+    would drop."""
+    return computed if computed.is_complex and not given.is_complex else given

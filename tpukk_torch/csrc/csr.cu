@@ -9,6 +9,11 @@
 //   _gi4_call_batched (:2053, sum and max), _dlp_call_batched (:2216, sum and
 //   max), _gt_call_batched (:2325), _gi_call_batched (:2390)    -> T = float
 //   _gi4_ds_call_batched (:2691), f64 as (hi, lo) f32 pairs       -> T = double
+// and, for the sum, complex64 and complex128 (T = cplx<float>, cplx<double>,
+// cplx.cuh): each value and product one 8- or 16-byte access, the shuffles
+// two a value.  tpukk's complex64 reaches these kernels as four real products
+// of the (re, im) planes (tpukk/sparse/spmv.py:189-233), a TPU workaround.
+// The max reduction stays real: only MIS2 runs it.
 //
 // What it computes: y[r] = reduce_{p in row r} vals[p] * x[colidx[p]], with
 // reduce = sum, or max with the neutral value 0 that the TPU kernels' padding
@@ -87,8 +92,9 @@
 // Nothing is staged in shared memory: the operands are gathers, not tiles.
 //
 // C interface (bound with ctypes): returns the cudaError_t of the launch
-// (0 when nothing needed launching); dtype 0 = float, 1 = double; reduce
-// 0 = sum, 1 = max; streamed (K3) 0 = direct, 1 = stream.
+// (0 when nothing needed launching); dtype 0 = float, 1 = double, and for
+// K3's sum 2 = complex64, 3 = complex128; reduce 0 = sum, 1 = max; streamed
+// (K3) 0 = direct, 1 = stream.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -96,6 +102,7 @@
 #include <atomic>
 #include <type_traits>
 
+#include "cplx.cuh"
 #include "vec.cuh"
 
 namespace {
@@ -105,24 +112,6 @@ constexpr int kThreads = 256;
 // ---- K3 ---------------------------------------------------------------------
 
 constexpr int kTileRows = kThreads;  // a row start a thread, so each row of a tile has its lanes
-
-// A load that does not allocate in L1: a matrix that streams from device
-// memory is read once, and in L1 it would only evict the x it gathers.
-__device__ __forceinline__ int ld_stream(const int* p) {
-  int v;
-  asm("ld.global.nc.L1::no_allocate.b32 %0, [%1];" : "=r"(v) : "l"(p));
-  return v;
-}
-__device__ __forceinline__ float ld_stream(const float* p) {
-  float v;
-  asm("ld.global.nc.L1::no_allocate.f32 %0, [%1];" : "=f"(v) : "l"(p));
-  return v;
-}
-__device__ __forceinline__ double ld_stream(const double* p) {
-  double v;
-  asm("ld.global.nc.L1::no_allocate.f64 %0, [%1];" : "=d"(v) : "l"(p));
-  return v;
-}
 
 // Shared memory, in bytes: the tile's products, its row starts and the
 // warps' partial results.
@@ -136,7 +125,10 @@ struct Smem {
 
 template <typename T, bool kMax>
 __device__ __forceinline__ T combine(T a, T b) {
-  return kMax ? max(a, b) : a + b;
+  if constexpr (kMax)
+    return max(a, b);
+  else
+    return a + b;
 }
 
 // A tile's entries, values and row starts, loaded from global memory through
@@ -149,7 +141,7 @@ struct GlobalTile {
 
   template <typename U>
   __device__ __forceinline__ static U load(const U* p) {
-    return kStream ? ld_stream(p) : __ldg(p);
+    return kStream ? ld_stream(p) : ldg(p);
   }
   __device__ __forceinline__ int col(const int4& t, int j) const { return load(colidx + t.z + j); }
   __device__ __forceinline__ T val(const int4& t, int j) const { return load(vals + t.z + j); }
@@ -177,7 +169,7 @@ __device__ __forceinline__ void tile_sums(const int4 t, const Source& src, const
   const int s0 = tid <= t.y ? src.start(t, tid) : 0;
   const int s1 = tid == 0 && t.y == kThreads ? src.start(t, kThreads) : 0;
 #pragma unroll
-  for (int k = 0; k < E; ++k) xv[k] = col[k] >= 0 ? __ldg(x + col[k]) : T(0);
+  for (int k = 0; k < E; ++k) xv[k] = col[k] >= 0 ? ldg(x + col[k]) : T(0);
 #pragma unroll
   for (int k = 0; k < E; ++k) {
     const int j = tid + k * kThreads;
@@ -195,7 +187,7 @@ __device__ __forceinline__ void tile_sums(const int4 t, const Source& src, const
     for (int j = starts[g] + lane; j < end; j += V) acc = combine<T, kMax>(acc, prod[j]);
   }
   for (int off = V >> 1; off > 0; off >>= 1)
-    acc = combine<T, kMax>(acc, __shfl_xor_sync(0xffffffffu, acc, off));
+    acc = combine<T, kMax>(acc, shfl_xor(0xffffffffu, acc, off));
   if (g < t.y && lane == 0) y[t.x + g] = acc;
 }
 
@@ -218,14 +210,14 @@ __device__ __noinline__ void long_row(int4 t, const int* __restrict__ colidx,
     for (int k = 0; k < E; ++k) {
       const int j = tid + k * kThreads;
       col[k] = j < count ? __ldg(colidx + first + j) : -1;
-      val[k] = j < count ? __ldg(vals + first + j) : T(0);
+      val[k] = j < count ? ldg(vals + first + j) : T(0);
     }
 #pragma unroll
     for (int k = 0; k < E; ++k)
-      acc = combine<T, kMax>(acc, val[k] * (col[k] >= 0 ? __ldg(x + col[k]) : T(0)));
+      acc = combine<T, kMax>(acc, val[k] * (col[k] >= 0 ? ldg(x + col[k]) : T(0)));
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
-      acc = combine<T, kMax>(acc, __shfl_xor_sync(0xffffffffu, acc, off));
+      acc = combine<T, kMax>(acc, shfl_xor(0xffffffffu, acc, off));
     if ((tid & 31) == 0) part[tid >> 5] = acc;
     __syncthreads();
     if (tid == 0)
@@ -488,5 +480,11 @@ extern "C" int tpukk_csr_spmv(int dtype, int reduce, int streamed, int long_rows
   if (dtype == 1 && reduce == 1)
     return launch_spmv<double, true>(streamed, long_rows, t, ntiles, rowmap, colidx, vals, x, y,
                                      s);
+  if (dtype == 2 && reduce == 0)
+    return launch_spmv<cplx<float>, false>(streamed, long_rows, t, ntiles, rowmap, colidx, vals,
+                                           x, y, s);
+  if (dtype == 3 && reduce == 0)
+    return launch_spmv<cplx<double>, false>(streamed, long_rows, t, ntiles, rowmap, colidx, vals,
+                                            x, y, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

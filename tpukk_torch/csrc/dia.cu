@@ -6,6 +6,11 @@
 //                      the TPU carried f64 as (hi, lo) f32 pairs; Hopper has
 //                      native f64, so the same kernel in double replaces it.
 //   K2 dia_spmm<T>  <- _dia_mv_call (:180, "tpukk_spmv_dia_mv")
+// K1 also runs complex64 and complex128 (T = cplx<float>, cplx<double>,
+// cplx.cuh): the same kernel, each value one 8- or 16-byte access.  tpukk's
+// complex64 reaches _dia_call as four real products of the (re, im) planes
+// (tpukk/sparse/spmv.py:189-233), a TPU workaround; here the product is one
+// complex multiply-add a term.  K2 stays real (complex SpMM: ROADMAP A3b).
 //
 // What it computes: y[i] = sum_j diags[j][i] * x[i + off_j], 0 <= i < nrows,
 // a term whose column falls outside [0, ncols) being zero; K2 does the same
@@ -43,11 +48,13 @@
 // (loading eight diagonals before adding any was slower too: PERF.md, K2).
 //
 // C interface (bound with ctypes): every function returns the cudaError_t of
-// its launch (0 when nothing needed launching); dtype 0 = float, 1 = double.
+// its launch (0 when nothing needed launching); dtype 0 = float, 1 = double,
+// and for dia_spmv 2 = complex64, 3 = complex128.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cplx.cuh"
 #include "vec.cuh"
 
 namespace {
@@ -67,7 +74,7 @@ dia_spmv_kernel(const T* __restrict__ diags, const int* __restrict__ offsets, in
   T acc = T(0);
   for (int j = 0; j < ndiags; ++j) {
     const int64_t c = i + s_off[j];
-    if (c >= 0 && c < ncols) acc += diags[j * nrows + i] * __ldg(x + c);
+    if (c >= 0 && c < ncols) acc += diags[j * nrows + i] * ldg(x + c);
   }
   y[i] = acc;
 }
@@ -167,6 +174,10 @@ extern "C" int tpukk_dia_spmv(int dtype, const void* diags, const int* offsets, 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_spmv<float>(diags, offsets, ndiags, x, y, nrows, ncols, s);
   if (dtype == 1) return launch_spmv<double>(diags, offsets, ndiags, x, y, nrows, ncols, s);
+  if (dtype == 2)
+    return launch_spmv<cplx<float>>(diags, offsets, ndiags, x, y, nrows, ncols, s);
+  if (dtype == 3)
+    return launch_spmv<cplx<double>>(diags, offsets, ndiags, x, y, nrows, ncols, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -56,13 +56,23 @@
 // stride[b] shared slots a row (0: accumulate in global memory).  One launch
 // covers every bin, so the kernel's registers are those of its widest path.
 //
+// Complex values (T = cplx<float>, cplx<double>, cplx.cuh) run the same
+// kernel: a product is (ar·br − ai·bi, ar·bi + ai·br) with every operation
+// rounded on its own, as the plain version forms it from the parts, so the
+// bits still match.  A slot then holds 8 or 16 bytes: at complex128 a block
+// of the widest bin needs SLOT_CAP · (4 + 16) = 120 KB, which the launch opts
+// in to (the H100 gives a block up to 227 KB), at one block an SM.
+//
 // C interface (bound with ctypes): returns the cudaError_t of the launch (0
-// when nothing needed launching); dtype 0 = float, 1 = double.
+// when nothing needed launching); dtype 0 = float, 1 = double, 2 = complex64,
+// 3 = complex128.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <atomic>
+
+#include "cplx.cuh"
 
 namespace {
 
@@ -79,6 +89,19 @@ __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, 
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
 __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
+// a complex product from its parts, each operation rounded on its own:
+// (ar·br − ai·bi, ar·bi + ai·br), the formula and order of the plain version
+template <typename R>
+__device__ __forceinline__ cplx<R> mul_rn(cplx<R> a, cplx<R> b) {
+  return {sub_rn(mul_rn(a.re, b.re), mul_rn(a.im, b.im)),
+          add_rn(mul_rn(a.re, b.im), mul_rn(a.im, b.re))};
+}
+template <typename R>
+__device__ __forceinline__ cplx<R> add_rn(cplx<R> a, cplx<R> b) {
+  return {add_rn(a.re, b.re), add_rn(a.im, b.im)};
+}
 
 struct Bins {
   int n;
@@ -122,18 +145,23 @@ __device__ __forceinline__ void find_slots(const int* cols, int n, const int (&c
   }
 }
 
-// An entry of A: its value and its B row [bs, be).
+// An entry of A: its B row [bs, be) and its value.  The value comes last: with
+// a 16-byte complex128 value first, nvcc 12.9 at -O3 emits PTX in which the
+// value of the entry loaded two passes ahead (row_sum's later[1]) is never
+// read, so a group of lanes multiplies by a stale value; with the value last
+// (or under -G) every loaded value is used and the bits are the plain
+// version's (scripts/k8_complex_layout_torch.py).
 template <typename T>
 struct AEntry {
-  T a;
   int bs, be;
+  T a;
 };
 
 template <typename T>
 __device__ __forceinline__ AEntry<T> a_entry(const Operands<T>& o, int p, int a1) {
-  if (p >= a1) return {T(0), 0, 0};
+  if (p >= a1) return {0, 0, T(0)};
   const int k = __ldg(o.aent + p);
-  return {__ldg(o.aval + p), __ldg(o.brm + k), __ldg(o.brm + k + 1)};
+  return {__ldg(o.brm + k), __ldg(o.brm + k + 1), ldg(o.aval + p)};
 }
 
 // V entries of a B row from q on, V apart by `step` (col -1 past be).
@@ -144,7 +172,7 @@ __device__ __forceinline__ void b_entries(const Operands<T>& o, int q, int step,
   for (int v = 0; v < V; ++v) {
     const bool in = q + v * step < be;
     col[v] = in ? __ldg(o.bent + q + v * step) : -1;
-    bv[v] = in ? __ldg(o.bval + q + v * step) : T(0);
+    bv[v] = in ? ldg(o.bval + q + v * step) : T(0);
   }
 }
 
@@ -410,5 +438,10 @@ extern "C" int tpukk_spgemm_rows(int dtype, const int* arm, const int* aent, con
                                        table, s);
   if (dtype == 1) return launch<double>(arm, aent, aval, brm, bent, bval, crm, cent, cval, order,
                                         table, s);
+  if (dtype == 2)
+    return launch<cplx<float>>(arm, aent, aval, brm, bent, bval, crm, cent, cval, order, table, s);
+  if (dtype == 3)
+    return launch<cplx<double>>(arm, aent, aval, brm, bent, bval, crm, cent, cval, order, table,
+                                s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -57,12 +57,19 @@
 // can only mean a plan that does not order the triangle: the kernel traps, so
 // the launch fails with an error instead of hanging the card.
 //
+// Complex values (complex64, complex128: T = cplx<float>, cplx<double>,
+// cplx.cuh) run the same kernel; a value then travels in two or four tagged
+// words (Word<cplx<...>> below), and the plan's words buffer holds kWords a
+// row (sptrsv_cuda.words_per_value).
+//
 // C interface (bound with ctypes): returns the cudaError_t of the launch (0
-// when nothing needed launching); dtype 0 = float, 1 = double; lanes (G) 16 or
-// 32.
+// when nothing needed launching); dtype 0 = float, 1 = double, 2 = complex64,
+// 3 = complex128; lanes (G) 16 or 32.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "cplx.cuh"
 
 namespace {
 
@@ -100,33 +107,76 @@ __device__ __forceinline__ bool tagged(u64 w, unsigned epoch) {
   return static_cast<unsigned>(w >> 32) == epoch;
 }
 
-// the publication words of row r: f32 words[r], f64 words[2r] (hi), [2r+1] (lo)
+// the publication words of row r: f32 words[r], f64 words[2r] (hi), [2r+1]
+// (lo), complex64 words[2r] (re), [2r+1] (im), complex128 words[4r ..
+// 4r+3] (re hi, re lo, im hi, im lo): kWords a value
 template <typename T>
 struct Word;
 
 template <>
 struct Word<float> {
+  static constexpr int kWords = 1;
   __device__ static bool read(const u64* w, int c, unsigned epoch, float& x) {
-    const u64 a = ld_relaxed(w + c);
+    const u64 a = ld_relaxed(w + kWords * static_cast<size_t>(c));
     x = __uint_as_float(static_cast<unsigned>(a));
     return tagged(a, epoch);
   }
   __device__ static void publish(u64* w, int r, unsigned epoch, float x) {
-    st_relaxed(w + r, tag(epoch, __float_as_uint(x)));
+    st_relaxed(w + kWords * static_cast<size_t>(r), tag(epoch, __float_as_uint(x)));
   }
 };
 
 template <>
 struct Word<double> {
+  static constexpr int kWords = 2;
   __device__ static bool read(const u64* w, int c, unsigned epoch, double& x) {
     u64 hi, lo;
-    ld_relaxed2(w + 2 * static_cast<size_t>(c), hi, lo);
+    ld_relaxed2(w + kWords * static_cast<size_t>(c), hi, lo);
     x = __hiloint2double(static_cast<int>(hi), static_cast<int>(lo));
     return tagged(hi, epoch) && tagged(lo, epoch);
   }
   __device__ static void publish(u64* w, int r, unsigned epoch, double x) {
-    st_relaxed2(w + 2 * static_cast<size_t>(r), tag(epoch, __double2hiint(x)),
+    st_relaxed2(w + kWords * static_cast<size_t>(r), tag(epoch, __double2hiint(x)),
                 tag(epoch, __double2loint(x)));
+  }
+};
+
+// complex64 takes f64's layout: (epoch, re) and (epoch, im) in one 16-byte
+// access
+template <>
+struct Word<cplx<float>> {
+  static constexpr int kWords = 2;
+  __device__ static bool read(const u64* w, int c, unsigned epoch, cplx<float>& x) {
+    u64 re, im;
+    ld_relaxed2(w + kWords * static_cast<size_t>(c), re, im);
+    x = {__uint_as_float(static_cast<unsigned>(re)), __uint_as_float(static_cast<unsigned>(im))};
+    return tagged(re, epoch) && tagged(im, epoch);
+  }
+  __device__ static void publish(u64* w, int r, unsigned epoch, cplx<float> x) {
+    st_relaxed2(w + kWords * static_cast<size_t>(r), tag(epoch, __float_as_uint(x.re)),
+                tag(epoch, __float_as_uint(x.im)));
+  }
+};
+
+// complex128: four tagged words in two 16-byte accesses; the value counts
+// only when all four carry the epoch (each 64-bit word is single-copy atomic,
+// a 16-byte access is not assumed to be, so the tags carry the correctness)
+template <>
+struct Word<cplx<double>> {
+  static constexpr int kWords = 4;
+  __device__ static bool read(const u64* w, int c, unsigned epoch, cplx<double>& x) {
+    u64 rh, rl, ih, il;
+    const u64* p = w + kWords * static_cast<size_t>(c);
+    ld_relaxed2(p, rh, rl);
+    ld_relaxed2(p + 2, ih, il);
+    x = {__hiloint2double(static_cast<int>(rh), static_cast<int>(rl)),
+         __hiloint2double(static_cast<int>(ih), static_cast<int>(il))};
+    return tagged(rh, epoch) && tagged(rl, epoch) && tagged(ih, epoch) && tagged(il, epoch);
+  }
+  __device__ static void publish(u64* w, int r, unsigned epoch, cplx<double> x) {
+    u64* p = w + kWords * static_cast<size_t>(r);
+    st_relaxed2(p, tag(epoch, __double2hiint(x.re)), tag(epoch, __double2loint(x.re)));
+    st_relaxed2(p + 2, tag(epoch, __double2hiint(x.im)), tag(epoch, __double2loint(x.im)));
   }
 };
 
@@ -164,14 +214,14 @@ sptrsv_levels_kernel(const int* __restrict__ rowptr, const int* __restrict__ col
       end = __ldg(rowptr + row + 1);
       if (sub == 0) {
         const int s = src ? __ldg(src + row) : row;
-        if (s >= 0) bv = __ldg(b + s);
-        dinv = __ldg(invd + row);
+        if (s >= 0) bv = ldg(b + s);
+        dinv = ldg(invd + row);
         to = dst ? __ldg(dst + row) : row;
       }
       p = beg + sub;
       if (p < end) {
         c = __ldg(cols + p);
-        v = __ldg(vals + p);
+        v = ldg(vals + p);
       }
     }
     // the next rows, in flight while these wait
@@ -184,7 +234,7 @@ sptrsv_levels_kernel(const int* __restrict__ rowptr, const int* __restrict__ col
         T vn = T(0);
         if (pn < end) {
           cn = __ldg(cols + pn);
-          vn = __ldg(vals + pn);
+          vn = ldg(vals + pn);
         }
         acc += v * wait_value<T>(words, c, epoch);
         p = pn;
@@ -196,7 +246,7 @@ sptrsv_levels_kernel(const int* __restrict__ rowptr, const int* __restrict__ col
       const int span = end - beg;
 #pragma unroll
       for (int off = G / 2; off > 0; off >>= 1)
-        if (off < span) acc += __shfl_xor_sync(group, acc, off, G);
+        if (off < span) acc += shfl_xor(group, acc, off, G);
       if (sub == 0) {
         const T x = (bv - acc) * dinv;
         Word<T>::publish(words, row, epoch, x);
@@ -259,5 +309,11 @@ extern "C" int tpukk_sptrsv_levels(int dtype, int lanes, const int* rowptr, cons
   if (dtype == 1)
     return launch_lanes<double>(lanes, rowptr, cols, vals, invd, b, src, dst, out, words, state,
                                 n, blocks, s);
+  if (dtype == 2)
+    return launch_lanes<cplx<float>>(lanes, rowptr, cols, vals, invd, b, src, dst, out, words,
+                                     state, n, blocks, s);
+  if (dtype == 3)
+    return launch_lanes<cplx<double>>(lanes, rowptr, cols, vals, invd, b, src, dst, out, words,
+                                      state, n, blocks, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

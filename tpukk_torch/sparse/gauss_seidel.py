@@ -208,6 +208,7 @@ def gauss_seidel_numeric(handle: GsHandle, A, omega: float = 1.0):
     its SpMV handles; a BsrMatrix its diagonal blocks and their inverses."""
     _check_matrix(A)
     check(handle.is_symbolic_called, "gauss_seidel_numeric: symbolic first")
+    _refuse_complex(A.dtype)
     handle.omega = float(omega)
     if isinstance(A, BsrMatrix):
         _block_numeric(handle, A)
@@ -219,6 +220,13 @@ def gauss_seidel_numeric(handle: GsHandle, A, omega: float = 1.0):
     handle.is_numeric_called = True
 
 
+def _refuse_complex(dtype: torch.dtype) -> None:
+    """Complex Gauss-Seidel (K6's sweeps, TWOSTAGE, block GS) is not ported:
+    ROADMAP A3b.  It raises on every device."""
+    if dtype.is_complex:
+        raise NotImplementedError("complex Gauss-Seidel is not ported (ROADMAP A3b)")
+
+
 def _sweep_plan(handle: GsHandle, A: CsrMatrix) -> gs_cuda.GsSweepPlan:
     """``tpukk``'s numeric phase (gauss_seidel.py:193-241) without the ELL
     padding, for all colors at once: the rows in color order, their entries
@@ -227,9 +235,6 @@ def _sweep_plan(handle: GsHandle, A: CsrMatrix) -> gs_cuda.GsSweepPlan:
     rm = A.host_row_map().astype(np.int64)
     ent = A.host_entries()
     vals = A.host_values()  # bf16 values arrive widened to f32
-    if vals.dtype not in (np.float32, np.float64):
-        raise NotImplementedError("complex Gauss-Seidel waits on complex SpMV "
-                                  "(ROADMAP queue A, item A3)")
     rows = handle.order.astype(np.int64)
     n = rows.size
     lens = rm[rows + 1] - rm[rows]
@@ -380,6 +385,9 @@ def gauss_seidel_apply(handle: GsHandle, A, x, b, num_sweeps: int = 1,
     check(b.ndim in (1, 2) and b.shape[0] == A.nrows and b.device == A.device,
           f"gauss_seidel_apply: b must be ({A.nrows},) or ({A.nrows}, k) on {A.device}")
     check(x is None or x.shape == b.shape, "gauss_seidel_apply: x and b shapes differ")
+    _refuse_complex(b.dtype)
+    if x is not None:
+        _refuse_complex(x.dtype)
     out_dtype = b.dtype if x is None else x.dtype  # tpukk's result dtype
     fwd = direction in ("forward", "symmetric")
     bwd = direction in ("backward", "symmetric")

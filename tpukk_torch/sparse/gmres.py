@@ -5,9 +5,12 @@ Arnoldi loop of sparse/impl/KokkosSparse_gmres_impl.hpp:64-244).
 
 The Arnoldi cycle keeps the basis V (m+1, n) and the Hessenberg H (m+1, m)
 on the device; CGS2 orthogonalizes against the first j+1 rows of V only (the
-static-j slices of ``tpukk``'s unrolled cycle), MGS one row at a time.  The
-small (m+1)×m least-squares problem is solved on the host in f64 by LAPACK's
-gelsd (``numpy.linalg.lstsq``), which returns the minimum-norm solution when
+static-j slices of ``tpukk``'s unrolled cycle), MGS one row at a time.  Every
+inner product conjugates its first operand and the norm is
+sqrt(real(Σ conj(x)·x)), as in ``tpukk`` (gmres.py:66-109), so complex
+systems solve.  The small (m+1)×m least-squares problem is solved on the host
+in f64 (complex128 for a complex b) by LAPACK's gelsd
+(``numpy.linalg.lstsq``), which returns the minimum-norm solution when
 H is singular (β = 0, happy breakdown), as ``jnp.linalg.lstsq`` does: one
 copy of H per cycle.  The restart loop reads the true residual norm once per
 cycle, as ``tpukk`` does, and counts iterations in multiples of m.
@@ -64,15 +67,16 @@ class GmresStats:
 
 
 def _norm(x: torch.Tensor) -> torch.Tensor:
-    """‖x‖₂ as a 0-d tensor on x's device."""
-    return torch.sqrt(torch.sum(x * x))
+    """‖x‖₂ as a real 0-d tensor on x's device, conjugation-correct for
+    complex x."""
+    return torch.sqrt(torch.real(torch.sum(torch.conj(x) * x)))
 
 
 def _arnoldi_cycle(Ah, prec, b, x0, m: int, ortho: Ortho):
     """One restart cycle from x0; returns the new iterate."""
     r = b - Ah(x0)
     z = prec.apply(r)
-    beta = _norm(z)
+    beta = _norm(z).to(b.dtype)
     V = torch.zeros((m + 1, b.shape[0]), dtype=b.dtype, device=b.device)
     V[0] = z / _nonzero(beta)
     H = torch.zeros((m + 1, m), dtype=b.dtype, device=b.device)
@@ -81,22 +85,25 @@ def _arnoldi_cycle(Ah, prec, b, x0, m: int, ortho: Ortho):
         if ortho == Ortho.CGS2:
             # classical Gram-Schmidt twice, against rows [0, j] only
             Vj = V[:j + 1]
-            h1 = torch.mv(Vj, w)
+            Vc = Vj.conj()
+            h1 = torch.mv(Vc, w)
             w = w - torch.mv(Vj.T, h1)
-            h2 = torch.mv(Vj, w)
+            h2 = torch.mv(Vc, w)
             w = w - torch.mv(Vj.T, h2)
             H[:j + 1, j] = h1 + h2
         else:
             for i in range(j + 1):
-                hi = torch.dot(V[i], w)
+                hi = torch.vdot(V[i], w)
                 w = w - hi * V[i]
                 H[i, j] = hi
-        hn = _norm(w)
+        hn = _norm(w).to(b.dtype)
         H[j + 1, j] = hn
         V[j + 1] = w / _nonzero(hn)
-    # rank-safe least squares on the host (minimum norm when H is singular)
-    Hb = torch.cat([H.reshape(-1), beta.reshape(1)]).double().cpu().numpy()
-    e1 = np.zeros(m + 1)
+    # rank-safe least squares on the host (minimum norm when H is singular),
+    # in complex128 for a complex b
+    hdt = torch.complex128 if b.dtype.is_complex else torch.float64
+    Hb = torch.cat([H.reshape(-1), beta.reshape(1)]).to(hdt).cpu().numpy()
+    e1 = np.zeros(m + 1, Hb.dtype)
     e1[0] = Hb[-1]
     y = np.linalg.lstsq(Hb[:-1].reshape(m + 1, m), e1, rcond=None)[0]
     return x0 + torch.mv(V[:m].T, torch.from_numpy(y).to(b.dtype).to(b.device))

@@ -281,6 +281,7 @@ def gs_color_step(blk: GsBlock, x: torch.Tensor, b: torch.Tensor, omega: float,
     check(blk.inv_diag.dtype == csr.values.dtype and csr.row_map.device == x.device
           and csr.entries.device == x.device and blk.inv_diag.device == x.device,
           "gs_color_step: block arrays must be on x's device, inv_diag in the values' dtype")
+    code = _kernels.dtype_code(x.dtype, _kernels.DTYPE_CODE, "gs_color_step")
     if not _kernels.on_cuda(x, "gs_color_step"):
         return gs_color_step_plain(blk, x, b, omega)
     check(csr.row_map.dtype == torch.int32 and csr.entries.dtype == torch.int32
@@ -301,7 +302,7 @@ def gs_color_step(blk: GsBlock, x: torch.Tensor, b: torch.Tensor, omega: float,
               f"least {blk.nrows * k} elements")
         out = scratch[:blk.nrows * k].view(x[rows].shape)
     err = _kernels.library("gs").tpukk_gs_color_step(
-        _kernels.DTYPE_CODE[x.dtype], csr.group, csr.row_map.data_ptr(), csr.entries.data_ptr(),
+        code, csr.group, csr.row_map.data_ptr(), csr.entries.data_ptr(),
         csr.values.data_ptr(), blk.inv_diag.data_ptr(), b.data_ptr(), x.data_ptr(),
         out.data_ptr(), blk.start, blk.nrows, k, float(omega), _kernels.stream_of(x))
     _kernels.check_launch(err, "gs_color_step")
@@ -357,6 +358,7 @@ def gs_sweep(plan: GsSweepPlan, x, b: torch.Tensor, omega: float, direction: str
     _kernels.check_operand(b, "gs_sweep", dt, dev)
     if x is not None:
         _kernels.check_operand(x, "gs_sweep", dt, dev)
+    code = _kernels.dtype_code(b.dtype, _kernels.DTYPE_CODE, "gs_sweep")
     st = plan.steps(direction, num_sweeps, x is not None)
     if not _kernels.on_cuda(b, "gs_sweep"):
         return gs_sweep_plain(plan, x, b, omega, direction, num_sweeps, permuted)
@@ -369,7 +371,7 @@ def gs_sweep(plan: GsSweepPlan, x, b: torch.Tensor, omega: float, direction: str
     idx = None if permuted else plan.order.data_ptr()
     csr = plan.csr
     err = _kernels.library("gs").tpukk_gs_sweep(
-        _kernels.DTYPE_CODE[b.dtype], csr.group, csr.row_map.data_ptr(), csr.entries.data_ptr(),
+        code, csr.group, csr.row_map.data_ptr(), csr.entries.data_ptr(),
         csr.values.data_ptr(), plan.inv_diag.data_ptr(), st.steps.data_ptr(), st.host.shape[0],
         st.nchunks, plan.chunk_rows, b.data_ptr(), None if x is None else x.data_ptr(), idx, idx,
         work.data_ptr(), None if scratch is None else scratch.data_ptr(),

@@ -8,7 +8,8 @@ Two phases, with the reference handle's reuse contract
   A's device once, and K8's row plan built there (``spgemm_cuda.build_row_plan``:
   the rows binned by their lanes, O(rows) bytes).
 * **numeric** (device): K8 (``spgemm_cuda.spgemm_rows``) sums each C row's
-  products in a shared-memory accumulator, f32 and f64.  New values on the
+  products in a shared-memory accumulator, f32, f64, complex64 and
+  complex128.  New values on the
   same patterns re-run only this.
 
 ``SpgemmAlgorithm`` mirrors SPGEMMAlgorithm (spgemm_handle.hpp:44-76): KK is
@@ -30,10 +31,11 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..common import check
+from ..common import check, result_dtype
 from ..common.tracing import annotate
 from ..containers import CsrMatrix, StaticCrsGraph, expand_row_ids
 from .spgemm_cuda import SpgemmRowPlan, build_row_plan, spgemm_rows
+from .spmv_impl import segment_sum
 
 __all__ = ["SpgemmAlgorithm", "SpgemmHandle", "spgemm_symbolic", "spgemm_numeric",
            "spgemm", "spgemm_jacobi", "symbolic_plain", "BlockPairPlan",
@@ -142,9 +144,11 @@ def spgemm_symbolic(handle: SpgemmHandle, A: CsrMatrix, B: CsrMatrix):
 
 
 def _compute_dtype(A: CsrMatrix, B: CsrMatrix) -> torch.dtype:
+    """The promotion of A's and B's dtypes: f32, f64, complex64 or
+    complex128 (bf16 widens to f32)."""
     dt = torch.promote_types(A.dtype, B.dtype)
-    check(not dt.is_complex, "spgemm: complex values are not ported (ROADMAP queue A item 3)")
-    return dt if dt in (torch.float32, torch.float64) else torch.float32
+    return dt if dt in (torch.float32, torch.float64, torch.complex64, torch.complex128) \
+        else torch.float32
 
 
 def _numeric_dense_acc(handle: SpgemmHandle, A: CsrMatrix, B: CsrMatrix, dt) -> torch.Tensor:
@@ -163,7 +167,8 @@ def _numeric_dense_acc(handle: SpgemmHandle, A: CsrMatrix, B: CsrMatrix, dt) -> 
 
 @annotate("spgemm_numeric")
 def spgemm_numeric(handle: SpgemmHandle, A: CsrMatrix, B: CsrMatrix) -> CsrMatrix:
-    """Numeric phase on A's device: K8 for KK, in f32 or f64."""
+    """Numeric phase on A's device: K8 for KK, in f32, f64, complex64 or
+    complex128."""
     check(handle.is_symbolic_called, "spgemm_numeric: call spgemm_symbolic first")
     if handle.algorithm == SpgemmAlgorithm.DEBUG:
         Cs = (A.to_scipy() @ B.to_scipy()).tocsr()
@@ -179,7 +184,8 @@ def spgemm_numeric(handle: SpgemmHandle, A: CsrMatrix, B: CsrMatrix) -> CsrMatri
     else:
         vals = spgemm_rows(handle.row_plan, A.values.to(dt).contiguous(),
                            B.values.to(dt).contiguous())
-    return CsrMatrix.from_graph(handle.c_graph, vals.to(A.dtype))
+    # A's dtype, but a complex product of a real A keeps its imaginary part
+    return CsrMatrix.from_graph(handle.c_graph, vals.to(result_dtype(A.dtype, dt)))
 
 
 @annotate("spgemm")
@@ -305,7 +311,6 @@ def bspgemm_numeric(handle: SpgemmHandle, A, B):
                                                           handle.block_size),
           "bspgemm_numeric: operands differ from the symbolic phase's")
     dt = torch.promote_types(A.dtype, torch.float32)
-    check(not dt.is_complex, "bspgemm: complex values are not ported (ROADMAP queue A item 3)")
     b = A.block_size
     # gathers of single values: index_select of the b·b-value blocks ran 6-14×
     # slower on the H100 (scripts/bsr_parts_torch.py)
@@ -317,8 +322,7 @@ def bspgemm_numeric(handle: SpgemmHandle, A, B):
         prod = (pa[:, :, :, None] * pb[:, None, :, :]).sum(2)
     else:
         prod = torch.bmm(pa, pb)
-    vals = torch.segment_reduce(prod, "sum", lengths=plan.c_len, axis=0,
-                                unsafe=True).to(A.dtype)
+    vals = segment_sum(prod, plan.c_len).to(A.dtype)
     g = handle.c_graph
     C = BsrMatrix(g.row_map, g.entries, vals, handle.nrows_c, handle.ncols_c, handle.block_size)
     C._prefill(row_map=g.host_row_map(), entries=g.host_entries())

@@ -4,14 +4,15 @@
 One hand-written kernel closes the seven Pallas kernels of that file:
 
 * ``spgemm_rows`` (K8, ``csrc/spgemm.cu``): C's values on C's pattern,
-  ``C[i, j] = Σ_k A[i, k]·B[k, j]``, f32 and f64, a group of lanes a C row with
-  an accumulator in shared memory — replaces the flat, dst-lane, gather-table
+  ``C[i, j] = Σ_k A[i, k]·B[k, j]``, f32, f64, complex64 and complex128, a
+  group of lanes a C row with an accumulator in shared memory — replaces the flat, dst-lane, gather-table
   and packed pair layouts (``_onehot_pair_call``, ``_dl_pair_call``,
   ``_dl_pair_call_batched``, ``_gt_pair_call``, ``_gtp_pk_call``) and the
   sort-based pipeline's ``_expand3_call`` and ``_rowperm3a_call``, which all
   compute this function from a pair plan.  Each C entry is summed from 0 in
   (A entry, B entry) order, the pair plan's order, so the kernel and its plain
-  version give the same bits.
+  version give the same bits; a complex product is formed from its parts,
+  (ar·br − ai·bi, ar·bi + ai·br), each operation rounded on its own, in both.
 
 The wrapper checks device, dtype, shape and contiguity and raises on anything
 else.  On a CPU tensor it runs the plain version beside it
@@ -31,10 +32,12 @@ from ..common import TpuKKError, check
 from ..containers import expand_row_ids
 
 __all__ = ["SpgemmRowPlan", "build_row_plan", "check_pattern", "spgemm_rows", "spgemm_rows_plain",
+           "product_rn",
            "ROW_LANES", "SLOT_CAP", "KERNELS", "launch_counts", "reset_launch_counts"]
 
 ROW_LANES = (1, 2, 4, 8, 16, 32)  # lanes a C row: the kernel's bins
-SLOT_CAP = 6144             # shared slots a block (48 KB f32, 72 KB f64)
+SLOT_CAP = 6144             # shared slots a block (48 KB f32, 72 KB f64 and
+#                             complex64, 120 KB complex128: the launch opts in)
 _B_PER_LANE = 2             # a group's lanes: the longest B row of its A entries over this
 ROW_THREADS = 1 << 17       # threads a launch keeps busy at least: few rows get more lanes
 _MAX_BINS = 7               # kMaxBins in spgemm.cu: ROW_LANES in shared memory, 32 in global
@@ -199,9 +202,10 @@ def spgemm_rows_plain(plan: SpgemmRowPlan, a_vals: torch.Tensor,
                       b_vals: torch.Tensor) -> torch.Tensor:
     """Plain version of K8: the rounded products, added into each C entry
     from 0 in (A entry, B entry) order, one rank of products at a time (the
-    j-th product of every C entry), so it gives the kernel's bits."""
+    j-th product of every C entry), so it gives the kernel's bits.  A
+    complex product is formed from its parts as the kernel forms it."""
     a_idx, b_idx, c_idx, ranks = plan.expand()
-    prod = a_vals[a_idx] * b_vals[b_idx]
+    prod = product_rn(a_vals[a_idx], b_vals[b_idx])
     out = torch.zeros(plan.nnz_c, dtype=prod.dtype, device=prod.device)
     for seg in ranks:
         c = c_idx[seg]
@@ -209,11 +213,21 @@ def spgemm_rows_plain(plan: SpgemmRowPlan, a_vals: torch.Tensor,
     return out
 
 
+def product_rn(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a·b elementwise; complex as (ar·br − ai·bi, ar·bi + ai·br), each
+    operation a torch op of its own (rounded on its own: no FMA), which is
+    K8's formula and order (``spgemm.cu``'s mul_rn)."""
+    if not a.dtype.is_complex:
+        return a * b
+    ar, ai, br, bi = a.real, a.imag, b.real, b.imag
+    return torch.complex(ar * br - ai * bi, ar * bi + ai * br)
+
+
 def spgemm_rows(plan: SpgemmRowPlan, a_vals: torch.Tensor, b_vals: torch.Tensor) -> torch.Tensor:
-    """K8: C's values (nnz_c,) for A's and B's values of one dtype, f32 or
-    f64, on the plan's device."""
+    """K8: C's values (nnz_c,) for A's and B's values of one dtype, f32,
+    f64, complex64 or complex128, on the plan's device."""
     check(a_vals.ndim == 1 and b_vals.ndim == 1, "spgemm_rows: values must be rank-1")
-    check(a_vals.dtype in _kernels.DTYPE_CODE, f"spgemm_rows: dtype {a_vals.dtype} not f32/f64")
+    code = _kernels.dtype_code(a_vals.dtype, _kernels.COMPLEX_DTYPE_CODE, "spgemm_rows")
     _kernels.check_operand(a_vals, "spgemm_rows", a_vals.dtype, plan.device)
     _kernels.check_operand(b_vals, "spgemm_rows", a_vals.dtype, plan.device)
     # the kernel does not bounds-check its reads: the values must fit the patterns
@@ -226,7 +240,7 @@ def spgemm_rows(plan: SpgemmRowPlan, a_vals: torch.Tensor, b_vals: torch.Tensor)
     if plan.nnz_c == 0:
         return c
     err = _kernels.library("spgemm").tpukk_spgemm_rows(
-        _kernels.DTYPE_CODE[a_vals.dtype], plan.a_row_map.data_ptr(), plan.a_entries.data_ptr(),
+        code, plan.a_row_map.data_ptr(), plan.a_entries.data_ptr(),
         a_vals.data_ptr(), plan.b_row_map.data_ptr(), plan.b_entries.data_ptr(),
         b_vals.data_ptr(), plan.c_row_map.data_ptr(), plan.c_entries.data_ptr(), c.data_ptr(),
         plan.order.data_ptr(), plan.table.ctypes.data, _kernels.stream_of(a_vals))

@@ -8,24 +8,35 @@ sparse/src/KokkosSparse_spmv.hpp:77 and KokkosSparse_spmv_handle.hpp).
 
 Modes: 'N' no transpose, 'T' transpose, 'C' conjugate without transpose, 'H'
 conjugate transpose (KokkosSparse_spmv.hpp:126).  Transpose modes
-materialise Aᵀ at plan time.  Values are real (complex SpMV is ROADMAP queue
-A), so C is N and H is T.
+materialise Aᵀ at plan time, conjugate modes conj(A) (``conjugated``, a
+handle of its own, cached); for real values C is N and H is T.
 
-Routes (``SpmvHandle.algorithm``), the same on every device:
+Routes (``SpmvHandle.algorithm``), the same on every device, and the dtypes
+they take (f32 and f64 everywhere; complex64 and complex128 as listed):
 
 =================  ====================================  =====================
 route              on CUDA                               on the CPU
 =================  ====================================  =====================
-DIA, PALLAS        K1 ``dia_spmv`` / K2 ``dia_spmm``     their plain version
-ONEHOT             K3 ``csr_spmv``; a 2-D x with         their plain versions
-                   1 < k ≤ 16: K7 ``csr_spmm``; wider:
-                   ELL, as in ``tpukk``
-RCM                K5 ``permute_gather``, the AUTO       their plain versions
-                   route of P·A·Pᵀ, K5 back
-ELL/SEGSUM/DENSE   torch ops                             torch ops
-BSR                torch ops (``spmv_impl.apply_bsr``)   torch ops
-DS                 the AUTO route, in native f64         the same
+DIA, PALLAS        K1 ``dia_spmv`` (also complex) /      their plain version
+                   K2 ``dia_spmm`` (real)
+ONEHOT             K3 ``csr_spmv`` (also complex); a     their plain versions
+                   2-D x with 1 < k ≤ 16: K7
+                   ``csr_spmm`` (real); wider: ELL, as
+                   in ``tpukk``
+RCM                K5 ``permute_gather`` (complex as     their plain versions
+                   real views), the AUTO route of
+                   P·A·Pᵀ, K5 back
+ELL/SEGSUM/DENSE   torch ops (also complex)              torch ops
+BSR                torch ops (``spmv_impl.apply_bsr``,   torch ops
+                   also complex)
+DS                 the AUTO route, in native f64 (a      the same
+                   complex x: complex128)
 =================  ====================================  =====================
+
+A complex 2-D x on the DIA or ONEHOT route raises NotImplementedError on
+every device: complex SpMM on K2 and K7 is ROADMAP A3b.  ``tpukk`` sends
+complex matrices to ELL on the CPU; the gate below sends them where it sends
+real ones, so complex SpMV runs on K1 and K3.
 
 A ``BsrMatrix`` takes ``tpukk``'s routes (spmv.py:64-83): AUTO expands it to
 scalar CSR (``bsr2crs``, the blocks' explicit zeros kept) and takes DIA on
@@ -40,8 +51,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .. import native
-from ..common import check
+from .. import _kernels, native
+from ..common import check, result_dtype
 from ..common.permute import build_permute_plan, static_permute
 from ..common.tracing import profile_region, region_name
 from ..containers import BsrMatrix, CsrMatrix, bsr2crs
@@ -73,15 +84,15 @@ def _bsr_route(A: BsrMatrix, algorithm: SpmvAlgorithm):
 
 def _choose_algorithm(A: CsrMatrix) -> SpmvAlgorithm:
     """AUTO gate (KokkosSparse_spmv.hpp:222; ``tpukk`` spmv.py:35-53): tiny →
-    DENSE; banded/stencil → DIA; unstructured f32/f64 → ONEHOT (the CSR
-    kernel, which has no tile padding to estimate); else ELL.  It does not
-    depend on the device, so the CPU takes the same routes."""
+    DENSE; banded/stencil → DIA; unstructured f32/f64/complex64/complex128 →
+    ONEHOT (the CSR kernel, which has no tile padding to estimate); else ELL.
+    It does not depend on the device, so the CPU takes the same routes."""
     if A.nrows * A.ncols <= 256 * 256:
         return SpmvAlgorithm.DENSE
     if _dia_gate(A, 32):
         # dense-diagonal storage is within 4x of CSR nnz → streaming wins
         return SpmvAlgorithm.DIA
-    if A.dtype in (torch.float32, torch.float64):
+    if A.dtype in _kernels.COMPLEX_DTYPE_CODE:
         return SpmvAlgorithm.ONEHOT
     return SpmvAlgorithm.ELL
 
@@ -99,9 +110,6 @@ class SpmvHandle:
     def __init__(self, A, algorithm: SpmvAlgorithm = SpmvAlgorithm.AUTO):
         check(isinstance(A, (CsrMatrix, BsrMatrix)),
               "SpmvHandle: a CsrMatrix or a BsrMatrix is required")
-        if A.dtype.is_complex:
-            raise NotImplementedError(
-                "complex SpMV is not ported yet (ROADMAP queue A, item A3)")
         self._user_algorithm = algorithm
         if isinstance(A, BsrMatrix):
             self.A, self.algorithm = _bsr_route(A, algorithm)
@@ -114,6 +122,7 @@ class SpmvHandle:
                               else algorithm)
         self._plans = {}
         self._transposed: Optional["SpmvHandle"] = None
+        self._conjugated: Optional["SpmvHandle"] = None
 
     # -- plan construction (symbolic phase, host-side, cached) ----------
     def _plan(self, key: str, dtype: torch.dtype):
@@ -172,12 +181,28 @@ class SpmvHandle:
             self._transposed = SpmvHandle(_transpose(self.A), self.algorithm)
         return self._transposed
 
+    def conjugated(self) -> "SpmvHandle":
+        """Handle on conj(A), cached (``tpukk`` spmv.py:170-187): the same
+        route on conjugated values; for real values, the handle itself."""
+        if self._conjugated is None:
+            if not self.A.dtype.is_complex:
+                self._conjugated = self
+            else:
+                self._conjugated = SpmvHandle(self.A.with_values(np.conj(self.A.host_values())),
+                                              self.algorithm)
+        return self._conjugated
+
     # -- numeric phase --------------------------------------------------
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         """op-free A·x (or A·X for a multivector), in the compute dtype."""
         dt = _compute_dtype(self.A, x)
         x = x.to(dt).contiguous()
         alg = self.algorithm
+        if (x.ndim == 2 and dt.is_complex
+                and alg in (SpmvAlgorithm.DIA, SpmvAlgorithm.PALLAS, SpmvAlgorithm.ONEHOT)):
+            raise NotImplementedError(
+                f"spmv: complex SpMM on the {alg.name} route (K2/K7) is not ported "
+                f"(ROADMAP A3b); pin ELL, SEGSUM or DENSE")
         if alg in (SpmvAlgorithm.DIA, SpmvAlgorithm.PALLAS):
             plan = self._plan("dia", dt)
             return spmv_cuda.dia_spmv(plan, x) if x.ndim == 1 else spmv_cuda.dia_spmm(plan, x)
@@ -202,30 +227,37 @@ class SpmvHandle:
         raise NotImplementedError(alg)  # pragma: no cover
 
     def matvec_f64(self, x) -> np.ndarray:
-        """y = A·x in f64 for a host array x, host numpy in and out: the
-        handle's own product with f64 operands (the card computes f64
-        natively, so ``tpukk``'s double-single kernels have no counterpart)."""
-        xt = torch.from_numpy(np.asarray(x, np.float64)).to(self.A.device)
+        """y = A·x in f64 (complex128 for complex A or x) for a host array x,
+        host numpy in and out: the handle's own product with f64 operands
+        (the card computes f64 natively, so ``tpukk``'s double-single kernels
+        have no counterpart)."""
+        cplx = np.iscomplexobj(x) or self.A.dtype.is_complex
+        xt = torch.from_numpy(np.asarray(x, np.complex128 if cplx else np.float64)).to(
+            self.A.device)
         return self.matvec(xt).cpu().numpy()
 
     def __call__(self, x: torch.Tensor, alpha=1.0, beta=0.0, y=None, mode: str = "N"):
         m = mode.upper()
         check(m in ("N", "T", "C", "H"), f"spmv: invalid mode '{mode}'")
-        # real values: conj(A) == A, so C runs as N and H as T
         h = self.transposed() if m in ("T", "H") else self
+        if m in ("C", "H"):
+            h = h.conjugated()  # the handle itself for real values
         _check_dims(h.A, x, y)
         # algorithm-labelled region, the pushRegion analog
         # (sparse/src/KokkosSparse_spmv.hpp:261-266)
         # a pinned DS on a BSR matrix is the BSR route at x's dtype, as in tpukk
         ds = self._user_algorithm == SpmvAlgorithm.DS and self.algorithm != SpmvAlgorithm.BSR
+        cplx = x.dtype.is_complex or self.A.dtype.is_complex
         with profile_region(region_name("spmv", m, h.algorithm.name)):
-            ax = h.matvec(x.double() if ds else x)
+            # DS computes in native f64, complex128 for complex operands
+            ax = h.matvec(x.to(torch.complex128 if cplx else torch.float64) if ds else x)
             if y is None or _is_zero(beta):
                 out = ax if _is_one(alpha) else alpha * ax
             else:
                 out = beta * y + alpha * ax
-            # DS returns f64 whatever x is, as tpukk's f64 route does
-            return out if ds else out.to(x.dtype)
+            # DS returns f64 (complex128) whatever x is, as tpukk's f64 route
+            # does; otherwise x's dtype, unless that would drop A's imaginary part
+            return out if ds else out.to(result_dtype(x.dtype, out.dtype))
 
 
 def _is_zero(c):

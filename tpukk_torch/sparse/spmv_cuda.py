@@ -4,14 +4,15 @@ Four hand-written kernels (``tpukk_torch/csrc``) close the 16 Pallas kernels
 of the SpMV and SpMM paths; the Gauss-Seidel color step of ``spmv_pallas.py``
 is K6 (``gs_cuda.py``):
 
-* ``dia_spmv`` (K1, ``csrc/dia.cu``): banded SpMV in f32 and f64 — replaces
-  ``_dia_call`` and the double-single ``_dia_ds_call``.
+* ``dia_spmv`` (K1, ``csrc/dia.cu``): banded SpMV in f32, f64, complex64 and
+  complex128 — replaces ``_dia_call`` and the double-single ``_dia_ds_call``.
 * ``dia_spmm`` (K2, ``csrc/dia.cu``): banded SpMM, one diagonal pass for all
   k columns, column lanes reading X's rows and writing Y's with vector
   accesses (``vector_width``) — replaces ``_dia_mv_call``.
 * ``csr_spmv`` (K3, ``csrc/csr.cu``): unstructured CSR SpMV, sum or max, f32
-  and f64, a block a tile of the plan's entry-balanced tiles of whole rows
-  (``build_csr_tiles``), read through L1 or, for a matrix that streams from
+  and f64 (the sum also complex64 and complex128), a block a tile of the
+  plan's entry-balanced tiles of whole rows (``build_csr_tiles``), read
+  through L1 or, for a matrix that streams from
   device memory, past it — replaces the seven one-hot/gather-table layouts
   behind ``onehot_spmv`` and the double-single ``_gi4_ds_call_batched``.
 * ``csr_spmm`` (K7, ``csrc/csr.cu``): unstructured CSR SpMM for row-major X
@@ -23,7 +24,8 @@ is K6 (``gs_cuda.py``):
   ``_gt_mm_call_batched``, ``_pk_mm_call_batched``).
 
 Each wrapper checks device, dtype, shape and contiguity and raises on
-anything else.  On a CPU tensor it runs the kernel's plain version, which
+anything else; K2 and K7 refuse complex values on every device (complex SpMM
+is ROADMAP A3b).  On a CPU tensor it runs the kernel's plain version, which
 lives beside it (``dia_plain``, ``csr_plain``, ``csr_spmm_plain``).  On a CUDA tensor it launches
 the kernel on the current stream or raises: there is no fallback.  It adds one
 to its ``launches`` count each time it launches its kernel, and nowhere else.
@@ -62,6 +64,8 @@ __all__ = [
 ]
 
 _DTYPE_CODE = _kernels.DTYPE_CODE
+_CPLX_CODE = _kernels.COMPLEX_DTYPE_CODE
+_dtype_code = _kernels.dtype_code
 _REDUCE_CODE = {"sum": 0, "max": 1}
 _stream = _kernels.stream_of
 _check_launch = _kernels.check_launch
@@ -81,26 +85,29 @@ def dia_plain(plan: DiaPlan, x: torch.Tensor) -> torch.Tensor:
     return apply_dia(plan, x)
 
 
-def _check_dia(plan: DiaPlan, x: torch.Tensor, ndim: int, name: str) -> None:
+def _check_dia(plan: DiaPlan, x: torch.Tensor, ndim: int, name: str, codes: dict) -> int:
+    """Checks K1's or K2's operands; returns the dtype's code in ``codes``."""
     check(x.ndim == ndim, f"{name}: x must be rank-{ndim}, got rank {x.ndim}")
     check(x.shape[0] == plan.ncols, f"{name}: x has {x.shape[0]} rows, plan {plan.ncols} cols")
-    check(plan.diags.dtype in _DTYPE_CODE, f"{name}: plan dtype {plan.diags.dtype} not f32/f64")
+    code = _dtype_code(plan.diags.dtype, codes, name)
     check(len(plan.offsets) <= DIA_MAX_DIAGS, f"{name}: at most {DIA_MAX_DIAGS} diagonals")
     _check_operand(x, name, plan.diags.dtype, plan.diags.device)
     check(plan.diags.is_contiguous() and plan.offsets_dev.device == x.device,
           f"{name}: plan arrays must be contiguous and on x's device")
+    return code
 
 
 def dia_spmv(plan: DiaPlan, x: torch.Tensor) -> torch.Tensor:
-    """K1: y = A·x for a DiaPlan and vector x (plan dtype, same device)."""
-    _check_dia(plan, x, 1, "dia_spmv")
+    """K1: y = A·x for a DiaPlan and vector x (plan dtype, same device; f32,
+    f64, complex64 or complex128)."""
+    code = _check_dia(plan, x, 1, "dia_spmv", _CPLX_CODE)
     if not _on_cuda(x, "dia_spmv"):
         return dia_plain(plan, x)
     y = torch.empty(plan.nrows, dtype=x.dtype, device=x.device)
     if plan.nrows == 0:
         return y
     err = _kernels.library("dia").tpukk_dia_spmv(
-        _DTYPE_CODE[x.dtype], plan.diags.data_ptr(), plan.offsets_dev.data_ptr(),
+        code, plan.diags.data_ptr(), plan.offsets_dev.data_ptr(),
         len(plan.offsets), x.data_ptr(), y.data_ptr(), plan.nrows, plan.ncols, _stream(x))
     _check_launch(err, "dia_spmv")
     dia_spmv.launches += 1
@@ -120,8 +127,9 @@ def vector_width(k: int, itemsize: int, offset: int = 0) -> int:
 
 def dia_spmm(plan: DiaPlan, X: torch.Tensor) -> torch.Tensor:
     """K2: Y = A·X for a DiaPlan and row-major X of shape (ncols, k), any k;
-    its column lanes move ``vector_width`` values of X's row at once."""
-    _check_dia(plan, X, 2, "dia_spmm")
+    its column lanes move ``vector_width`` values of X's row at once; f32 and
+    f64."""
+    code = _check_dia(plan, X, 2, "dia_spmm", _DTYPE_CODE)
     if not _on_cuda(X, "dia_spmm"):
         return dia_plain(plan, X)
     k = X.shape[1]
@@ -129,7 +137,7 @@ def dia_spmm(plan: DiaPlan, X: torch.Tensor) -> torch.Tensor:
     if Y.numel() == 0:
         return Y
     err = _kernels.library("dia").tpukk_dia_spmm(
-        _DTYPE_CODE[X.dtype], vector_width(k, X.element_size(), X.data_ptr() % 16),
+        code, vector_width(k, X.element_size(), X.data_ptr() % 16),
         plan.diags.data_ptr(), plan.offsets_dev.data_ptr(),
         len(plan.offsets), X.data_ptr(), Y.data_ptr(), plan.nrows, plan.ncols, k, _stream(X))
     _check_launch(err, "dia_spmm")
@@ -236,10 +244,11 @@ def build_csr_plan(A: CsrMatrix, dtype: torch.dtype, streamed: bool | None = Non
     """The plan of K3 and K7 for A in dtype, on A's arrays where they already
     have the dtype.  K3 streams past L1 when colidx and vals pass STREAM_BYTES;
     ``streamed`` pins the mode instead (the tests and scripts/k3_sweep_torch.py
-    run both on small matrices)."""
-    check(dtype in _DTYPE_CODE, f"csr plan: dtype {dtype} not f32/f64")
+    run both on small matrices).  f32, f64, complex64 or complex128 (K3's
+    sum; K7 and the max take real values)."""
+    _dtype_code(dtype, _CPLX_CODE, "csr plan")
     if streamed is None:
-        streamed = A.nnz * (4 + torch.finfo(dtype).bits // 8) > STREAM_BYTES
+        streamed = A.nnz * (4 + dtype.itemsize) > STREAM_BYTES
     cap = csr_tile_entries(streamed)
     tiles = build_csr_tiles(A.row_map, cap)
     return CsrPlan(A.row_map, A.entries, A.values.to(dtype).contiguous(), A.nrows, A.ncols,
@@ -258,11 +267,15 @@ def csr_plain(plan: CsrPlan, x: torch.Tensor, reduce: str = "sum") -> torch.Tens
 
 
 def csr_spmv(plan: CsrPlan, x: torch.Tensor, reduce: str = "sum") -> torch.Tensor:
-    """K3: y = A·x, or the (max, ×) row reduction with neutral 0."""
+    """K3: y = A·x (f32, f64, complex64 or complex128), or the (max, ×) row
+    reduction with neutral 0 (f32 or f64)."""
     check(reduce in _REDUCE_CODE, f"csr_spmv: reduce must be 'sum' or 'max', got {reduce!r}")
     check(x.ndim == 1, f"csr_spmv: x must be rank-1, got rank {x.ndim}")
     check(x.shape[0] == plan.ncols, f"csr_spmv: x has {x.shape[0]} rows, plan {plan.ncols} cols")
     _check_operand(x, "csr_spmv", plan.values.dtype, plan.values.device)
+    check(reduce == "sum" or not x.dtype.is_complex,
+          "csr_spmv: the max reduction takes real values")
+    code = _dtype_code(x.dtype, _CPLX_CODE, "csr_spmv")
     check(plan.row_map.device == x.device and plan.entries.device == x.device,
           "csr_spmv: plan arrays must be on x's device")
     if not _on_cuda(x, "csr_spmv"):
@@ -277,7 +290,7 @@ def csr_spmv(plan: CsrPlan, x: torch.Tensor, reduce: str = "sum") -> torch.Tenso
     if plan.nrows == 0:
         return y
     err = _kernels.library("csr").tpukk_csr_spmv(
-        _DTYPE_CODE[x.dtype], _REDUCE_CODE[reduce], int(plan.streamed), int(plan.long_rows),
+        code, _REDUCE_CODE[reduce], int(plan.streamed), int(plan.long_rows),
         plan.tiles.data_ptr(), plan.tiles.shape[0], plan.row_map.data_ptr(),
         plan.entries.data_ptr(), plan.values.data_ptr(), x.data_ptr(), y.data_ptr(), _stream(x))
     _check_launch(err, "csr_spmv")
@@ -355,6 +368,7 @@ def csr_spmm(plan: CsrPlan, X: torch.Tensor, geometry: SpmmGeometry | None = Non
     k = X.shape[1]
     check(1 <= k <= SPMM_MAX_K, f"csr_spmm: X must have 1 to {SPMM_MAX_K} columns, got {k}")
     _check_operand(X, "csr_spmm", plan.values.dtype, plan.values.device)
+    code = _dtype_code(X.dtype, _DTYPE_CODE, "csr_spmm")
     check(plan.row_map.device == X.device and plan.entries.device == X.device,
           "csr_spmm: plan arrays must be on X's device")
     if not _on_cuda(X, "csr_spmm"):
@@ -371,7 +385,7 @@ def csr_spmm(plan: CsrPlan, X: torch.Tensor, geometry: SpmmGeometry | None = Non
     check(k % g.vec == 0 and X.data_ptr() % (g.vec * size) == 0,
           f"csr_spmm: {g} does not fit X (k {k}, {X.data_ptr() % 16} bytes past 16)")
     err = _kernels.library("csr").tpukk_csr_spmm(
-        _DTYPE_CODE[X.dtype], g.vec, g.cols, g.slots.bit_length() - 1,
+        code, g.vec, g.cols, g.slots.bit_length() - 1,
         plan.row_map.data_ptr(), plan.entries.data_ptr(), plan.values.data_ptr(), X.data_ptr(),
         Y.data_ptr(), plan.nrows, k, _stream(X))
     _check_launch(err, "csr_spmm")

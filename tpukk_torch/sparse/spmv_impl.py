@@ -13,7 +13,8 @@ ops:
   block (elementwise products summed a row for a vector, ``torch.bmm`` for a
   multivector), and a segment sum over each block row's run
   of blocks in CSR order (``torch.segment_reduce``: no atomics, so two calls
-  on the same input give the same bits).
+  on the same input give the same bits; it has no complex kernel, so a
+  complex sum runs over the ``view_as_real`` parts, ``segment_sum``).
 
 Plans are built once per (matrix, compute dtype) on the host and moved to the
 matrix's device (the symbolic/numeric split of the reference's SPMVHandle,
@@ -48,6 +49,7 @@ __all__ = [
     "apply_segsum",
     "apply_bsr",
     "apply_dense",
+    "segment_sum",
 ]
 
 
@@ -304,8 +306,17 @@ def apply_bsr(plan: BsrPlan, x: torch.Tensor) -> torch.Tensor:
         prod = (plan.values * xg[:, None, :]).sum(-1)
     else:
         prod = torch.bmm(plan.values, xg)
-    yb = torch.segment_reduce(prod, "sum", lengths=plan.lengths, axis=0, unsafe=True)
+    yb = segment_sum(prod, plan.lengths)
     return yb.reshape((plan.n_block_rows * b,) + tuple(x.shape[1:]))
+
+
+def segment_sum(t: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Sums of consecutive runs of ``lengths`` rows of t, in row order
+    (``torch.segment_reduce``, which takes no complex values: a complex t is
+    summed as its real and imaginary parts, which gives the same sums)."""
+    if t.dtype.is_complex:
+        return torch.view_as_complex(segment_sum(torch.view_as_real(t), lengths))
+    return torch.segment_reduce(t, "sum", lengths=lengths, axis=0, unsafe=True)
 
 
 # ----------------------------------------------------------------------

@@ -8,10 +8,11 @@ CSR plan of the strict triangle (``sptrsv_cuda.build_level_plan``).  Solve is
 one launch of K4, which reads b through the level order and writes x back
 through it (``src = dst = order``): the three steps of ``tpukk``'s
 ``fused_sptrsv_solve`` (sptrsv_pallas.py:646-680), permute, solve, permute,
-in one kernel.  f32 and f64, 1-D b.
+in one kernel.  f32, f64, complex64 and complex128, 1-D b; the values keep
+their dtype from symbolic on (only bf16 widens, to f32).
 
 SUPERNODAL builds a supernodal plan instead (``sptrsv_supernodal``): the
-expanded supernodal DAG, in f32 and f64, solved by the same one launch.  A
+expanded supernodal DAG, in the values' dtype, solved by the same one launch.  A
 handle's ``sn_partition`` (set by ``sptrsv_cholmod``) imports the supernode
 partition.
 """
@@ -23,7 +24,7 @@ import enum
 import numpy as np
 import torch
 
-from ..common import check
+from ..common import check, result_dtype
 from ..common.permute import permute_gather
 from ..common.tracing import annotate
 from ..containers import CsrMatrix
@@ -56,17 +57,8 @@ class SptrsvHandle:
         self.num_levels = 0
         self.order = None       # host (n,) int32: level-order position -> row
         self.inv_order = None   # host (n,) int32: row -> level-order position
-        self._plans: dict = {}  # compute dtype -> LevelPlan
         self.sn_plan = None     # SUPERNODAL: SupernodalPlan or FusedSupernodalPlan
         self.sn_partition = None  # SUPERNODAL: imported supernode id per column
-
-    def plan_for(self, dtype: torch.dtype) -> LevelPlan:
-        """The plan with values in ``dtype`` (built from the symbolic plan
-        once per dtype)."""
-        p = self._plans.get(dtype)
-        if p is None:
-            p = self._plans[dtype] = self.plan.astype(dtype)
-        return p
 
 
 def _compute_levels(rm, ent, n, lower: bool) -> np.ndarray:
@@ -110,7 +102,7 @@ def sptrsv_symbolic(handle: SptrsvHandle, A: CsrMatrix):
     """Levels and the level-ordered plan of tri(A), on A's device."""
     check(A.nrows == A.ncols, "sptrsv: square matrix required")
     rm, ent, vals = A.host_row_map(), A.host_entries(), A.host_values()
-    if vals.dtype not in (np.float32, np.float64):
+    if vals.dtype not in (np.float32, np.float64, np.complex64, np.complex128):
         vals = vals.astype(np.float32)  # bf16 widens, as at tpukk's plan time
     if handle.algorithm is SptrsvAlgorithm.SUPERNODAL:
         handle.sn_plan = build_supernodal_plan(
@@ -122,7 +114,6 @@ def sptrsv_symbolic(handle: SptrsvHandle, A: CsrMatrix):
     levels = _compute_levels(rm, ent, A.nrows, handle.lower)
     plan = build_level_plan(rm, ent, vals, A.nrows, levels, handle.lower, A.device)
     handle.plan = plan
-    handle._plans = {plan.dtype: plan}
     handle.num_levels = plan.num_levels
     handle.order = np.argsort(levels, kind="stable").astype(np.int32)
     handle.inv_order = np.empty_like(handle.order)
@@ -132,9 +123,10 @@ def sptrsv_symbolic(handle: SptrsvHandle, A: CsrMatrix):
 
 @annotate("sptrsv_solve")
 def sptrsv_solve(handle: SptrsvHandle, A: CsrMatrix, b: torch.Tensor) -> torch.Tensor:
-    """x with tri(A)·x = b, in b's dtype (values read from the handle's plan —
-    rebuild the handle for new values).  Computed in the promotion of the
-    plan's and b's dtypes, at least f32."""
+    """x with tri(A)·x = b, in b's dtype, or in the compute dtype where that
+    is complex and b is real (values read from the handle's plan — rebuild
+    the handle for new values).  Computed in the promotion of the plan's and
+    b's dtypes, at least f32."""
     check(handle.is_symbolic_called, "sptrsv_solve: symbolic first")
     check(isinstance(b, torch.Tensor) and b.ndim == 1,
           "sptrsv_solve: b must be a rank-1 torch tensor")
@@ -153,8 +145,9 @@ def _level_solve(handle: SptrsvHandle, b: torch.Tensor, src, dst) -> torch.Tenso
     check(b.device == handle.plan.vals.device,
           f"sptrsv_solve: b on {b.device}, plan on {handle.plan.vals.device}")
     dt = torch.promote_types(torch.promote_types(handle.plan.dtype, b.dtype), torch.float32)
-    plan = handle.plan_for(dt)
-    return sptrsv_levels(plan, b.to(dt).contiguous(), src=src, dst=dst).to(b.dtype)
+    plan = handle.plan.astype(dt)
+    x = sptrsv_levels(plan, b.to(dt).contiguous(), src=src, dst=dst)
+    return x.to(result_dtype(b.dtype, dt))
 
 
 def _compose(idx: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:

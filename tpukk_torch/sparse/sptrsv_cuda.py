@@ -6,7 +6,7 @@ Two hand-written kernels (``tpukk_torch/csrc``) close the five Pallas kernels
 of the level-scheduled solve:
 
 * ``sptrsv_levels`` (K4, ``csrc/sptrsv.cu``): the whole level-scheduled
-  triangle in one launch, f32 and f64, with the level permutations folded in
+  triangle in one launch, f32, f64, complex64 and complex128, with the level permutations folded in
   (row r reads ``b[src[r]]``, 0 where ``src[r] < 0``, and writes its x to
   ``out[dst[r]]`` where ``dst[r] >= 0``) — replaces ``_fused_call_wide_pk``,
   ``_fused_call_wide`` and ``_fused_call``, and the permutation phases
@@ -45,6 +45,7 @@ from ..containers import expand_row_ids
 __all__ = [
     "LevelPlan",
     "build_level_plan",
+    "words_per_value",
     "sptrsv_levels",
     "sptrsv_plain",
     "scatter_dst",
@@ -83,6 +84,7 @@ class LevelPlan:
     n: int
     lanes: int = 32
     _rows: torch.Tensor = dataclasses.field(default=None, repr=False)
+    _as: dict = dataclasses.field(default_factory=dict, init=False, repr=False)  # dtype -> plan
 
     @property
     def num_levels(self) -> int:
@@ -100,22 +102,43 @@ class LevelPlan:
         return self._rows
 
     def astype(self, dtype: torch.dtype) -> "LevelPlan":
-        """The same plan with values in ``dtype``; the words and state are
-        shared (one solve at a time per plan)."""
+        """The same plan with values in ``dtype``, built once per dtype; the
+        words and state are shared (one solve at a time per plan) where they
+        hold dtype's words, else the new plan gets its own."""
         if dtype == self.dtype:
             return self
-        return dataclasses.replace(self, vals=self.vals.to(dtype), invd=self.invd.to(dtype))
+        plan = self._as.get(dtype)
+        if plan is None:
+            plan = dataclasses.replace(self, vals=self.vals.to(dtype), invd=self.invd.to(dtype))
+            if self.words.numel() < words_per_value(dtype) * self.n:
+                plan.words, plan.state = _scratch(self.n, dtype, self.vals.device)
+            self._as[dtype] = plan
+        return plan
+
+
+def words_per_value(dtype: torch.dtype) -> int:
+    """K4's 64-bit publication words a row in ``dtype``: a 32-bit half of
+    the value and the solve's epoch a word."""
+    return {torch.float32: 1, torch.complex128: 4}.get(dtype, 2)
+
+
+def _scratch(n: int, dtype: torch.dtype, device):
+    """K4's publication words (at least 2n, so f32 and f64 share them) and
+    state for a plan of n rows in dtype."""
+    return (torch.zeros(max(2, words_per_value(dtype)) * n, dtype=torch.int64, device=device),
+            torch.zeros(3, dtype=torch.int32, device=device))
 
 
 def build_level_plan(rm, ent, vals, n: int, levels, lower: bool, device) -> LevelPlan:
     """Level plan of tri(T) from host CSR arrays (rm, ent, vals) and a level
     (1-based) per row, as ``_compute_levels`` gives it.  Values keep vals'
-    dtype (f32 or f64), and 1/diag is taken in it, as ``tpukk`` does."""
+    dtype (f32, f64, complex64 or complex128), and 1/diag is taken in it, as
+    ``tpukk`` does."""
     rm = np.asarray(rm, np.int64)
     ent = np.asarray(ent, np.int64)
     vals = np.asarray(vals)
-    check(vals.dtype in (np.float32, np.float64),
-          f"sptrsv: values must be f32 or f64, got {vals.dtype}")
+    check(vals.dtype in (np.float32, np.float64, np.complex64, np.complex128),
+          f"sptrsv: values must be f32, f64, complex64 or complex128, got {vals.dtype}")
     levels = np.asarray(levels, np.int64)
     rows = np.repeat(np.arange(n, dtype=np.int64), rm[1:] - rm[:-1])
     order = np.argsort(levels, kind="stable")
@@ -146,11 +169,11 @@ def build_level_plan(rm, ent, vals, n: int, levels, lower: bool, device) -> Leve
     def dev(a, dt=None):
         return torch.from_numpy(np.ascontiguousarray(a if dt is None else a.astype(dt))).to(device)
 
+    vt = dev(v)
+    words, state = _scratch(n, vt.dtype, device)
     return LevelPlan(
-        rowptr=dev(rowptr, np.int32), cols=dev(c_new, np.int32), vals=dev(v), invd=dev(invd),
-        order=dev(order, np.int32),
-        words=torch.zeros(2 * n, dtype=torch.int64, device=device),
-        state=torch.zeros(3, dtype=torch.int32, device=device),
+        rowptr=dev(rowptr, np.int32), cols=dev(c_new, np.int32), vals=vt, invd=dev(invd),
+        order=dev(order, np.int32), words=words, state=state,
         level_ptr=level_ptr, rowptr_host=rowptr, n=n, lanes=_lanes(n, nlev))
 
 
@@ -255,15 +278,19 @@ def sptrsv_levels(plan: LevelPlan, b: torch.Tensor, src=None, dst=None) -> torch
     for idx, name in ((src, "src"), (dst, "dst")):
         if idx is not None:
             _check_index(idx, name, plan, b)
+    code = _kernels.dtype_code(b.dtype, _kernels.COMPLEX_DTYPE_CODE, "sptrsv_levels")
     if not _kernels.on_cuda(b, "sptrsv_levels"):
         return sptrsv_plain(plan, b, src, dst)
-    check(b.dtype in _kernels.DTYPE_CODE, f"sptrsv_levels: dtype {b.dtype} not f32/f64")
+    # the kernel does not bounds-check its words: they must hold the dtype's
+    check(plan.words.numel() >= words_per_value(b.dtype) * plan.n,
+          f"sptrsv_levels: the plan's {plan.words.numel()} words hold no {plan.n} rows "
+          f"of {b.dtype} (use LevelPlan.astype)")
     out = torch.empty(plan.n if dst is None else b.shape[0], dtype=b.dtype, device=b.device)
     if plan.n == 0:
         return out
     blocks = min(cdiv(plan.n * plan.lanes, 256), _blocks_cap(b.device.index))
     err = _kernels.library("sptrsv").tpukk_sptrsv_levels(
-        _kernels.DTYPE_CODE[b.dtype], plan.lanes, plan.rowptr.data_ptr(), plan.cols.data_ptr(),
+        code, plan.lanes, plan.rowptr.data_ptr(), plan.cols.data_ptr(),
         plan.vals.data_ptr(), plan.invd.data_ptr(), b.data_ptr(),
         None if src is None else src.data_ptr(), None if dst is None else dst.data_ptr(),
         out.data_ptr(), plan.words.data_ptr(), plan.state.data_ptr(), plan.n, blocks,

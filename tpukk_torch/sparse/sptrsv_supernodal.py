@@ -12,13 +12,14 @@ DAG is level-scheduled by Kahn wavefronts.  Upper triangles are solved in the
 index-reversed lower form (i -> n-1-i).  Two solve routes, picked by
 ``build_supernodal_plan(fused=...)``:
 
-* **The fused reduction on K4** (``fused="auto"`` or True; f32 and f64).
+* **The fused reduction on K4** (``fused="auto"`` or True; f32, f64,
+  complex64 and complex128).
   With L = D + P (D the block diagonal, P the panels) and z = D·x, the solve
   is the unit-lower system (I + P·D⁻¹)·z = b followed by x = D⁻¹·z.  Both
   become rows of one expanded DAG of exactly 2n rows: z-rows carry
-  C = P·D⁻¹ (D⁻¹ taken in f64 on the host), x-rows carry −D⁻¹, in the
-  values' dtype.  Its level count is the supernode level count plus one, and
-  it is one ``LevelPlan`` for K4 (``sptrsv_cuda``).  A solve is one K4
+  C = P·D⁻¹ (D⁻¹ taken in f64, or complex128 for complex values, on the
+  host), x-rows carry −D⁻¹, in the values' dtype.  Its level count is the
+  supernode level count plus one, and it is one ``LevelPlan`` for K4 (``sptrsv_cuda``).  A solve is one K4
   launch: the z-rows read b through ``src`` (the x-rows read 0, ``src`` -1),
   the x-rows write x through ``dst``.  ``tpukk``'s row split at 8 slots,
   its relay rows and its 1,024-row pseudo-levels exist for its wide Pallas
@@ -42,7 +43,7 @@ import numpy as np
 import scipy.sparse as sps
 import torch
 
-from ..common import check
+from ..common import check, result_dtype
 from ..containers import torch_dtype
 from .sptrsv_cuda import LevelPlan, build_level_plan, sptrsv_levels
 
@@ -209,8 +210,9 @@ class FusedSupernodalPlan:
 
 def _block_inverse(rows, cols, v, sn, sn_start, size):
     """D⁻¹ of every (lower-triangular, nonzero-diagonal) diagonal block as a
-    block-diagonal scipy CSR in f64, exact zeros dropped: batched triangular
-    solves against the identity on the host, blocks of one size together."""
+    block-diagonal scipy CSR in v's dtype (f64 or complex128), exact zeros
+    dropped: batched triangular solves against the identity on the host,
+    blocks of one size together."""
     esn = sn[cols]
     dl = rows < sn_start[esn + 1]
     dr, dc, dv, ds = rows[dl], cols[dl], v[dl], esn[dl]
@@ -220,9 +222,9 @@ def _block_inverse(rows, cols, v, sn, sn_start, size):
         slot = np.full(len(size), -1, np.int64)
         slot[blocks] = np.arange(len(blocks))
         m = slot[ds] >= 0
-        D = np.zeros((len(blocks), s, s))
+        D = np.zeros((len(blocks), s, s), v.dtype)
         D[slot[ds[m]], dr[m] - sn_start[ds[m]], dc[m] - sn_start[ds[m]]] = dv[m]
-        eye = torch.eye(int(s), dtype=torch.float64).expand(len(blocks), -1, -1)
+        eye = torch.eye(int(s), dtype=torch_dtype(v.dtype)).expand(len(blocks), -1, -1)
         Dinv = torch.linalg.solve_triangular(torch.from_numpy(D), eye, upper=False).numpy()
         k, i, j = np.nonzero(Dinv)
         out_r.append(sn_start[blocks[k]] + i)
@@ -236,19 +238,21 @@ def _block_inverse(rows, cols, v, sn, sn_start, size):
 def build_supernodal_fused_plan(rm, ent, vals, n, lower=True, max_size=32, sn_of_col=None,
                                 device=None) -> FusedSupernodalPlan | None:
     """The expanded-DAG plan of tri(T) for K4 (see ``FusedSupernodalPlan``),
-    values in f64 for f64 input and in f32 otherwise.  Returns None only where
-    the reduction does not exist: a missing or zero diagonal entry (a
-    singular diagonal block)."""
+    values in the input's dtype where that is f64, complex64 or complex128,
+    and in f32 otherwise; the host computes in f64 (complex128 for complex
+    input).  Returns None only where the reduction does not exist: a missing
+    or zero diagonal entry (a singular diagonal block)."""
     check(n > 0, "supernodal sptrsv: empty matrix")
     rows, cols, v = _lower_triplets(rm, ent, vals, n, lower)
-    vdt = np.float64 if v.dtype == np.float64 else np.float32
-    v = v.astype(np.float64)
+    cplx = np.iscomplexobj(v)
+    vdt = v.dtype if v.dtype in (np.float64, np.complex64, np.complex128) else np.dtype(np.float32)
+    v = v.astype(np.complex128 if cplx else np.float64)
     sn = _partition(rows, cols, n, max_size, sn_of_col)
     nsn = int(sn[-1]) + 1
     sn_start = np.zeros(nsn + 1, np.int64)
     np.cumsum(np.bincount(sn, minlength=nsn), out=sn_start[1:])
     size = np.diff(sn_start)
-    diag = np.zeros(n)
+    diag = np.zeros(n, v.dtype)
     isd = rows == cols
     diag[rows[isd]] = v[isd]
     if not (diag != 0).all():
@@ -260,7 +264,7 @@ def build_supernodal_fused_plan(rm, ent, vals, n, lower=True, max_size=32, sn_of
     C = (P @ Dinv).tocsr()
     C.eliminate_zeros()
     # rows 0..n-1: z (z_i + Σ C_ik z_k = b_i); rows n..2n-1: x (x_j − Σ D⁻¹_jk z_k = 0)
-    zero = sps.csr_matrix((n, n))
+    zero = sps.csr_matrix((n, n), dtype=v.dtype)
     T = sps.vstack([sps.hstack([C, zero]), sps.hstack([-Dinv, zero])]).tocsr()
     T = (T + sps.identity(2 * n, format="csr")).tocsr()
     T.sort_indices()
@@ -391,14 +395,18 @@ def build_supernodal_plan(rm, ent, vals, n, lower=True, max_size=64, sn_of_col=N
 
 
 def supernodal_solve(plan, b: torch.Tensor) -> torch.Tensor:
-    """x with tri(T)·x = b, in b's dtype.  A fused plan is one K4 launch in
-    the plan's dtype; a batched plan runs a handful of batched torch ops per
-    level in the promotion of the plan's and b's dtypes."""
+    """x with tri(T)·x = b, in b's dtype (or in the complex dtype the solve
+    ran in, where b is real).  A fused plan is one K4 launch in the plan's
+    dtype, or for a complex b in the promotion of the two; a batched plan
+    runs a handful of batched torch ops per level in the promotion of the
+    plan's and b's dtypes."""
     check(isinstance(b, torch.Tensor) and b.ndim == 1 and b.shape[0] == plan.n,
           f"supernodal_solve: b must be a rank-1 tensor of {plan.n} rows")
     if isinstance(plan, FusedSupernodalPlan):
-        bp = b.to(plan.dtype).contiguous()
-        return sptrsv_levels(plan.plan, bp, src=plan.src, dst=plan.dst).to(b.dtype)
+        dt = torch.promote_types(plan.dtype, b.dtype) if b.dtype.is_complex else plan.dtype
+        bp = b.to(dt).contiguous()
+        return sptrsv_levels(plan.plan.astype(dt), bp, src=plan.src, dst=plan.dst).to(
+            result_dtype(b.dtype, dt))
     dt = torch.promote_types(plan.dtype, b.dtype)
     bv = b.flip(0) if plan.reversed_ else b
     bw = torch.nn.functional.pad(bv.to(dt), (0, 1))
@@ -410,4 +418,4 @@ def supernodal_solve(plan, b: torch.Tensor) -> torch.Tensor:
         upd = torch.bmm(L.P.to(dt), X.unsqueeze(-1)).reshape(-1)      # (K·R,)
         bw.index_add_(0, L.pidx.reshape(-1), upd, alpha=-1)
     x = xw[:plan.n]
-    return (x.flip(0) if plan.reversed_ else x).to(b.dtype)
+    return (x.flip(0) if plan.reversed_ else x).to(result_dtype(b.dtype, dt))

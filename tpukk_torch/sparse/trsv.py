@@ -25,8 +25,11 @@ def trsv(uplo: str, trans: str, diag: str, A: CsrMatrix, b: torch.Tensor) -> tor
     work = A
     lower = uplo.upper() == "L"
     if trans.upper() in ("T", "C"):
-        # real values: the conjugate transpose is the transpose
         work = transpose(A)
+        if trans.upper() == "C":
+            # the conjugate transpose (tpukk/sparse/trsv.py:30); real values are
+            # their own conjugate
+            work = work.with_values(torch.conj_physical(work.values))
         lower = not lower
     if diag.upper() == "U":
         # unit diagonal: set the diagonal to 1 explicitly

@@ -14,7 +14,16 @@ Laplacian (K1, complex128 and complex64), on rand100k with complex64 values
 and on fem2d_30k + 0.5i·diag (K3), Jacobi PCG on the magnetic Laplacian,
 GMRES on the complex FEM matrix (Jacobi, imported complex SuperLU factors,
 RCM on K5's real views), SEQLVLSCHD and SUPERNODAL solves (K4), A·A with
-reuse (K8), SpADD and bspgemm in complex.
+reuse (K8), SpADD and bspgemm in complex; and the ninth: complex SpMM on K2
+(the magnetic Laplacian, k = 8) and K7 (rand100k c64 k = 8, fem2d_30k +
+0.5i·diag c128 k = 4), complex POINT, CLUSTER and TWOSTAGE Gauss-Seidel on
+K6 and K7, GsPrec-PCG on the magnetic Laplacian, complex block GS (K1/K2 on
+a 270,000-row b = 3 matrix, the BSR route on fem2d_30k as b = 2), then the
+batched layer (65,536 dense 16x16 systems: getrf/getrs, gesv, LU, QR,
+trsm, pttrf/pttrs, pbtrf/pbtrs; 4,096 banded systems of 1,024 rows; eig
+of 4,096 16x16 matrices beside torch.linalg.eig; CG and GMRES on 1,024
+sparse systems) and the ODE layer (batched adaptive RKDP on 65,536 decays,
+batched adaptive BDF on 16,384 Robertson systems) with three examples.
 
     python3 chip_smoke.py
 
@@ -1773,6 +1782,7 @@ def main() -> int:
     emit("main_pcg_magnetic_lap1000", dtype="complex128", prec="Jacobi", iters=stH.num_iters,
          rel_res_host=relH, tol="1e-7 host-checked (PCG limit)", seconds=wall,
          us_per_iter=wall / stH.num_iters * 1e6, launches=counts)
+    jac_mag = (stH.num_iters, wall / stH.num_iters * 1e6)
     del AhH, precH, xH
 
     # GMRES(50) on the complex-shifted FEM matrix: Jacobi; imported complex
@@ -1958,6 +1968,486 @@ def main() -> int:
          reuse_exact_4C=True, max_err_over_abs_product=bratio, tol="1e-12*(|A||A|)",
          launches=counts)
     del Bf, B2, Cb, Cb2, hb
+
+    # ---- 3l. the ninth slice, part A: complex SpMM on K2 and K7, complex
+    # Gauss-Seidel on K6 (POINT, CLUSTER, GsPrec-PCG), TWOSTAGE on K7, complex
+    # block GS (K1/K2 and the BSR route); inputs from a generator of their own
+    rng9 = np.random.default_rng(31)
+
+    def cmat(n, k, dt):
+        shape = (n,) if k is None else (n, k)
+        return torch.from_numpy(rng9.standard_normal(shape)
+                                + 1j * rng9.standard_normal(shape)).to(dev, dt)
+
+    # K2, K7 and K6 in complex64 and complex128 against their plain versions:
+    # K2 at odd k (the 32-byte panel) and even k (the 16-byte vector); K7 at
+    # every vector width, column-lane count and slot count its geometry can
+    # take; K6's fused sweep bit for bit to the per-color path at every group
+    # size and panel width (odd k included), and within 1000·eps·max|plain|
+    # of its plain version; its color step on every block within
+    # step_error_bound
+    before = kc.launch_counts()
+    before_g = kg.launch_counts()
+    gs_c = {}
+    for dt in (c64, c128):
+        A = mag[dt]
+        pl = build_dia_plan(A, dtype=dt)
+        apl = dataclasses.replace(pl, diags=pl.diags.abs().to(dt))
+        for k in (3, 8):
+            Xk = cmat(A.ncols, k, dt)
+            hold("dia_spmm", f"magnetic lap1000 k={k} vec={kc.vector_width(k, dt.itemsize)}",
+                 kc.dia_spmm(pl, Xk), kc.dia_plain(pl, Xk), kc.dia_plain(apl, Xk.abs().to(dt)).abs(),
+                 dt)
+        del Xk, pl, apl
+        Fc = fem_c if dt == c128 else CsrMatrix.from_scipy(fsc.astype(np.complex64), device=dev)
+        cp = kc.build_csr_plan(Fc, dt)
+        acp = dataclasses.replace(cp, values=cp.values.abs().to(dt))
+        shapes = set()
+        for k, off in ((1, 0), (2, 0), (2, 1), (3, 0), (4, 0), (5, 0), (8, 0), (9, 0), (16, 0)):
+            # off 1: X a view one value past a 16-byte boundary (complex64: V = 1)
+            Xk = cmat(Fc.ncols * k + off, None, dt)[off:].view(Fc.ncols, k)
+            g0 = kc.spmm_geometry(Fc.nnz / Fc.nrows, Fc.nrows, k, dt.itemsize,
+                                  Xk.data_ptr() % 16)
+            bound = kc.csr_spmm_plain(acp, Xk.abs().to(dt)).abs()
+            for slots in (1, 2, 4, 8, 16, 32):
+                if g0.cols * slots > 32:
+                    continue
+                g = kc.SpmmGeometry(g0.vec, g0.cols, slots)
+                shapes.add((g.vec, g.cols))
+                hold("csr_spmm", f"fem2d_30k + 0.5i diag k={k} X off {off} {g}",
+                     kc.csr_spmm(cp, Xk, g),
+                     kc.csr_spmm_plain(cp, Xk), bound, dt)
+        want = ({(2, c) for c in (1, 2, 4, 8)} | {(1, c) for c in (1, 2, 4, 8, 16)}
+                if dt == c64 else {(1, c) for c in (1, 2, 4, 8, 16)})
+        require(want <= shapes, f"csr_spmm {dt}: instances {want - shapes} not checked")
+        Xk = cmat(rnd_c.ncols, 8, c64)
+        if dt == c64:
+            cpr = kc.build_csr_plan(rnd_c, c64)
+            hold("csr_spmm", "rand100k k=8 (AUTO route)", kc.csr_spmm(cpr, Xk),
+                 kc.csr_spmm_plain(cpr, Xk),
+                 kc.csr_spmm_plain(dataclasses.replace(cpr, values=cpr.values.abs().to(c64)),
+                                   Xk.abs().to(c64)).abs(), c64)
+            del cpr
+        del Xk
+        eps = torch.finfo(dt).eps
+        for alg, groups, ks_ in ((GsAlgorithm.POINT, (1, 2, 4, 8, 16, 32), (None, 3, 5, 8, 16)),
+                                 (GsAlgorithm.CLUSTER, (None,), (None, 4, 16))):
+            hh = gs_handle(Fc, alg)
+            gs_c[(dt, alg.name)] = hh
+            pl0 = _plan_in(hh, dt)
+            require(pl0.csr.values.dtype == pl0.inv_diag.dtype == dt,
+                    f"complex gs plan {dt} {alg.name}: values {pl0.csr.values.dtype}")
+            worst = [0.0, 0.0, 0]
+            for G in groups:
+                p = pl0 if G is None else dataclasses.replace(
+                    pl0, csr=dataclasses.replace(pl0.csr, group=G), chunk_rows=256 // G,
+                    _blocks=None, _steps={}, _bufs={})
+                p.reps = pl0.reps
+                for k in ks_:
+                    b_ = cmat(p.n, k, dt)
+                    for x0 in (None, cmat(p.n, k, dt)):
+                        got = kg.gs_sweep(p, x0, b_, hh.omega, "symmetric", 1)
+                        per = kg.gs_sweep_per_color(p, x0, b_, hh.omega, "symmetric", 1)
+                        plain = kg.gs_sweep_plain(p, x0, b_, hh.omega, "symmetric", 1)
+                        torch.cuda.synchronize()
+                        require(torch.equal(got, per), f"gs_sweep {dt} {alg.name} G={p.csr.group} "
+                                f"k={k}: differs from the per-color path")
+                        err = float((got - plain).abs().max())
+                        rel = err / (1000 * eps * float(plain.abs().max()))
+                        require(rel <= 1, f"gs_sweep {dt} {alg.name} G={p.csr.group} k={k}: "
+                                f"disagrees with its plain version ({err})")
+                        errs["gs_sweep"] = max(errs["gs_sweep"], err)
+                        worst = [max(worst[0], err), max(worst[1], rel), worst[2] + 1]
+            lanes = list(groups) if groups[0] else [pl0.csr.group]
+            emit("check", kernel="gs_sweep", case=f"fem2d_30k + 0.5i diag {alg.name}, lanes "
+                 f"{lanes}, k {[k or 1 for k in ks_]}, x0 zero and given, symmetric",
+                 dtype=str(dt), cases=worst[2],
+                 equal_to_per_color=True, max_abs_err=worst[0], max_err_over_tol=worst[1],
+                 tol="1000*eps*max|plain|", ok=True)
+            ok_all, worst_e = True, 0.0
+            for k in (None, 8):
+                for blk in pl0.blocks:
+                    ok, e, _ = hold_gs(f"c {alg.name}", blk, cmat(p.n, k, dt), cmat(p.n, k, dt),
+                                       hh.omega)
+                    ok_all, worst_e = ok_all and ok, max(worst_e, e)
+            emit("check", kernel="gs_color_step", case=f"fem2d_30k + 0.5i diag {alg.name} every "
+                 "block, k=1 and 8", dtype=str(dt), max_abs_err=worst_e,
+                 tol="20*eps*(|1-w||x| + |w*invd|(|b| + |A_off||x|))_i", ok=ok_all)
+            require(ok_all, f"gs_color_step {dt} {alg.name} disagrees with its plain version")
+        if dt == c64:
+            del Fc
+    after = kc.launch_counts()
+    require(after["dia_spmm"] > before["dia_spmm"] and after["csr_spmm"] > before["csr_spmm"]
+            and kg.launch_counts()["gs_sweep"] > before_g["gs_sweep"]
+            and kg.launch_counts()["gs_color_step"] > before_g["gs_color_step"],
+            "a complex K2, K6 or K7 instance never launched")
+    emit("kernels_checked_complex_spmm_gs", launches={**after, **kg.launch_counts()})
+
+    # complex SpMM through spmm's AUTO route: DIA → K2 on the magnetic Laplacian,
+    # ONEHOT → K7 on rand100k c64 (k = 8) and fem2d_30k + 0.5i diag (k = 4)
+    spmm_c = {}
+    for label, A, sp, k, route, kern in (
+            ("magnetic lap1000 c128", mag[c128], Hs, 8, SpmvAlgorithm.DIA, "dia_spmm"),
+            ("magnetic lap1000 c64", mag[c64], Hs, 8, SpmvAlgorithm.DIA, "dia_spmm"),
+            ("rand100k c64", rnd_c, rsc, 8, SpmvAlgorithm.ONEHOT, "csr_spmm"),
+            ("fem2d_30k + 0.5i diag c128", fem_c, fsc, 4, SpmvAlgorithm.ONEHOT, "csr_spmm")):
+        Xs = cmat(A.ncols, k, A.dtype)
+        require(SpmvHandle(A).algorithm == route, f"complex spmm {label}: not {route}")
+        spmm(A, Xs)  # the handle's plan, built outside the counts
+        Ys, counts, wall = counted(f"complex spmm {label}", lambda: spmm(A, Xs), (kern,))
+        require(counts[kern] == 1 and sum(counts.values()) == 1,
+                f"complex spmm {label}: {counts}, not one {kern} launch")
+        err = host_check_c(sp.astype(np.complex128).tocsr(), Xs, Ys, f"complex spmm {label}")
+        spmm_c[label] = (A, Xs)
+        emit("main_complex_spmm", case=label, k=k, route=route.name, kernel=kern,
+             dtype=str(A.dtype), launches=counts, max_abs_err_vs_scipy=err,
+             tol="20*eps*(|A||X|)_ij, complex128 on the host")
+
+    # complex Gauss-Seidel on fem2d_30k + 0.5i diag(A), complex128: POINT and
+    # CLUSTER symmetric sweeps (one gs_sweep launch an apply), each sweep's
+    # iterate and residual held to the port's CPU run; TWOSTAGE at k = 8 (K7
+    # on its L and U) held to its CPU run and to its single-column applies
+    fem_c_cpu = CsrMatrix.from_scipy(fsc, device="cpu")
+    bgs_c = cmat(fem_c.nrows, None, c128)
+    bh = bgs_c.cpu().numpy()
+    gs_rows = {}
+    for alg in (GsAlgorithm.POINT, GsAlgorithm.CLUSTER):
+        hh, hc_ = gs_c[(c128, alg.name)], gs_handle(fem_c_cpu, alg)
+        require(np.array_equal(hh.order, hc_.order), f"complex gs {alg.name}: CPU order differs")
+        x_, xc_, res, diff = None, None, [], 0.0
+        for s in range(3):
+            x_, counts, wall = counted(f"complex gs {alg.name} sweep {s}",
+                                       lambda: gauss_seidel_apply(hh, fem_c, x_, bgs_c),
+                                       ("gs_sweep",))
+            require(counts["gs_sweep"] == 1 and sum(counts.values()) == 1,
+                    f"complex gs {alg.name}: {counts}, not one gs_sweep launch")
+            xc_ = gauss_seidel_apply(hc_, fem_c_cpu, xc_, bgs_c.cpu())
+            xh = x_.cpu()
+            diff = max(diff, float((xh - xc_).abs().max() / xc_.abs().max()))
+            res.append(float(np.linalg.norm(bh - fsc @ xh.numpy()) / np.linalg.norm(bh)))
+            require(diff <= 1e-12, f"complex gs {alg.name} sweep {s}: {diff} from the CPU's")
+        gs_rows[alg.name] = dict(rel_residuals=res, max_rel_diff_vs_cpu=diff, launches=counts)
+    htw = gs_handle(fem_c, GsAlgorithm.TWOSTAGE)
+    htw_c = gs_handle(fem_c_cpu, GsAlgorithm.TWOSTAGE)
+    B8 = cmat(fem_c.nrows, 8, c128)
+    X8, counts, wall = counted("complex twostage k=8",
+                               lambda: gauss_seidel_apply(htw, fem_c, None, B8, num_sweeps=2),
+                               ("csr_spmm",))
+    X8c = gauss_seidel_apply(htw_c, fem_c_cpu, None, B8.cpu(), num_sweeps=2)
+    tw_diff = float((X8.cpu() - X8c).abs().max() / X8c.abs().max())
+    col = gauss_seidel_apply(htw, fem_c, None, B8[:, 5].contiguous(), num_sweeps=2)
+    col_diff = float((X8[:, 5] - col).abs().max() / col.abs().max())
+    require(tw_diff <= 1e-12 and col_diff <= 1e-12,
+            f"complex twostage k=8: {tw_diff} from the CPU's, column {col_diff} from its apply")
+    gs_rows["TWOSTAGE k=8"] = dict(max_rel_diff_vs_cpu=tw_diff, column_vs_single=col_diff,
+                                   launches=counts, seconds=wall)
+    emit("main_gs_complex_fem2d30k", matrix="fem2d_30k + 0.5i diag(A), complex128",
+         tol="1e-12 relative vs the port's CPU run", **gs_rows)
+    del X8, X8c, B8, htw, htw_c
+
+    # GsPrec-PCG (POINT, one symmetric sweep an apply) on the Hermitian
+    # magnetic lap1000 + 0.01·I, beside the Jacobi PCG above
+    hgm = gs_handle(Hpm, GsAlgorithm.POINT)
+    precG = GsPrec(hgm, Hpm)
+    AhG = SpmvHandle(Hpm)
+    AhG._plan("dia", c128)
+    _, counts, _ = counted("complex gsprec apply", lambda: precG.apply(bH), ("gs_sweep",))
+    require(counts["gs_sweep"] == 1 and sum(counts.values()) == 1,
+            f"complex gsprec apply: {counts}, not one gs_sweep launch")
+    (xG, stG), counts, wall = counted(
+        "pcg gsprec magnetic lap1000", lambda: pcg(AhG, bH, tol=1e-8, max_iters=5000, prec=precG),
+        ("gs_sweep", "dia_spmv"))
+    relG = float(np.linalg.norm(bHh - Hp @ xG.cpu().numpy()) / np.linalg.norm(bHh))
+    require(stG.converged and relG <= 1e-7, f"pcg gsprec magnetic lap1000: {stG}, host {relG}")
+    require(counts["gs_sweep"] >= stG.num_iters
+            and sum(counts.values()) == counts["gs_sweep"] + counts["dia_spmv"],
+            f"pcg gsprec magnetic lap1000: {counts} for {stG.num_iters} iterations")
+    emit("main_pcg_gs_magnetic_lap1000", dtype="complex128", prec="GsPrec POINT, 1 symmetric "
+         "sweep", iters=stG.num_iters, rel_res_host=relG, seconds=wall,
+         us_per_iter=wall / stG.num_iters * 1e6, colors=len(hgm.color_offsets) - 1,
+         jacobi_iters=jac_mag[0], jacobi_us_per_iter=jac_mag[1], launches=counts)
+    del AhG, precG, xG
+
+    # complex block GS: the 270,000-row b = 3 elasticity matrix (DIA route: K1
+    # on vectors, K2 on a k = 4 multivector) and fem2d_30k as b = 2 (the BSR
+    # route), each with 0.5i on its diagonal, held to the port's CPU run
+    Ac3 = generate_structured_laplacian(300, 300, dtype=np.float64, device="cpu").to_scipy()
+    Ael = (sps.kron(Ac3, np.eye(3))
+           + sps.kron(sps.eye(Ac3.shape[0]), 0.3 * np.ones((3, 3)) + 3 * np.eye(3))).tocsr()
+    for label, sp_, b_sz, route in (("elasticity 300x300 b=3 + 0.5i", Ael, 3, SpmvAlgorithm.DIA),
+                                    ("fem2d_30k b=2 + 0.5i", fs, 2, SpmvAlgorithm.BSR)):
+        spc = (sp_.astype(np.complex128) + 0.5j * sps.identity(sp_.shape[0])).tocsr()
+        Ab_ = BsrMatrix.from_scipy_bsr(sps.bsr_matrix(spc, blocksize=(b_sz, b_sz)), device=dev)
+        Ac_ = BsrMatrix.from_scipy_bsr(Ab_.to_scipy(), device="cpu")
+        hg, hc_ = GsHandle(), GsHandle()
+        for hh_, AA in ((hg, Ab_), (hc_, Ac_)):
+            gauss_seidel_symbolic(hh_, AA)
+            gauss_seidel_numeric(hh_, AA)
+        require(hg._blk["h"].algorithm == route, f"complex block gs {label}: not {route}")
+        ncol = len(hg._blk["sets"])
+        row = dict(rows=Ab_.nrows, colors=ncol, route=route.name)
+        for k in (None, 4):
+            bb = cmat(Ab_.nrows, k, c128)
+            kern = ("dia_spmv" if k is None else "dia_spmm") if route == SpmvAlgorithm.DIA else None
+            xb, counts, wall = counted(f"complex block gs {label} k={k}",
+                                       lambda: gauss_seidel_apply(hg, Ab_, None, bb, num_sweeps=2),
+                                       (kern,) if kern else ())
+            nk = 4 * ncol if kern else 0
+            require(sum(counts.values()) == nk and (kern is None or counts[kern] == nk),
+                    f"complex block gs {label} k={k}: {counts}, expected {nk} {kern} launches")
+            xc = gauss_seidel_apply(hc_, Ac_, None, bb.cpu(), num_sweeps=2)
+            d = float((xb.cpu() - xc).abs().max() / xc.abs().max())
+            require(d <= 1e-12, f"complex block gs {label} k={k}: {d} from the CPU's")
+            r = bb.cpu().numpy() - spc @ xb.cpu().numpy()
+            row[f"k={1 if k is None else k}"] = dict(
+                launches=counts, seconds=wall, max_rel_diff_vs_cpu=d,
+                rel_residual_after_2=float(np.linalg.norm(r) / np.linalg.norm(bb.cpu().numpy())))
+        emit("main_block_gs_complex", case=label, tol="1e-12 relative vs the port's CPU run",
+             **row)
+        del Ab_, Ac_, hg, hc_
+    del Ael, Ac3, fem_c_cpu
+
+    # ---- 3m. the ninth slice, part B: batched dense, banded, eig and sparse,
+    # and the ODE integrators, in torch ops on the card, each checked on the
+    # host with numpy or scipy ---------------------------------------------------
+    from tpukk_torch import batched as tbat
+    from tpukk_torch import ode as tode
+    from tpukk_torch.batched import dense as bd
+
+    rngb = np.random.default_rng(41)
+
+    def sample_res(label, A, x, b, tol):
+        """max over a sample of 64 systems of |A·x − b| / (|A||x| + |b|); A a
+        batch, or a function of the sample's indices."""
+        idx = np.linspace(0, x.shape[0] - 1, 64).astype(int)
+        Ah = (A(idx) if callable(A) else A[idx]).cpu().double().numpy()
+        xh = x[idx].cpu().double().numpy()
+        bh_ = b[idx].cpu().double().numpy()
+        xh2 = xh if xh.ndim == 3 else xh[..., None]
+        bh2 = bh_ if bh_.ndim == 3 else bh_[..., None]
+        r = np.abs(Ah @ xh2 - bh2) / (np.abs(Ah) @ np.abs(xh2) + np.abs(bh2))
+        require(float(r.max()) <= tol, f"{label}: sample residual {float(r.max())} > {tol}")
+        return float(r.max())
+
+    NB, nd = 65_536, 16
+    dense_rows = {}
+    for dt in (torch.float64, torch.float32):
+        tol = 1e-12 if dt == torch.float64 else 1e-5
+        A = torch.from_numpy(rngb.standard_normal((NB, nd, nd)) + nd * np.eye(nd)).to(dev, dt)
+        b = torch.from_numpy(rngb.standard_normal((NB, nd))).to(dev, dt)
+        row = {}
+        lu_, piv, _ = bd.getrf(A)
+        row["getrf_getrs"] = sample_res("getrf/getrs", A, bd.getrs(lu_, piv, b), b, tol)
+        row["gesv"] = sample_res("gesv", A, bd.gesv(A, b), b, tol)
+        LU = bd.lu(A)
+        row["lu_solve_lu"] = sample_res("lu/solve_lu", A, bd.solve_lu(LU, b), b, tol)
+        # torch.linalg.qr of many small matrices takes seconds on the card:
+        # one call, timed on the host clock around a synchronised call
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        Q, R = bd.qr(A)
+        torch.cuda.synchronize()
+        qr_ms = (time.perf_counter() - t) * 1e3
+        row["qr"] = sample_res("qr", Q, R, A, tol)
+        # Qᵀ·A is R: elementwise within 20·n·eps of |Qᵀ||A| on the sample
+        idx = np.linspace(0, NB - 1, 64).astype(int)
+        QtA = bd.apply_q(Q[idx], A[idx], "T").double()
+        scale_q = Q[idx].double().abs().mT @ A[idx].double().abs()
+        row["apply_q_T"] = float(((QtA - R[idx].double()).abs() / scale_q).max())
+        require(row["apply_q_T"] <= 20 * nd * torch.finfo(dt).eps,
+                f"apply_q: Q^T A differs from R by {row['apply_q_T']} of |Q^T||A|")
+        X3 = bd.trsm("L", "L", "N", "N", 1.0, A, A[:, :, :3])
+        row["trsm"] = sample_res("trsm", torch.tril(A), X3, A[:, :, :3], tol)
+        d = torch.from_numpy(rngb.random((NB, 64)) + 2).to(dev, dt)
+        e = torch.from_numpy(rngb.random((NB, 63)) * 0.5).to(dev, dt)
+        bt = torch.from_numpy(rngb.standard_normal((NB, 64))).to(dev, dt)
+        xt = bd.pttrs(*bd.pttrf(d, e), bt)
+        def Tm(idx):
+            return (torch.diag_embed(d[idx]) + torch.diag_embed(e[idx], 1)
+                    + torch.diag_embed(e[idx], -1))
+
+        row["pttrf_pttrs_64"] = sample_res("pttrf/pttrs", Tm, xt, bt, tol)
+        S = A @ A.mT / nd + nd * torch.eye(nd, dtype=dt, device=dev)
+        row["pbtrf_pbtrs"] = sample_res("pbtrf/pbtrs", S, bd.pbtrs(bd.pbtrf(S), b), b, tol)
+        torch.cuda.synchronize()
+        ms = dict(
+            getrf=event_ms(lambda: bd.getrf(A), 3),
+            getrs=event_ms(lambda: bd.getrs(lu_, piv, b), 3),
+            gesv=event_ms(lambda: bd.gesv(A, b), 3),
+            lu_unpivoted=event_ms(lambda: bd.lu(A), 3),
+            solve_lu=event_ms(lambda: bd.solve_lu(LU, b), 3),
+            qr_one_call=qr_ms,
+            trsm=event_ms(lambda: bd.trsm("L", "L", "N", "N", 1.0, A, A[:, :, :3]), 3),
+            pttrf_pttrs_64=event_ms(lambda: bd.pttrs(*bd.pttrf(d, e), bt), 3),
+            pbtrf_pbtrs=event_ms(lambda: bd.pbtrs(bd.pbtrf(S), b), 3),
+            library_lu_factor=event_ms(lambda: torch.linalg.lu_factor(A), 3),
+            library_solve=event_ms(lambda: torch.linalg.solve(A, b), 3))
+        dense_rows[str(dt)] = dict(sample_rel_residual=row, ms=ms,
+                                   A_MB=A.numel() * dt.itemsize / 1e6)
+        del A, b, lu_, piv, LU, Q, R, X3, d, e, bt, xt, Tm, S
+    emit("main_batched_dense", systems=NB, n=nd, tol="1e-12 (f64) / 1e-5 (f32) of |A||x| + |b|, "
+         "64 sampled systems on the host", **dense_rows)
+
+    # band storage: 4,096 systems of 1,024 rows, SPD with kd = 4 and general
+    # with kl = ku = 2, each checked on the host against scipy's banded solvers
+    import scipy.linalg as sla
+
+    NBb, nbn = 4096, 1024
+    kd = 4
+    Ab = np.zeros((NBb, kd + 1, nbn))
+    Ab[:, 0] = 2 * kd + 2 + rngb.random((NBb, nbn))
+    Ab[:, 1:] = rngb.standard_normal((NBb, kd, nbn)) * 0.1
+    bb_ = rngb.standard_normal((NBb, nbn))
+    Abt, bbt = torch.from_numpy(Ab).to(dev), torch.from_numpy(bb_).to(dev)
+    t = time.perf_counter()
+    Lb = tbat.pbtrf_banded(Abt)
+    xb = tbat.pbtrs_banded(Lb, bbt)
+    torch.cuda.synchronize()
+    pb_s = time.perf_counter() - t
+    pb_err = max(float(np.abs(xb[i].cpu().numpy()
+                              - sla.solveh_banded(Ab[i], bb_[i], lower=True)).max())
+                 for i in (0, NBb // 2, NBb - 1))
+    require(pb_err <= 1e-10, f"pbtrf/pbtrs banded: {pb_err} from scipy")
+    kl = ku = 2
+    Gb = rngb.standard_normal((NBb, kl + ku + 1, nbn)) * 0.5
+    Gb[:, ku] += kl + ku + 3  # diagonally dominant: no pivoting, as the reference's regime
+    Gbt = torch.from_numpy(Gb).to(dev)
+    t = time.perf_counter()
+    Lg, Ug = tbat.gbtrf_banded(Gbt, kl, ku)
+    xg_ = tbat.gbtrs_banded(Lg, Ug, bbt)
+    torch.cuda.synchronize()
+    gb_s = time.perf_counter() - t
+    gb_err = max(float(np.abs(xg_[i].cpu().numpy()
+                              - sla.solve_banded((kl, ku), Gb[i], bb_[i])).max())
+                 for i in (0, NBb // 2, NBb - 1))
+    require(gb_err <= 1e-9, f"gbtrf/gbtrs banded: {gb_err} from scipy")
+    emit("main_batched_banded", systems=NBb, rows=nbn, pbtrf_pbtrs=dict(kd=kd, seconds=pb_s,
+         max_abs_err_vs_scipy=pb_err), gbtrf_gbtrs=dict(kl=kl, ku=ku, seconds=gb_s,
+         max_abs_err_vs_scipy=gb_err), tol="1e-10 / 1e-9 vs scipy on 3 sampled systems")
+    del Abt, bbt, Lb, xb, Gbt, Lg, Ug, xg_, Ab, Gb
+
+    # batched eig: 4,096 matrices of 16x16 f64, tpukk's Hessenberg + shifted QR
+    # in torch ops, beside torch.linalg.eig
+    NE = 4096
+    Ae = rngb.standard_normal((NE, 16, 16))
+    Aet = torch.from_numpy(Ae).to(dev)
+    t = time.perf_counter()
+    w, VL, VR = tbat.eig(Aet)
+    torch.cuda.synchronize()
+    eig_s = time.perf_counter() - t
+    wh, VRh, VLh = w.cpu().numpy(), VR.cpu().numpy(), VL.cpu().numpy()
+    res_e = 0.0
+    for i in np.linspace(0, NE - 1, 32).astype(int):
+        ref = np.linalg.eigvals(Ae[i])
+        require(all(np.abs(ref - g).min() <= 1e-8 * np.abs(Ae[i]).sum() for g in wh[i]),
+                f"batched eig {i}: eigenvalues differ from numpy")
+        res_e = max(res_e, float(np.abs(Ae[i] @ VRh[i] - VRh[i] * wh[i]).max()),
+                    float(np.abs(VLh[i].conj().T @ Ae[i] - wh[i][:, None] * VLh[i].conj().T)
+                          .max()))
+    require(res_e <= 1e-10, f"batched eig: eigenpair residual {res_e}")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    torch.linalg.eig(Aet)
+    torch.cuda.synchronize()
+    lib_eig_ms = (time.perf_counter() - t) * 1e3  # one call: it takes seconds
+    emit("main_batched_eig", matrices=NE, n=16, dtype="float64", seconds=eig_s,
+         max_eigenpair_residual=res_e, library_ms=lib_eig_ms, library="torch.linalg.eig(A)",
+         tol="eigenvalues 1e-8·sum|A| vs numpy, eigenpairs 1e-10, 32 sampled matrices")
+    del Aet, w, VL, VR
+
+    # batched sparse: 1,024 systems on generate_diag_dominant_csr(1000, 8)'s
+    # pattern, values scaled system by system; CG on the SPD variant, GMRES
+    # with JacobiPrec
+    from tpukk_torch.containers import generate_diag_dominant_csr
+    A0 = generate_diag_dominant_csr(1000, 8, dtype=np.float64, seed=2, device=dev)
+    s0 = A0.to_scipy()
+    Ssym = ((s0 + s0.T) * 0.5).tocsr()
+    Ssym.sort_indices()
+    A0s = CsrMatrix.from_scipy(Ssym, device=dev)
+    NS = 1024
+    scale_k = 1 + 0.05 * torch.arange(NS, dtype=torch.float64, device=dev)
+    sp_rows = {}
+    for label, M, sol in (("cg SPD", A0s, "cg"), ("gmres JacobiPrec", A0, "gmres")):
+        Bm = tbat.BatchedCrsMatrix.from_csr(M, M.values[None] * scale_k[:, None])
+        rhs = torch.from_numpy(rngb.standard_normal((NS, M.nrows))).to(dev)
+        t = time.perf_counter()
+        if sol == "cg":
+            Xs, iters, res = tbat.batched_cg(Bm, rhs, max_iters=100, tol=1e-10,
+                                             prec=tbat.JacobiPrec(Bm))
+        else:
+            Xs, res = tbat.batched_gmres(Bm, rhs, restart=30, max_restarts=5,
+                                         prec=tbat.JacobiPrec(Bm))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        sm = M.to_scipy()
+        rel = 0.0
+        for i in (0, NS // 2, NS - 1):
+            si = sm * float(scale_k[i])
+            xi, bi = Xs[i].cpu().numpy(), rhs[i].cpu().numpy()
+            rel = max(rel, float(np.linalg.norm(si @ xi - bi) / np.linalg.norm(bi)))
+        require(rel <= 1e-8, f"batched {label}: host residual {rel}")
+        sp_rows[label] = dict(seconds=wall, max_rel_res_host=rel,
+                              max_reported_res=float(res.max()))
+    emit("main_batched_sparse", systems=NS, rows=A0.nrows, nnz=A0.nnz,
+         tol="1e-8 relative residual on 3 sampled systems on the host", **sp_rows)
+    del A0, A0s, Bm, Xs, rhs
+
+    # ODE: adaptive RKDP on 65,536 decays y' = -k·y (k over 1..900) against
+    # exp(-k); adaptive BDF on 16,384 Robertson systems with rates scaled
+    # ±20 % to t = 100, a sample against scipy's BDF
+    from scipy.integrate import solve_ivp
+
+    NO = 65_536
+    rates = torch.linspace(1.0, 900.0, NO, dtype=torch.float64, device=dev)
+    t = time.perf_counter()
+    rk = tode.rk_solve_batched(lambda t_, y, k: -k * y,
+                               torch.ones((NO, 1), dtype=torch.float64, device=dev), 0.0, 1.0,
+                               kind=tode.RKType.RKDP, args=(rates,))
+    torch.cuda.synchronize()
+    rk_s = time.perf_counter() - t
+    rk_err = float((rk.y[:, 0] - torch.exp(-rates)).abs().max())
+    require(int(rk.status.max()) == 0 and rk_err <= 1e-6,
+            f"batched rkdp: status {int(rk.status.max())}, error {rk_err}")
+    emit("main_ode_rkdp_batched", systems=NO, rates="1..900", seconds=rk_s,
+         steps_min=int(rk.num_steps.min()), steps_max=int(rk.num_steps.max()),
+         status_max=int(rk.status.max()), max_abs_err_vs_exp=rk_err, tol="1e-6 absolute")
+
+    def rob_s(t_, y, s):
+        return torch.stack([-0.04 * s[0] * y[0] + 1e4 * s[2] * y[1] * y[2],
+                            0.04 * s[0] * y[0] - 1e4 * s[2] * y[1] * y[2] - 3e7 * s[1] * y[1] ** 2,
+                            3e7 * s[1] * y[1] ** 2])
+
+    NR = 16_384
+    sc = torch.from_numpy(0.8 + 0.4 * rngb.random((NR, 3))).to(dev)
+    y0r = torch.tensor([1.0, 0.0, 0.0], dtype=torch.float64, device=dev).repeat(NR, 1)
+    t = time.perf_counter()
+    rb = tode.bdf_solve_adaptive_batched(rob_s, y0r, 0.0, 100.0, rtol=1e-6, atol=1e-9,
+                                         args=(sc,))
+    torch.cuda.synchronize()
+    rb_s = time.perf_counter() - t
+    rb_err = 0.0
+    sch = sc.cpu().numpy()
+    for i in (0, NR // 3, NR - 1):
+        s = sch[i]
+        ref = solve_ivp(lambda t_, y: [-0.04 * s[0] * y[0] + 1e4 * s[2] * y[1] * y[2],
+                                       0.04 * s[0] * y[0] - 1e4 * s[2] * y[1] * y[2]
+                                       - 3e7 * s[1] * y[1] ** 2, 3e7 * s[1] * y[1] ** 2],
+                        (0, 100), [1.0, 0, 0], method="BDF", rtol=1e-10, atol=1e-13)
+        rb_err = max(rb_err, float(np.abs(rb.y[i].cpu().numpy() - ref.y[:, -1]).max()))
+    require(int(rb.status.max()) == 0 and rb_err <= 1e-4,
+            f"batched bdf robertson: status {int(rb.status.max())}, error {rb_err}")
+    emit("main_ode_bdf_batched", systems=NR, problem="Robertson, rates x U(0.8, 1.2), t = 100",
+         seconds=rb_s, steps_min=int(rb.num_steps.min()), steps_max=int(rb.num_steps.max()),
+         status_max=int(rb.status.max()), max_abs_err_vs_scipy=rb_err,
+         tol="1e-4 absolute vs scipy BDF (rtol 1e-10) on 3 sampled systems")
+    del rates, rk, sc, y0r, rb
+
+    # the ninth slice's examples at their own sizes
+    for name in ("batched_eig", "batched_solve", "ode_integrate"):
+        t = time.perf_counter()
+        importlib.import_module(f"tpukk_torch.examples.{name}").main()
+        torch.cuda.synchronize()
+        emit("main_example", example=name, clean_exit=True, seconds=time.perf_counter() - t)
 
     # K6's two entries are one kernel: the path runs the fused sweep, the
     # per-color step is its yardstick (and the distributed sweep's step)
@@ -2286,16 +2776,16 @@ def main() -> int:
          us_per_step=floor6_us)
     del fl6
 
-    def k6_sweep_row(label, hh):
-        """One symmetric sweep from x = 0, as GsPrec applies it, f64.  Bound:
+    def k6_sweep_row(label, hh, dt=torch.float64):
+        """One symmetric sweep from x = 0, as GsPrec applies it.  Bound:
         the matrix's CSR, 1/diag, b and order read once, x written once;
         sweep_bytes_ms: what the step chain moves (each step's block CSR,
         1/diag, b rows, x rows read and written, and its distinct neighbour
         values); step_bound_ms: steps x the floor."""
-        plan = _plan_in(hh, torch.float64)
-        n, nnz, sz = plan.n, plan.csr.entries.shape[0], 8
+        plan = _plan_in(hh, dt)
+        n, nnz, sz = plan.n, plan.csr.entries.shape[0], dt.itemsize
         host = plan.steps("symmetric", 1, False).host
-        bb = vec(n, torch.float64)
+        bb = cmat(n, None, dt) if dt.is_complex else vec(n, dt)
         sweep_bytes = 0
         for begin, end, mode, *_ in host.tolist():
             if mode in (kg.IN_PLACE, kg.TO_SCRATCH):
@@ -2322,8 +2812,9 @@ def main() -> int:
         per_color_ms = chain_time_slope(
             lambda: kg.gs_sweep_per_color(plan, None, bb, hh.omega), 10, 50) * 1e3
         steps = host.shape[0]
+        ops = 4 if dt.is_complex else 1  # a complex multiply-add is 8 real operations
         return timed_kernel(f"K6 gs_sweep {label}, symmetric sweep from x = 0", make, nbytes,
-                            4 * nnz + 10 * n, torch.float64, (20, 100), (2, 6), None,
+                            ops * (4 * nnz + 10 * n), dt, (20, 100), (2, 6), None,
                             library="none: no single torch call computes a Gauss-Seidel sweep",
                             steps=steps, colors=len(plan.offsets) - 1, lanes=plan.csr.group,
                             chunk_rows=plan.chunk_rows, sweep_bytes_MB=sweep_bytes / 1e6,
@@ -2338,7 +2829,7 @@ def main() -> int:
 
     def k7_row(label, A, dt, k, XX=None):
         cp = kc.build_csr_plan(A, dt)
-        sz = torch.finfo(dt).bits // 8
+        sz = dt.itemsize
         XX = vec(A.ncols, dt, k) if XX is None else XX
 
         def make(i):
@@ -2352,7 +2843,8 @@ def main() -> int:
 
         nbytes = (A.nrows + 1) * 4 + A.nnz * (4 + sz) + (A.ncols + A.nrows) * k * sz
         g = kc.spmm_geometry(A.nnz / A.nrows, A.nrows, k, sz, XX.data_ptr() % 16)
-        return timed(f"K7 csr_spmm {label} k={k}", A, make, nbytes, 2 * A.nnz * k, dt,
+        return timed(f"K7 csr_spmm {label} k={k}", A, make, nbytes,
+                     (8 if dt.is_complex else 2) * A.nnz * k, dt,
                      spmv=False, vec=g.vec, cols=g.cols, slots=g.slots)
 
     t_k7 = k7_row("rand100k_deg16 f32 (spmm, ONEHOT route)", rnd, torch.float32, 8)
@@ -2557,6 +3049,25 @@ def main() -> int:
                                   perm1m, c128)
     k5_row("random permutation of 1,000,000, complex64 (as f64)", perm1m, c64)
     del cplx_k8, cplx_plans
+
+    # complex K2, K7 and K6 (the ninth slice) at the paths' shapes, beside their
+    # plain versions, the byte bound and cuSPARSE's complex SpMM (K6: none)
+    for key in ("magnetic lap1000 c128", "magnetic lap1000 c64"):
+        A, Xs = spmm_c[key]
+        dt, k = A.dtype, Xs.shape[1]
+        pl = build_dia_plan(A, dtype=dt)
+        nd_, sz = len(pl.offsets), dt.itemsize
+        row = timed(f"K2 dia_spmm {key} k={k} (spmm AUTO route)", A,
+                    dia_make(A, pl, Xs, kc.dia_spmm), (nd_ + 2 * k) * A.nrows * sz,
+                    8 * k * A.nnz, dt, spmv=False, vec=kc.vector_width(k, sz))
+        cx.setdefault("dia_spmm", row)
+        del pl
+    for key in ("rand100k c64", "fem2d_30k + 0.5i diag c128"):
+        A, Xs = spmm_c[key]
+        cx.setdefault("csr_spmm", k7_row(f"{key} (spmm AUTO route)", A, A.dtype, Xs.shape[1], Xs))
+    cx["gs_sweep"] = k6_sweep_row("magnetic lap1000 + 0.01I c128 POINT (GsPrec)", hgm, c128)
+    k6_sweep_row("fem2d_30k + 0.5i diag c128 POINT", gs_c[(c128, "POINT")], c128)
+    del spmm_c, gs_c, hgm
 
     # ---- 5. where a PCG and a GMRES iteration's time goes (torch.profiler) -----
     for label, A, iters, prec in (("lap1000 f64 Jacobi", lap64, 20, JacobiPrec(lap64)),

@@ -15,9 +15,11 @@ PCG).  Then:
   supernodal plans), C9 (GMRES conjugates), and a pinned DS on complex x;
 - K5 on complex values, K8's complex product from its parts, K4's words;
 - the conversions that carry complex values into the port;
-- the ROADMAP A3b raises (complex Gauss-Seidel, complex SpMM on DIA/ONEHOT,
-  the K2/K6/K7 wrappers), on the CPU; tests/test_torch_cuda.py holds the
-  kernels and the raises on the card.
+- complex Gauss-Seidel, complex SpMM on DIA/ONEHOT and the K2/K6/K7
+  wrappers (ROADMAP A3b, refused until PR 15 ported them; the sweeps in
+  every direction are in tests/test_torch_complex_gs.py), and the refusals
+  that stay (K3's max reduction, K9); tests/test_torch_cuda.py holds the
+  kernels on the card.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -626,42 +628,65 @@ def test_conversions_carry_complex_values():
 
 
 # ---------------------------------------------------------------------------
-# ROADMAP A3b: what stays refused, on every device
+# ROADMAP A3b, once refused, now ported (tests/test_torch_complex_gs.py holds
+# the sweeps in every direction); what stays refused
 # ---------------------------------------------------------------------------
 
 def test_complex_gauss_seidel_names_a3b():
-    """Complex Gauss-Seidel (POINT and CLUSTER on K6, TWOSTAGE, block GS, a
-    complex b on a real handle) raises NotImplementedError naming A3b."""
+    """Complex Gauss-Seidel, refused until A3b was ported, now runs: POINT,
+    CLUSTER and TWOSTAGE on a complex matrix, block GS on its 3×3 blocks and
+    a complex b on a real handle, each a symmetric sweep equal to tpukk's
+    within 1e-12."""
+    import tpukk.sparse.gauss_seidel as jgs
+
     sp, D = _case("random600")
-    _, At = _both(sp)
-    for alg in (tsp.GsAlgorithm.POINT, tsp.GsAlgorithm.CLUSTER, tsp.GsAlgorithm.TWOSTAGE):
-        h = tsp.GsHandle(alg)
+    Aj, At = _both(sp)
+    b = _cvec(np.random.default_rng(0), 600)
+
+    def held(hj, ht, Aj, At, b):
+        got = tsp.gauss_seidel_apply(ht, At, None, torch.from_numpy(b), 1, "symmetric").numpy()
+        ref = np.asarray(jgs.gauss_seidel_apply(hj, Aj, None, jnp.asarray(b), 1, "symmetric"))
+        assert got.dtype == np.complex128
+        np.testing.assert_allclose(got, ref, rtol=1e-12, atol=1e-12 * np.abs(ref).max())
+
+    for alg in ("POINT", "CLUSTER", "TWOSTAGE"):
+        h, hj = tsp.GsHandle(tsp.GsAlgorithm[alg]), jgs.GsHandle(jgs.GsAlgorithm[alg])
         tsp.gauss_seidel_symbolic(h, At)
-        with pytest.raises(NotImplementedError, match="A3b"):
-            tsp.gauss_seidel_numeric(h, At)
-    Bt = tkc.crs2bsr(At, 3)
-    hb = tsp.GsHandle()
+        tsp.gauss_seidel_numeric(h, At)
+        jgs.gauss_seidel_symbolic(hj, Aj)
+        jgs.gauss_seidel_numeric(hj, Aj)
+        held(hj, h, Aj, At, b)
+    Bj = jkc.crs2bsr(Aj, 3)
+    Bt = tkc.BsrMatrix.from_scipy_bsr(Bj.to_scipy(), device=CPU)
+    hb, hbj = tsp.GsHandle(), jsp.GsHandle()
     tsp.gauss_seidel_symbolic(hb, Bt)
-    with pytest.raises(NotImplementedError, match="A3b"):
-        tsp.gauss_seidel_numeric(hb, Bt)
-    Ar = tkc.CsrMatrix.from_scipy(abs(sp), device=CPU)
-    hr = tsp.GsHandle()
+    tsp.gauss_seidel_numeric(hb, Bt)
+    jsp.gauss_seidel_symbolic(hbj, Bj)
+    jsp.gauss_seidel_numeric(hbj, Bj)
+    held(hbj, hb, Bj, Bt, b)
+    Arj, Ar = _both(abs(sp))
+    hr, hrj = tsp.GsHandle(), jgs.GsHandle()
     tsp.gauss_seidel_symbolic(hr, Ar)
     tsp.gauss_seidel_numeric(hr, Ar)
-    with pytest.raises(NotImplementedError, match="A3b"):
-        tsp.gauss_seidel_apply(hr, Ar, None, torch.from_numpy(_cvec(np.random.default_rng(0),
-                                                                    600)))
+    jgs.gauss_seidel_symbolic(hrj, Arj)
+    jgs.gauss_seidel_numeric(hrj, Arj)
+    held(hrj, hr, Arj, Ar, b)
 
 
 @pytest.mark.parametrize("case", ["banded400", "random600"])
 def test_complex_spmm_names_a3b(case):
-    """A complex 2-D x on the DIA and ONEHOT routes raises (K2/K7 are real:
-    A3b); ELL, SEGSUM and DENSE keep complex multi-vector products."""
+    """A complex 2-D x on the DIA and ONEHOT routes, refused until A3b was
+    ported, now runs K2 and K7 (their plain versions here) and equals tpukk
+    and the dense product; ELL, SEGSUM and DENSE give the same values."""
     sp, D = _case(case)
-    _, At = _both(sp)
-    X = torch.from_numpy(np.stack([_cvec(np.random.default_rng(21), D.shape[0])] * 3, 1))
-    with pytest.raises(NotImplementedError, match="A3b"):
-        tsp.spmm(At, X)
+    Aj, At = _both(sp)
+    X = torch.from_numpy(np.stack([_cvec(np.random.default_rng(21 + j), D.shape[0])
+                                   for j in range(3)], 1))
+    assert tsp.SpmvHandle(At).algorithm == ROUTE[case]
+    Y = tsp.spmm(At, X).numpy()
+    np.testing.assert_allclose(Y, np.asarray(jsp.spmm(Aj, jnp.asarray(X.numpy()))), rtol=1e-12,
+                               atol=1e-12)
+    np.testing.assert_allclose(Y, D @ X.numpy(), rtol=1e-12, atol=1e-12)
     for alg in (SpmvAlgorithm.ELL, SpmvAlgorithm.SEGSUM, SpmvAlgorithm.DENSE):
         Y = tsp.spmm(At, X, algorithm=alg).numpy()
         np.testing.assert_allclose(Y, D @ X.numpy(), rtol=1e-12, atol=1e-12)
@@ -669,28 +694,46 @@ def test_complex_spmm_names_a3b(case):
 
 def test_real_kernel_wrappers_refuse_complex():
     """The wrappers of K2 (dia_spmm), K7 (csr_spmm) and K6 (gs_color_step,
-    gs_sweep) refuse complex values on every device (A3b); K3's max
-    reduction takes real values only."""
+    gs_sweep) take complex values (their plain versions here, equal to the
+    dense product and to the per-color path); what stays real raises
+    TpuKKError: K3's max reduction, and K9's probe (real, as tpukk's is)."""
+    from tpukk_torch.common import TpuKKError
+    from tpukk_torch.common import probe_cuda as kp
+
     sp, D = _case("banded400")
     _, At = _both(sp)
-    X = torch.zeros((400, 4), dtype=torch.complex128)
-    with pytest.raises(NotImplementedError, match="A3b"):
-        kc.dia_spmm(build_dia_plan(At, dtype=torch.complex128), X)
+    rng = np.random.default_rng(22)
+    X = torch.from_numpy(np.stack([_cvec(rng, 400) for _ in range(4)], 1))
+    Y = kc.dia_spmm(build_dia_plan(At, dtype=torch.complex128), X).numpy()
+    np.testing.assert_allclose(Y, D @ X.numpy(), rtol=1e-12, atol=1e-12)
     cp = kc.build_csr_plan(At, torch.complex128)
-    with pytest.raises(NotImplementedError, match="A3b"):
-        kc.csr_spmm(cp, X)
-    with pytest.raises(Exception, match="max"):
+    np.testing.assert_allclose(kc.csr_spmm(cp, X).numpy(), D @ X.numpy(), rtol=1e-12,
+                               atol=1e-12)
+    with pytest.raises(TpuKKError, match="max"):
         kc.csr_spmv(cp, torch.zeros(400, dtype=torch.complex128), "max")
     Ar = tkc.CsrMatrix.from_scipy(abs(sp), device=CPU)
     h = tsp.GsHandle()
     tsp.gauss_seidel_symbolic(h, Ar)
     tsp.gauss_seidel_numeric(h, Ar)
     plan = next(iter(h._plans.values())).to(torch.complex128)
-    z = torch.zeros(400, dtype=torch.complex128)
-    with pytest.raises(NotImplementedError, match="A3b"):
-        gs_cuda.gs_sweep(plan, None, z, 1.0)
-    with pytest.raises(NotImplementedError, match="A3b"):
-        gs_cuda.gs_color_step(plan.blocks[0], z.clone(), z, 1.0)
+    assert plan.csr.values.dtype == plan.inv_diag.dtype == torch.complex128
+    z = torch.from_numpy(_cvec(rng, 400))
+    np.testing.assert_array_equal(gs_cuda.gs_sweep(plan, None, z, 1.0).numpy(),
+                                  gs_cuda.gs_sweep_per_color(plan, None, z, 1.0).numpy())
+    blk = plan.blocks[0]
+    x = torch.from_numpy(_cvec(rng, 400))
+    got = gs_cuda.gs_color_step(blk, x.clone(), z, 1.0)
+    assert torch.equal(got, gs_cuda.gs_color_step_plain(blk, x.clone(), z, 1.0))
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent.parent / "scripts" / "probe_ss_cost_torch.py"
+    spec = importlib.util.spec_from_file_location("probe_ss_cost_torch", path)
+    drv = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(drv)
+    pplan, px = drv.make_plan("base", 80, 3, CPU)
+    with pytest.raises(TpuKKError, match="dtype"):
+        kp.probe_gather_acc(pplan, px.to(torch.complex64))
 
 
 def test_spiluk_factors_the_real_part_like_tpukk():

@@ -16,7 +16,9 @@ getrf's 0-based pivots (tpukk's, recorded as constants) and the rotation constru
 placement on the card; complex values (K1, K3, K4 and K8 in complex64 and
 complex128 against their plain versions, K8 bit for bit, K4 replayed in a CUDA
 graph, K5 on complex views exactly, the complex SpMV modes, PCG, GMRES with
-imported factors and RCM through the kernels, and K2, K6, K7 and K9 refusing
+imported factors and RCM through the kernels; K2, K6 and K7 in complex64 and
+complex128 against their plain versions, K6's fused sweep bit for bit to the
+per-color path at every group size and panel width; K9 and K3's max refusing
 complex input).  Every test skips without a CUDA
 device: the kernels have no CPU mode.
 
@@ -1516,38 +1518,102 @@ def test_complex_spgemm_kernel_matches_plain(dev, dtype):
 
 
 def test_real_only_kernels_refuse_complex_on_the_card(dev):
-    """K2 (dia_spmm), K7 (csr_spmm) and K6 (gs_sweep, gs_color_step) raise
-    NotImplementedError naming A3b on complex input, and K9 refuses it,
-    before any launch; a complex 2-D x on the DIA and ONEHOT routes raises."""
+    """What stays real refuses complex input with TpuKKError before any
+    launch: K9's probe (real, as tpukk's is) and K3's max reduction."""
     from tpukk_torch.common import probe_cuda as kp
 
     lap = tkc.generate_structured_laplacian(30, 30, dtype=np.float64, device=dev)
     Ac = lap.astype(torch.complex128)
-    X = torch.zeros((lap.nrows, 4), dtype=torch.complex128, device=dev)
     z = torch.zeros(lap.nrows, dtype=torch.complex128, device=dev)
     counts = (kc.launch_counts(), kg.launch_counts(), kp.launch_counts())
-    with pytest.raises(NotImplementedError, match="A3b"):
-        kc.dia_spmm(spmv_impl.build_dia_plan(Ac, dtype=torch.complex128), X)
-    with pytest.raises(NotImplementedError, match="A3b"):
-        kc.csr_spmm(kc.build_csr_plan(Ac, torch.complex128), X)
-    h = GsHandle()
-    gauss_seidel_symbolic(h, lap)
-    gauss_seidel_numeric(h, lap)
-    plan = next(iter(h._plans.values())).to(torch.complex128)
-    with pytest.raises(NotImplementedError, match="A3b"):
-        kg.gs_sweep(plan, None, z, 1.0)
-    with pytest.raises(NotImplementedError, match="A3b"):
-        kg.gs_color_step(plan.blocks[0], z.clone(), z, 1.0)
-    with pytest.raises(NotImplementedError, match="A3b"):
-        gauss_seidel_apply(h, lap, None, z)
     pplan, px = _probe_script().make_plan("base", 80, 3, dev)
     with pytest.raises(TpuKKError, match="dtype"):
         kp.probe_gather_acc(pplan, px.to(torch.complex64))
-    for A in (Ac, tkc.generate_random_csr(2000, 2000, 8, seed=1, dtype=np.float64,
-                                          device=dev).astype(torch.complex128)):
-        with pytest.raises(NotImplementedError, match="A3b"):
-            spmm(A, torch.zeros((A.ncols, 3), dtype=torch.complex128, device=dev))
+    with pytest.raises(TpuKKError, match="max"):
+        kc.csr_spmv(kc.build_csr_plan(Ac, torch.complex128), z, "max")
     assert (kc.launch_counts(), kg.launch_counts(), kp.launch_counts()) == counts
+
+
+def _cx2(shape, dtype, dev, seed):
+    r = np.random.default_rng(seed)
+    return torch.from_numpy(r.standard_normal(shape) + 1j * r.standard_normal(shape)).to(
+        dev, dtype)
+
+
+@pytest.mark.parametrize("dtype", CDTYPES, ids=["c64", "c128"])
+def test_complex_spmm_kernels_match_plain(dev, dtype):
+    """K2 and K7 in complex values against their plain versions within
+    20·eps·(|A||X|): K2 at odd and even k (the 32-byte panel and the 16-byte
+    vector), K7 at every slot count its geometry allows; complex SpMM on the
+    DIA and ONEHOT routes is one K2 or K7 launch."""
+    eps = torch.finfo(dtype).eps
+    band = _complexified(tkc.generate_structured_laplacian(120, 120, dtype=np.float64,
+                                                           device="cpu").to_scipy(), 1)
+    A = tkc.CsrMatrix.from_scipy(band, device=dev).astype(dtype)
+    plan = spmv_impl.build_dia_plan(A, dtype=dtype)
+    aplan = spmv_impl.build_dia_plan(A.with_values(A.values.abs().to(dtype)), dtype=dtype)
+    for k in (1, 2, 3, 4, 5, 8, 11, 16):
+        X = _cx2((A.ncols, k), dtype, dev, k)
+        bound = 20 * eps * kc.dia_plain(aplan, X.abs().to(dtype)).abs()
+        assert ((kc.dia_spmm(plan, X) - kc.dia_plain(plan, X)).abs() <= bound).all(), k
+    rnd = _complexified(tkc.generate_random_csr(20000, 20000, 8, seed=2, dtype=np.float64,
+                                                device="cpu").to_scipy(), 2)
+    R = tkc.CsrMatrix.from_scipy(rnd, device=dev).astype(dtype)
+    cp = kc.build_csr_plan(R, dtype)
+    ap = kc.build_csr_plan(R.with_values(R.values.abs().to(dtype)), dtype)
+    for k in (2, 3, 4, 5, 8, 9, 16):
+        X = _cx2((R.ncols, k), dtype, dev, 20 + k)
+        bound = 20 * eps * kc.csr_spmm_plain(ap, X.abs().to(dtype)).abs()
+        g0 = kc.spmm_geometry(8, R.nrows, k, X.element_size())
+        assert g0.vec == (2 if dtype == torch.complex64 and k % 2 == 0 else 1)
+        for slots in (1, 2, 4, 8, 16, 32):
+            if g0.cols * slots > 32:
+                continue
+            g = kc.SpmmGeometry(g0.vec, g0.cols, slots)
+            Y = kc.csr_spmm(cp, X, g)
+            assert ((Y - kc.csr_spmm_plain(cp, X)).abs() <= bound).all(), (k, g)
+    for M, kern in ((A, kc.dia_spmm), (R, kc.csr_spmm)):
+        X = _cx2((M.ncols, 4), dtype, dev, 40)
+        n0 = kern.launches
+        spmm(M, X)
+        assert kern.launches == n0 + 1
+
+
+@pytest.mark.parametrize("dtype", CDTYPES, ids=["c64", "c128"])
+def test_complex_gs_kernel_matches_plain(dev, dtype):
+    """K6 in complex values: the fused sweep equals the per-color path bit
+    for bit at every group size and panel width (odd k included), from zero
+    and from a given x, and both stay within 1e-12 (complex128) or 1e-5
+    (complex64) of gs_sweep_plain; CLUSTER's coupled blocks too."""
+    tol = 1e-12 if dtype == torch.complex128 else 1e-5
+    rnd = _complexified(tkc.generate_random_csr(20000, 20000, 8, seed=2, dtype=np.float64,
+                                                device="cpu").to_scipy(), 3)
+    lap = _complexified(tkc.generate_structured_laplacian(100, 100, dtype=np.float64,
+                                                          device="cpu").to_scipy(), 4)
+    cases = ((GsAlgorithm.POINT, rnd + 8 * sps.identity(rnd.shape[0]), (1, 2, 4, 8, 16, 32),
+              (1, 3, 5, 8, 16)),
+             (GsAlgorithm.CLUSTER, lap + 2 * sps.identity(lap.shape[0]), (None,), (1, 4, 16)))
+    for alg, sp, groups, ks in cases:
+        M = tkc.CsrMatrix.from_scipy(sp.tocsr(), device=dev).astype(dtype)
+        h = GsHandle(alg)
+        gauss_seidel_symbolic(h, M)
+        gauss_seidel_numeric(h, M)
+        pl0 = next(iter(h._plans.values()))
+        assert pl0.csr.values.dtype == pl0.inv_diag.dtype == dtype
+        for G in groups:
+            pl = pl0 if G is None else dataclasses.replace(
+                pl0, csr=dataclasses.replace(pl0.csr, group=G), chunk_rows=256 // G,
+                _blocks=None, _steps={}, _bufs={})
+            pl.reps = h.cluster_inner_sweeps if alg == GsAlgorithm.CLUSTER else 1
+            for k in ks:
+                b = _cx2((M.nrows, k) if k > 1 else M.nrows, dtype, dev, k)
+                for x in (None, _cx2(b.shape, dtype, dev, 50 + k)):
+                    n0 = kg.gs_sweep.launches
+                    got = kg.gs_sweep(pl, x, b, 1.1, "symmetric", 1)
+                    assert kg.gs_sweep.launches == n0 + 1
+                    assert torch.equal(got, kg.gs_sweep_per_color(pl, x, b, 1.1, "symmetric", 1))
+                    ref = kg.gs_sweep_plain(pl, x, b, 1.1, "symmetric", 1)
+                    assert (got - ref).abs().max() <= tol * ref.abs().max(), (alg, G, k)
 
 
 def test_complex_paths_run_through_the_kernels(dev):
@@ -1606,3 +1672,47 @@ def test_complex_paths_run_through_the_kernels(dev):
     assert st.converged and permute_gather.launches >= n0 + 3
     bh = b.cpu().numpy()
     assert np.linalg.norm(bh - A.to_scipy() @ x.cpu().numpy()) <= 1e-9 * np.linalg.norm(bh)
+
+
+def test_batched_and_ode_layers_on_the_card(dev):
+    """The ninth slice's batched and ODE layers on the card, held to the same
+    calls on the CPU: batched getrf/getrs, pttrf/pttrs and the banded
+    Cholesky (1e-12), eig's eigenvalues (paired by value, 1e-10: the QR
+    sweeps' deflation order is set by rounding), batched CG, and the batched
+    adaptive RKDP and BDF with the CPU's step counts."""
+    from tpukk_torch import batched as tb
+    from tpukk_torch import ode as to
+    from tpukk_torch.batched import dense as bd
+
+    rng = np.random.default_rng(3)
+    A = rng.standard_normal((256, 16, 16)) + 16 * np.eye(16)
+    b = rng.standard_normal((256, 16))
+    out = {}
+    for d in (dev, "cpu"):
+        At, bt = torch.from_numpy(A).to(d), torch.from_numpy(b).to(d)
+        lu, piv, _ = bd.getrf(At)
+        dd, l = bd.pttrf(At[:, :, 0].abs() + 4, At[:, :15, 1] * 0.1)
+        Ab = torch.stack([At[:, 0].abs() + 10, 0.1 * At[:, 1], 0.1 * At[:, 2]], 1)
+        w = tb.eigenvalues(At[:8])
+        out[d] = dict(getrs=bd.getrs(lu, piv, bt), pttrs=bd.pttrs(dd, l, bt),
+                      pbtrs=tb.pbtrs_banded(tb.pbtrf_banded(Ab), bt), w=w)
+    for key in ("getrs", "pttrs", "pbtrs"):
+        g, c = out[dev][key].cpu(), out["cpu"][key]
+        assert (g - c).abs().max() <= 1e-12 * c.abs().max(), key
+    wg, wc = out[dev]["w"].cpu().numpy(), out["cpu"]["w"].numpy()
+    for i in range(8):
+        assert max(np.abs(wc[i] - g).min() for g in wg[i]) <= 1e-10 * np.abs(wc[i]).max()
+    rates = torch.linspace(1.0, 900.0, 64, dtype=torch.float64)
+    runs = {}
+    for d in (dev, "cpu"):
+        rk = to.rk_solve_batched(lambda t, y, k: -k * y, torch.ones((64, 1), dtype=torch.float64,
+                                                                    device=d), 0.0, 1.0,
+                                 args=(rates.to(d),))
+        bdf = to.bdf_solve_adaptive_batched(lambda t, y, k: -k * (y - torch.cos(t)),
+                                            torch.zeros((8, 1), dtype=torch.float64, device=d),
+                                            0.0, 1.0, args=(rates[::8].to(d),))
+        runs[d] = (rk, bdf)
+    for g, c in zip(runs[dev], runs["cpu"]):
+        assert torch.equal(g.num_steps.cpu(), c.num_steps)
+        assert torch.equal(g.status.cpu(), c.status)
+        assert (g.y.cpu() - c.y).abs().max() <= 1e-9 * c.y.abs().max()

@@ -23,7 +23,8 @@ import tpukk.sparse as js
 from tpukk import blas as jblas
 
 NAMES = ["graph_wiki", "gmres_ex_real_A", "rcm_reorder_solve", "sptrsv_supernodal",
-         "banded_spgemm", "sparse_wiki", "blas_wiki", "half_xpy"]
+         "banded_spgemm", "sparse_wiki", "blas_wiki", "half_xpy", "batched_eig",
+         "batched_solve", "ode_integrate"]
 
 
 def _main(name, capsys):
@@ -162,6 +163,69 @@ def test_half_xpy(capsys):
     assert out["z"].dtype == torch.bfloat16
     np.testing.assert_array_equal(out["z"].float().numpy(), z)
     assert "torch.bfloat16" in printed
+
+
+def test_batched_eig(capsys):
+    import jax.numpy as jnp
+    from tpukk.batched import eig, eigendecomposition
+
+    out, printed = _main("batched_eig", capsys)
+    A = out["A"]
+    w, _, _ = eig(jnp.asarray(A))
+    w, wt = np.asarray(w), out["w"].numpy()
+    for b in range(4):   # the same eigenvalues (paired by value: see test_torch_batched)
+        for g in wt[b]:
+            assert np.abs(w[b] - g).min() <= 1e-12 * np.abs(w[b]).max()
+    er, ei, _, _ = eigendecomposition(jnp.asarray(A[:1]))
+    assert _rel(out["er"], er) <= 1e-12 and _rel(out["ei"], ei) <= 1e-12
+    assert out["residual"] < 1e-12 and out["similarity"] < 1e-12
+    assert "conjugate pairs adjacent" in printed
+
+
+def test_batched_solve(capsys):
+    from tpukk.batched import BatchedCrsMatrix, batched_gmres
+    from tpukk.batched import dense as jbd
+
+    out, printed = _main("batched_solve", capsys)
+    A, b = out["A"], out["b"]
+    lu, piv, _ = jbd.getrf(A)
+    assert _rel(out["x"], jbd.getrs(lu, piv, b)) <= 1e-12
+    dd, l = jbd.pttrf(out["d"], out["e"])
+    assert _rel(out["xt"], jbd.pttrs(dd, l, b)) <= 1e-12
+    assert _rel(out["xs"], jbd.pbtrs(jbd.pbtrf(out["S"]), b)) <= 1e-12
+    A0 = jkc.generate_diag_dominant_csr(40, 4, dtype=np.float64, seed=2)
+    vals = np.stack([np.asarray(A0.values) * (1 + 0.05 * k) for k in range(8)])
+    xg, res = batched_gmres(BatchedCrsMatrix.from_csr(A0, vals), out["rhs"].numpy(), restart=20,
+                            max_restarts=3)
+    assert _rel(out["xg"], xg) <= 1e-12
+    assert float(out["res"].max()) < 1e-10
+    assert "team GMRES" in printed
+
+
+def test_ode_integrate(capsys):
+    import jax.numpy as jnp
+    from tpukk.ode import RKType, bdf_solve, bdf_solve_adaptive, rk_solve
+
+    out, printed = _main("ode_integrate", capsys)
+    r = rk_solve(lambda t, y: -y, jnp.array([1.0]), 0.0, 1.0, kind=RKType.RKDP)
+    assert int(out["rk"].num_steps) == int(r.num_steps)
+    assert _rel(out["rk"].y, r.y) <= 1e-12
+    r2 = bdf_solve(lambda t, y: -50.0 * (y - jnp.cos(t)), jnp.array([0.0]), 0.0, 2.0,
+                   num_steps=80, order=2)
+    assert _rel(out["bdf2"].y, r2.y) <= 1e-12
+    np.testing.assert_allclose(out["batch"].numpy()[:, 0],
+                               np.linspace(0.5, 2.0, 16) * np.exp(-1.0), rtol=1e-6)
+
+    def rob(t, y):
+        return jnp.array([-0.04 * y[0] + 1e4 * y[1] * y[2],
+                          0.04 * y[0] - 1e4 * y[1] * y[2] - 3e7 * y[1] ** 2,
+                          3e7 * y[1] ** 2])
+
+    ra = bdf_solve_adaptive(rob, jnp.array([1.0, 0.0, 0.0]), 0.0, 100.0, rtol=1e-6, atol=1e-9)
+    assert int(out["robertson"].num_steps) == int(ra.num_steps)
+    assert int(out["robertson"].status) == int(ra.status) == 0
+    assert _rel(out["robertson"].y, ra.y) <= 1e-9
+    assert "accepted steps" in printed
 
 
 @pytest.mark.parametrize("name", NAMES)

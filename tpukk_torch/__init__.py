@@ -8,9 +8,10 @@ nvcc at first use on a CUDA device, never at import (``_kernels.py``).
 """
 __version__ = "0.1.0"
 
-from . import blas, common, containers, graph, interop, lapack, sparse
+from . import batched, blas, common, containers, graph, interop, lapack, ode, sparse
 from .containers import BsrMatrix, CcsMatrix, CooMatrix, CsrMatrix
 from .sparse import SpmvAlgorithm, SpmvHandle, spmm, spmv
 
-__all__ = ["blas", "common", "containers", "graph", "interop", "lapack", "sparse", "BsrMatrix",
+__all__ = ["batched", "blas", "common", "containers", "graph", "interop", "lapack", "ode",
+           "sparse", "BsrMatrix",
            "CcsMatrix", "CooMatrix", "CsrMatrix", "SpmvAlgorithm", "SpmvHandle", "spmm", "spmv"]

@@ -222,22 +222,19 @@ def build_log(name: str) -> str:
 # ----------------------------------------------------------------------
 
 # The dtypes each kernel takes, as its C entry point's dtype code: every
-# kernel takes f32 and f64; K1 (dia_spmv), K3 (csr_spmv's sum), K4 and K8 also
-# complex64 and complex128.  K2, K5, K6, K7 and K9 keep DTYPE_CODE (K5 moves
-# complex values as real views, common/permute.py).
+# kernel takes f32 and f64; K1-K4 and K6-K8 also complex64 and complex128
+# (K3's sum only: its max reduction takes real values).  K5 and K9 keep
+# DTYPE_CODE: K5 moves complex values as real views (common/permute.py), and
+# K9's probe is real, as tpukk's is.
 DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
 COMPLEX_DTYPE_CODE = {**DTYPE_CODE, torch.complex64: 2, torch.complex128: 3}
 
 
 def dtype_code(dtype: torch.dtype, codes: dict, name: str) -> int:
-    """The code of ``dtype`` in a kernel's table ``codes``.  A complex dtype
-    the kernel does not take raises NotImplementedError (ROADMAP A3b: complex
-    SpMM and Gauss-Seidel); any other dtype it does not take, TpuKKError."""
+    """The code of ``dtype`` in a kernel's table ``codes``; a dtype the
+    kernel does not take raises TpuKKError."""
     if dtype in codes:
         return codes[dtype]
-    if dtype.is_complex:
-        raise NotImplementedError(f"{name}: complex values are not ported for this kernel "
-                                  f"(ROADMAP A3b)")
     kinds = "f32/f64/complex64/complex128" if len(codes) > 2 else "f32/f64"
     raise TpuKKError(f"{name}: dtype {dtype} not {kinds}")
 

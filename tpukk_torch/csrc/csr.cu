@@ -1,5 +1,6 @@
 // Unstructured CSR SpMV and SpMM for Hopper (sm_90a): K3 csr_spmv<T, E, Reduce,
-// Stream, Long> and K7 csr_spmm<T, V, C>.
+// Stream, Long> and K7 csr_spmm<T, V, C>, each also in complex64 and
+// complex128 (K3's sum only).
 //
 // ---- K3 ----
 // Replaces the TPU kernels (tpukk/sparse/spmv_pallas.py), seven layouts of one
@@ -60,7 +61,11 @@
 // row-major X of shape (ncols, k), 1 < k <= 16 (tpukk/sparse/spmv.py:249).
 //
 // What it computes: Y[r, j] = sum_{p in row r} vals[p] * X[colidx[p], j] for
-// j < k, Y row-major (nrows, k).
+// j < k, Y row-major (nrows, k).  In complex64 and complex128 (T = cplx<float>,
+// cplx<double>) the same kernel: a vector stays 16 bytes (V = 2 complex64
+// values, 1 at odd k; 1 complex128 value), each product is formed from its
+// parts with every operation rounded on its own (cplx.cuh's madd, as K8
+// forms it), and the shuffles move a value as two.
 //
 // Bound on the H100: bytes.  The least traffic is rowmap, colidx and vals
 // once (as for one SpMV), X once and Y once; k columns per entry share one
@@ -92,9 +97,9 @@
 // Nothing is staged in shared memory: the operands are gathers, not tiles.
 //
 // C interface (bound with ctypes): returns the cudaError_t of the launch
-// (0 when nothing needed launching); dtype 0 = float, 1 = double, and for
-// K3's sum 2 = complex64, 3 = complex128; reduce 0 = sum, 1 = max; streamed
-// (K3) 0 = direct, 1 = stream.
+// (0 when nothing needed launching); dtype 0 = float, 1 = double,
+// 2 = complex64, 3 = complex128 (for K3 the sum only); reduce 0 = sum,
+// 1 = max; streamed (K3) 0 = direct, 1 = stream.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -369,7 +374,7 @@ csr_spmm_kernel(const int* __restrict__ rowmap, const int* __restrict__ colidx,
         vv[i] = val[i];
       } else {
         ci = __shfl_sync(kFull, col[i / C], src0 + S * (i % C));
-        vv[i] = __shfl_sync(kFull, val[i / C], src0 + S * (i % C));
+        vv[i] = shfl(kFull, val[i / C], src0 + S * (i % C));
       }
       if (ci >= 0 && active) {
         load_vec(xc + static_cast<int64_t>(ci) * k, xv[i]);
@@ -381,11 +386,11 @@ csr_spmm_kernel(const int* __restrict__ rowmap, const int* __restrict__ colidx,
 #pragma unroll
     for (int i = 0; i < U * C; ++i)
 #pragma unroll
-      for (int v = 0; v < V; ++v) acc[v] = fma(vv[i], xv[i][v], acc[v]);
+      for (int v = 0; v < V; ++v) acc[v] = madd(vv[i], xv[i][v], acc[v]);
   }
   for (int off = C; off < W; off <<= 1)
 #pragma unroll
-    for (int v = 0; v < V; ++v) acc[v] += __shfl_xor_sync(kFull, acc[v], off);
+    for (int v = 0; v < V; ++v) acc[v] += shfl_xor(kFull, acc[v], off);
   if (valid && g < C && active) store_vec(y + row * k + c * V, acc);
 }
 
@@ -435,10 +440,12 @@ int launch_spmm(int vec, int cols, int log_slots, const int* rowmap, const int* 
   const T* v = static_cast<const T*>(vals);
   const T* xx = static_cast<const T*>(x);
   T* yy = static_cast<T*>(y);
+  // V values of at most 16 bytes
   if (vec == 1)
     return launch_spmm_vec<T, 1>(cols, rowmap, colidx, v, xx, yy, nrows, k, log_slots, s);
-  if (vec == 2)
-    return launch_spmm_vec<T, 2>(cols, rowmap, colidx, v, xx, yy, nrows, k, log_slots, s);
+  if constexpr (sizeof(T) <= 8)
+    if (vec == 2)
+      return launch_spmm_vec<T, 2>(cols, rowmap, colidx, v, xx, yy, nrows, k, log_slots, s);
   if constexpr (sizeof(T) == 4)
     if (vec == 4)
       return launch_spmm_vec<T, 4>(cols, rowmap, colidx, v, xx, yy, nrows, k, log_slots, s);
@@ -448,7 +455,7 @@ int launch_spmm(int vec, int cols, int log_slots, const int* rowmap, const int* 
 }  // namespace
 
 // vec: V, the values of X's row a column lane loads at once (4, 2 or 1 in
-// f32; 2 or 1 in f64); cols: C, the column lanes of a slot; log_slots: log2
+// f32; 2 or 1 in f64 and complex64; 1 in complex128); cols: C, the column lanes of a slot; log_slots: log2
 // of S, the entry slots of a row
 extern "C" int tpukk_csr_spmm(int dtype, int vec, int cols, int log_slots, const int* rowmap,
                               const int* colidx, const void* vals, const void* x, void* y,
@@ -458,6 +465,12 @@ extern "C" int tpukk_csr_spmm(int dtype, int vec, int cols, int log_slots, const
     return launch_spmm<float>(vec, cols, log_slots, rowmap, colidx, vals, x, y, nrows, k, s);
   if (dtype == 1)
     return launch_spmm<double>(vec, cols, log_slots, rowmap, colidx, vals, x, y, nrows, k, s);
+  if (dtype == 2)
+    return launch_spmm<cplx<float>>(vec, cols, log_slots, rowmap, colidx, vals, x, y, nrows, k,
+                                    s);
+  if (dtype == 3)
+    return launch_spmm<cplx<double>>(vec, cols, log_slots, rowmap, colidx, vals, x, y, nrows, k,
+                                     s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -11,8 +11,11 @@
 // lane of the group holds every column's sum.  k is bucketed into a
 // compile-time panel of 1 (a vector), 4, 8 or 16 columns; the caller applies
 // its update to the sums, lane j % G taking column j.  Each product is added
-// with one fma, so both entries sum a row in the same order and to the same
-// bits for the same G.
+// with cplx.cuh's madd (one fma in f32 and f64; in complex64 and complex128
+// the product from its parts, each operation rounded on its own, as K8 forms
+// it), in this one function, so both entries sum a row in the same order and
+// to the same bits for the same G.  A complex128 panel of 16 columns holds 32
+// doubles of sums a lane.
 
 #pragma once
 
@@ -21,11 +24,13 @@
 
 #include <type_traits>
 
+#include "cplx.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 
-// acc[j] += v * x[c, j] for j < k, one fma each; x[c, j] reads 0 without a
+// acc[j] += v * x[c, j] for j < k, one madd each; x[c, j] reads 0 without a
 // load where `zero` (the fused sweep's rows not yet written).
 template <typename T, int KMAX>
 __device__ __forceinline__ void panel_add(const T* x, int c, T v, int k, bool zero,
@@ -36,7 +41,7 @@ __device__ __forceinline__ void panel_add(const T* x, int c, T v, int k, bool ze
     if (j < k) {
       T xv = T(0);
       if (!zero) xv = xr[j];
-      acc[j] = fma(v, xv, acc[j]);
+      acc[j] = madd(v, xv, acc[j]);
     }
   }
 }
@@ -53,7 +58,7 @@ __device__ __forceinline__ void panel_reduce(int k, T (&acc)[KMAX]) {
     if (j < k) {
 #pragma unroll
       for (int off = G / 2; off > 0; off >>= 1)
-        acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], off, G);
+        acc[j] += shfl_xor(0xffffffffu, acc[j], off, G);
     }
   }
 }

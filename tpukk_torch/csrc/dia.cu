@@ -6,11 +6,14 @@
 //                      the TPU carried f64 as (hi, lo) f32 pairs; Hopper has
 //                      native f64, so the same kernel in double replaces it.
 //   K2 dia_spmm<T>  <- _dia_mv_call (:180, "tpukk_spmv_dia_mv")
-// K1 also runs complex64 and complex128 (T = cplx<float>, cplx<double>,
-// cplx.cuh): the same kernel, each value one 8- or 16-byte access.  tpukk's
-// complex64 reaches _dia_call as four real products of the (re, im) planes
-// (tpukk/sparse/spmv.py:189-233), a TPU workaround; here the product is one
-// complex multiply-add a term.  K2 stays real (complex SpMM: ROADMAP A3b).
+// K1 and K2 also run complex64 and complex128 (T = cplx<float>,
+// cplx<double>, cplx.cuh): the same kernels, each value one 8- or 16-byte
+// access.  tpukk's complex64 reaches _dia_call as four real products of the
+// (re, im) planes (tpukk/sparse/spmv.py:189-233), a TPU workaround; here the
+// product is one complex multiply-add a term (K2: cplx.cuh's madd, the
+// product from its parts, each operation rounded on its own).  K2's vector
+// stays 16 bytes: V = 2 in complex64 (1 at odd k) and 1 in complex128, and
+// the 32-byte panel at V = 1 is 4 complex64 or 2 complex128 values.
 //
 // What it computes: y[i] = sum_j diags[j][i] * x[i + off_j], 0 <= i < nrows,
 // a term whose column falls outside [0, ncols) being zero; K2 does the same
@@ -49,7 +52,7 @@
 //
 // C interface (bound with ctypes): every function returns the cudaError_t of
 // its launch (0 when nothing needed launching); dtype 0 = float, 1 = double,
-// and for dia_spmv 2 = complex64, 3 = complex128.
+// 2 = complex64, 3 = complex128.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -104,7 +107,7 @@ dia_spmm_kernel(const T* __restrict__ diags, const int* __restrict__ offsets, in
   for (int j = 0; j < ndiags; ++j) {
     const int64_t c = i + s_off[j];
     if (c < 0 || c >= ncols) continue;
-    const T d = __ldg(diags + j * nrows + i);
+    const T d = ldg(diags + j * nrows + i);
     const T* xr = X + c * k + c0;
 #pragma unroll
     for (int w = 0; w < W; ++w) {
@@ -112,7 +115,7 @@ dia_spmm_kernel(const T* __restrict__ diags, const int* __restrict__ offsets, in
         T xv[V];
         load_vec(xr + w * V, xv);
 #pragma unroll
-        for (int q = 0; q < V; ++q) acc[w][q] = fma(d, xv[q], acc[w][q]);
+        for (int q = 0; q < V; ++q) acc[w][q] = madd(d, xv[q], acc[w][q]);
       }
     }
   }
@@ -159,8 +162,10 @@ int launch_spmm(int vec, const void* diags, const int* offsets, int ndiags, cons
   const T* d = static_cast<const T*>(diags);
   const T* xx = static_cast<const T*>(X);
   T* yy = static_cast<T*>(Y);
+  // V values of at most 16 bytes
   if (vec == 1) return launch_spmm_vec<T, 1>(d, offsets, ndiags, xx, yy, nrows, ncols, k, s);
-  if (vec == 2) return launch_spmm_vec<T, 2>(d, offsets, ndiags, xx, yy, nrows, ncols, k, s);
+  if constexpr (sizeof(T) <= 8)
+    if (vec == 2) return launch_spmm_vec<T, 2>(d, offsets, ndiags, xx, yy, nrows, ncols, k, s);
   if constexpr (sizeof(T) == 4)
     if (vec == 4) return launch_spmm_vec<T, 4>(d, offsets, ndiags, xx, yy, nrows, ncols, k, s);
   return static_cast<int>(cudaErrorInvalidValue);
@@ -182,7 +187,7 @@ extern "C" int tpukk_dia_spmv(int dtype, const void* diags, const int* offsets, 
 }
 
 // vec: V, the values of X's row a column lane loads at once (4, 2 or 1 in
-// f32; 2 or 1 in f64)
+// f32; 2 or 1 in f64 and complex64; 1 in complex128)
 extern "C" int tpukk_dia_spmm(int dtype, int vec, const void* diags, const int* offsets,
                               int ndiags, const void* X, void* Y, int64_t nrows, int64_t ncols,
                               int k, void* stream) {
@@ -191,5 +196,9 @@ extern "C" int tpukk_dia_spmm(int dtype, int vec, const void* diags, const int* 
     return launch_spmm<float>(vec, diags, offsets, ndiags, X, Y, nrows, ncols, k, s);
   if (dtype == 1)
     return launch_spmm<double>(vec, diags, offsets, ndiags, X, Y, nrows, ncols, k, s);
+  if (dtype == 2)
+    return launch_spmm<cplx<float>>(vec, diags, offsets, ndiags, X, Y, nrows, ncols, k, s);
+  if (dtype == 3)
+    return launch_spmm<cplx<double>>(vec, diags, offsets, ndiags, X, Y, nrows, ncols, k, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -10,7 +10,12 @@
 //   ax          = sum_{p in row r} vals[p] * x[colidx[p], j]
 //   x'[r, j]    = (1 - omega) * x[r, j] + omega * invd[r] * (b[r, j] - ax)
 // The CSR holds only off-diagonal entries, with columns in the permuted
-// space; invd is 1/diag, 0 where the diagonal is 0.  Both entries sum ax with
+// space; invd is 1/diag, 0 where the diagonal is 0.  f32, f64, complex64 and
+// complex128 (T = cplx<float>, cplx<double>, cplx.cuh): in complex values
+// omega stays real, invd is the complex 1/diag, and every product and sum is
+// rounded on its own (the panel's madd, gs_relax below).  A value never
+// travels in a sync word (the chunk counters are released after the work
+// buffer is written), so complex128's 16-byte values need no tagged words.  Both entries sum ax with
 // the row panel of csr_panel.cuh (K3's vector CSR, a group of G lanes per
 // row, a register panel of k accumulators, one fma a product) and finish
 // with gs_relax, so at one G they give the same bits.
@@ -65,7 +70,8 @@
 //   finish: the kernel traps instead of hanging the card.
 //
 // C interface (bound with ctypes): returns the cudaError_t of the launch
-// (0 when nothing needed launching); dtype 0 = float, 1 = double; 1 <= k <= 16.
+// (0 when nothing needed launching); dtype 0 = float, 1 = double,
+// 2 = complex64, 3 = complex128; 1 <= k <= 16.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -76,25 +82,33 @@ namespace {
 
 constexpr unsigned kMaxPolls = 1u << 28;
 
-// x' = (1 - omega) * x + (omega * invd) * (b - ax), with one fma
+// x' = (1 - omega) * x + (omega * invd) * (b - ax), with one fma; wd is
+// omega * invd
 template <typename T>
 __device__ __forceinline__ T gs_relax(T x, T b, T ax, T omega, T wd) {
   return fma(wd, b - ax, (T(1) - omega) * x);
 }
+// in complex values (omega real): wd·(b − ax) + (1 − omega)·x, each
+// operation rounded on its own
+template <typename R>
+__device__ __forceinline__ cplx<R> gs_relax(cplx<R> x, cplx<R> b, cplx<R> ax, R omega,
+                                            cplx<R> wd) {
+  return add_rn(mul_rn(wd, sub_rn(b, ax)), scale(R(1) - omega, x));
+}
 
-template <typename T, int G, int KMAX>
+template <typename T, int G, int KMAX, typename R = typename real_of<T>::type>
 __global__ void __launch_bounds__(kThreads)
 gs_color_step_kernel(const int* __restrict__ rowmap, const int* __restrict__ colidx,
                      const T* __restrict__ vals, const T* __restrict__ invd,
                      const T* __restrict__ b, const T* x, T* out, int64_t start,
-                     int nrows, int k, T omega) {
+                     int nrows, int k, R omega) {
   const int64_t row = (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) / G;
   const int lane = static_cast<int>(threadIdx.x) % G;
   const bool valid = row < nrows;
   T acc[KMAX];
   csr_row_panel<T, G, KMAX>(rowmap, colidx, vals, x, row, lane, valid, k, acc);
   if (valid) {
-    const T wd = omega * invd[row];
+    const T wd = scale(omega, invd[row]);
     const int64_t g = (start + row) * k;
     T* o = out + row * k;
 #pragma unroll
@@ -126,7 +140,9 @@ __device__ __forceinline__ void red_release(unsigned* p, unsigned v) {
 
 // what a row of a relaxation step reads that no step writes, loaded before
 // the chunk waits: its entry range, the lane's first two entries, omega *
-// invd, its b values (the lane's columns) and its output row
+// invd, its b values (the lane's columns) and its output row; the values
+// come after the ints (K8's lesson: a 16-byte complex value first in a
+// struct lost loaded values under -O3, PERF.md PR 14)
 template <typename T, int KMAX>
 struct RowAhead {
   int p = 0, end = 0, c0 = 0, c1 = 0, to = 0;
@@ -134,44 +150,44 @@ struct RowAhead {
   T b[KMAX];
 };
 
-template <typename T, int G, int KMAX>
+template <typename T, int G, int KMAX, typename R>
 __device__ __forceinline__ void load_ahead(RowAhead<T, KMAX>& a, const int* __restrict__ rowmap,
                                            const int* __restrict__ colidx,
                                            const T* __restrict__ vals,
                                            const T* __restrict__ invd, const T* __restrict__ b,
                                            const int* __restrict__ src,
                                            const int* __restrict__ dst, int row, bool valid,
-                                           int lane, int k, T omega) {
+                                           int lane, int k, R omega) {
   a.p = a.end = 0;
   if (!valid) return;
   a.end = __ldg(rowmap + row + 1);
   a.p = __ldg(rowmap + row) + lane;
   if (a.p < a.end) {
     a.c0 = __ldg(colidx + a.p);
-    a.v0 = __ldg(vals + a.p);
+    a.v0 = ldg(vals + a.p);
   }
   if (a.p + G < a.end) {
     a.c1 = __ldg(colidx + a.p + G);
-    a.v1 = __ldg(vals + a.p + G);
+    a.v1 = ldg(vals + a.p + G);
   }
-  a.wd = omega * __ldg(invd + row);
+  a.wd = scale(omega, ldg(invd + row));
   const int64_t sr = static_cast<int64_t>(src ? __ldg(src + row) : row) * k;
 #pragma unroll
   for (int j = 0; j < KMAX; ++j)
-    if (j < k && j % G == lane) a.b[j] = __ldg(b + sr + j);
+    if (j < k && j % G == lane) a.b[j] = ldg(b + sr + j);
   a.to = dst ? __ldg(dst + row) : row;
 }
 
 // state[0]: next chunk ticket; state[kLine]: blocks that have finished the
 // launch; state[(2 + s) * kLine]: chunks of step s that have finished
-template <typename T, int G, int KMAX>
+template <typename T, int G, int KMAX, typename R = typename real_of<T>::type>
 __global__ void __launch_bounds__(kThreads)
 gs_sweep_kernel(const int* __restrict__ rowmap, const int* __restrict__ colidx,
                 const T* __restrict__ vals, const T* __restrict__ invd,
                 const int* __restrict__ steps, int nsteps, int nchunks, int chunk_rows,
                 const T* __restrict__ b, const T* __restrict__ xin, const int* __restrict__ src,
                 const int* __restrict__ dst, T* work, T* scratch, T* __restrict__ out,
-                unsigned* state, int k, T omega) {
+                unsigned* state, int k, R omega) {
   constexpr int kRows = kThreads / G;  // rows a block relaxes side by side
   const int tid = static_cast<int>(threadIdx.x), lane = tid % G;
   __shared__ int next;
@@ -225,7 +241,7 @@ gs_sweep_kernel(const int* __restrict__ rowmap, const int* __restrict__ colidx,
             panel_add<T, KMAX>(work, a.c1, a.v1, k, a.c1 >= zlo && a.c1 < zhi, acc);
             for (int p = a.p + 2 * G; p < a.end; p += G) {
               const int c = __ldg(colidx + p);
-              panel_add<T, KMAX>(work, c, __ldg(vals + p), k, c >= zlo && c < zhi, acc);
+              panel_add<T, KMAX>(work, c, ldg(vals + p), k, c >= zlo && c < zhi, acc);
             }
           }
         }
@@ -250,7 +266,7 @@ gs_sweep_kernel(const int* __restrict__ rowmap, const int* __restrict__ colidx,
         const int r = r0 + e / k, j = e % k;
         const int64_t g = static_cast<int64_t>(r) * k + j;
         if (mode == kGather) {
-          work[g] = __ldg(xin + static_cast<int64_t>(src ? __ldg(src + r) : r) * k + j);
+          work[g] = ldg(xin + static_cast<int64_t>(src ? __ldg(src + r) : r) * k + j);
         } else {
           const T x = scratch[static_cast<int64_t>(r - begin) * k + j];
           work[g] = x;
@@ -285,7 +301,8 @@ int launch(int group, const int* rowmap, const int* colidx, const void* vals,
   const T* bb = static_cast<const T*>(b);
   const T* xx = static_cast<const T*>(x);
   T* o = static_cast<T*>(out);
-  const T w = static_cast<T>(omega);
+  using R = typename real_of<T>::type;
+  const R w = static_cast<R>(omega);
   return dispatch_panel(group, k, [&](auto g, auto kmax) {
     constexpr int G = decltype(g)::value, KMAX = decltype(kmax)::value;
     gs_color_step_kernel<T, G, KMAX><<<panel_grid(nrows, G), kThreads, 0, stream>>>(
@@ -314,7 +331,7 @@ int launch_sweep(int group, const int* rowmap, const int* colidx, const void* va
         rowmap, colidx, static_cast<const T*>(vals), static_cast<const T*>(invd), steps, nsteps,
         nchunks, chunk_rows, static_cast<const T*>(b), static_cast<const T*>(xin), src, dst,
         static_cast<T*>(work), static_cast<T*>(scratch), static_cast<T*>(out), state, k,
-        static_cast<T>(omega));
+        static_cast<typename real_of<T>::type>(omega));
     return static_cast<int>(cudaGetLastError());
   });
 }
@@ -330,6 +347,12 @@ extern "C" int tpukk_gs_color_step(int dtype, int group, const int* rowmap, cons
     return launch<float>(group, rowmap, colidx, vals, invd, b, x, out, start, nrows, k, omega, s);
   if (dtype == 1)
     return launch<double>(group, rowmap, colidx, vals, invd, b, x, out, start, nrows, k, omega, s);
+  if (dtype == 2)
+    return launch<cplx<float>>(group, rowmap, colidx, vals, invd, b, x, out, start, nrows, k,
+                               omega, s);
+  if (dtype == 3)
+    return launch<cplx<double>>(group, rowmap, colidx, vals, invd, b, x, out, start, nrows, k,
+                                omega, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -345,5 +368,13 @@ extern "C" int tpukk_gs_sweep(int dtype, int group, const int* rowmap, const int
   if (dtype == 1)
     return launch_sweep<double>(group, rowmap, colidx, vals, invd, steps, nsteps, nchunks,
                                 chunk_rows, b, xin, src, dst, work, scratch, out, state, k, omega, s);
+  if (dtype == 2)
+    return launch_sweep<cplx<float>>(group, rowmap, colidx, vals, invd, steps, nsteps, nchunks,
+                                     chunk_rows, b, xin, src, dst, work, scratch, out, state, k,
+                                     omega, s);
+  if (dtype == 3)
+    return launch_sweep<cplx<double>>(group, rowmap, colidx, vals, invd, steps, nsteps, nchunks,
+                                      chunk_rows, b, xin, src, dst, work, scratch, out, state, k,
+                                      omega, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -85,24 +85,6 @@ constexpr int kOne = 4;   // B entries one lane loads at a time
 constexpr int kCopy = 8;  // C columns a lane copies to shared memory at a time
 constexpr int kMaxDevices = 64;
 
-__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
-__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
-__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
-// a complex product from its parts, each operation rounded on its own:
-// (ar·br − ai·bi, ar·bi + ai·br), the formula and order of the plain version
-template <typename R>
-__device__ __forceinline__ cplx<R> mul_rn(cplx<R> a, cplx<R> b) {
-  return {sub_rn(mul_rn(a.re, b.re), mul_rn(a.im, b.im)),
-          add_rn(mul_rn(a.re, b.im), mul_rn(a.im, b.re))};
-}
-template <typename R>
-__device__ __forceinline__ cplx<R> add_rn(cplx<R> a, cplx<R> b) {
-  return {add_rn(a.re, b.re), add_rn(a.im, b.im)};
-}
-
 struct Bins {
   int n;
   int dups;  // some row of B repeats a column

@@ -37,6 +37,12 @@ vmaps the single-column sweep.
   half-sweep is one matvec of that handle (one K1 launch where the block
   graph is banded, AUTO's DIA route) and batched block updates
   x_c ← (1-ω)·x_c + ω·D_c⁻¹·((b - A·x)_c + D_c·x_c), as in ``tpukk``.
+  A multivector b takes the handle's K2 launch a color on that route.
+
+Every form takes f32, f64, complex64 and complex128 values, and a complex b
+on a real handle (the promotion ``tpukk`` gives it): the plan, 1/diag, the
+triangles and the diagonal blocks keep the values' complex dtype, and ω
+stays real.
 """
 from __future__ import annotations
 
@@ -208,7 +214,6 @@ def gauss_seidel_numeric(handle: GsHandle, A, omega: float = 1.0):
     its SpMV handles; a BsrMatrix its diagonal blocks and their inverses."""
     _check_matrix(A)
     check(handle.is_symbolic_called, "gauss_seidel_numeric: symbolic first")
-    _refuse_complex(A.dtype)
     handle.omega = float(omega)
     if isinstance(A, BsrMatrix):
         _block_numeric(handle, A)
@@ -220,18 +225,12 @@ def gauss_seidel_numeric(handle: GsHandle, A, omega: float = 1.0):
     handle.is_numeric_called = True
 
 
-def _refuse_complex(dtype: torch.dtype) -> None:
-    """Complex Gauss-Seidel (K6's sweeps, TWOSTAGE, block GS) is not ported:
-    ROADMAP A3b.  It raises on every device."""
-    if dtype.is_complex:
-        raise NotImplementedError("complex Gauss-Seidel is not ported (ROADMAP A3b)")
-
-
 def _sweep_plan(handle: GsHandle, A: CsrMatrix) -> gs_cuda.GsSweepPlan:
     """``tpukk``'s numeric phase (gauss_seidel.py:193-241) without the ELL
     padding, for all colors at once: the rows in color order, their entries
     in CSR order with the diagonal dropped (and summed into diag), columns
-    renamed by inv_order."""
+    renamed by inv_order.  The values keep their dtype (complex too);
+    1/diag is taken in it."""
     rm = A.host_row_map().astype(np.int64)
     ent = A.host_entries()
     vals = A.host_values()  # bf16 values arrive widened to f32
@@ -385,9 +384,6 @@ def gauss_seidel_apply(handle: GsHandle, A, x, b, num_sweeps: int = 1,
     check(b.ndim in (1, 2) and b.shape[0] == A.nrows and b.device == A.device,
           f"gauss_seidel_apply: b must be ({A.nrows},) or ({A.nrows}, k) on {A.device}")
     check(x is None or x.shape == b.shape, "gauss_seidel_apply: x and b shapes differ")
-    _refuse_complex(b.dtype)
-    if x is not None:
-        _refuse_complex(x.dtype)
     out_dtype = b.dtype if x is None else x.dtype  # tpukk's result dtype
     fwd = direction in ("forward", "symmetric")
     bwd = direction in ("backward", "symmetric")

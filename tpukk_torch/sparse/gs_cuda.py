@@ -2,9 +2,10 @@
 ``_gi4_gs_fused_batched`` in ``tpukk/sparse/spmv_pallas.py``, which
 ``tpukk``'s sweep runs once per color.
 
-K6 (``csrc/gs.cu``) has two entries, f32 and f64, for a vector or a
-row-major (n, k) multivector with k ≤ 16; both relax a row as
-``x ← (1−ω)·x + ω·invd·(b − A_offdiag·x)`` with the same arithmetic:
+K6 (``csrc/gs.cu``) has two entries, in f32, f64, complex64 and complex128,
+for a vector or a row-major (n, k) multivector with k ≤ 16; both relax a row
+as ``x ← (1−ω)·x + ω·invd·(b − A_offdiag·x)`` (ω real, invd = 1/diag in the
+values' dtype) with the same arithmetic:
 
 * ``gs_sweep``: a whole apply in one launch — every color step of every
   half-sweep, with the permutations into and out of color order (b read
@@ -281,7 +282,7 @@ def gs_color_step(blk: GsBlock, x: torch.Tensor, b: torch.Tensor, omega: float,
     check(blk.inv_diag.dtype == csr.values.dtype and csr.row_map.device == x.device
           and csr.entries.device == x.device and blk.inv_diag.device == x.device,
           "gs_color_step: block arrays must be on x's device, inv_diag in the values' dtype")
-    code = _kernels.dtype_code(x.dtype, _kernels.DTYPE_CODE, "gs_color_step")
+    code = _kernels.dtype_code(x.dtype, _kernels.COMPLEX_DTYPE_CODE, "gs_color_step")
     if not _kernels.on_cuda(x, "gs_color_step"):
         return gs_color_step_plain(blk, x, b, omega)
     check(csr.row_map.dtype == torch.int32 and csr.entries.dtype == torch.int32
@@ -358,7 +359,7 @@ def gs_sweep(plan: GsSweepPlan, x, b: torch.Tensor, omega: float, direction: str
     _kernels.check_operand(b, "gs_sweep", dt, dev)
     if x is not None:
         _kernels.check_operand(x, "gs_sweep", dt, dev)
-    code = _kernels.dtype_code(b.dtype, _kernels.DTYPE_CODE, "gs_sweep")
+    code = _kernels.dtype_code(b.dtype, _kernels.COMPLEX_DTYPE_CODE, "gs_sweep")
     st = plan.steps(direction, num_sweeps, x is not None)
     if not _kernels.on_cuda(b, "gs_sweep"):
         return gs_sweep_plain(plan, x, b, omega, direction, num_sweeps, permuted)

@@ -113,9 +113,10 @@ class LUPrec(Preconditioner):
 class GsPrec(Preconditioner):
     """Gauss-Seidel sweeps as a preconditioner (the pcg use of
     perf_test/sparse/KokkosSparse_pcg.cpp): ``sweeps`` symmetric sweeps from
-    x = 0 with a handle that has been through the numeric phase.  Symmetric
-    sweeps on a symmetric matrix make a symmetric operator, so CG stays
-    valid."""
+    x = 0 with a handle that has been through the numeric phase.  A
+    symmetric multicolor sweep uses A's own entries (not conjugated): on a
+    Hermitian matrix (a symmetric one in real values) it makes a Hermitian
+    operator, so CG stays valid."""
 
     def __init__(self, handle: GsHandle, A: CsrMatrix, sweeps: int = 1):
         self._h, self._A, self._sweeps = handle, A, sweeps

@@ -17,12 +17,12 @@ they take (f32 and f64 everywhere; complex64 and complex128 as listed):
 =================  ====================================  =====================
 route              on CUDA                               on the CPU
 =================  ====================================  =====================
-DIA, PALLAS        K1 ``dia_spmv`` (also complex) /      their plain version
-                   K2 ``dia_spmm`` (real)
-ONEHOT             K3 ``csr_spmv`` (also complex); a     their plain versions
-                   2-D x with 1 < k ≤ 16: K7
-                   ``csr_spmm`` (real); wider: ELL, as
-                   in ``tpukk``
+DIA, PALLAS        K1 ``dia_spmv`` /                     their plain version
+                   K2 ``dia_spmm`` (both also complex)
+ONEHOT             K3 ``csr_spmv``; a 2-D x with         their plain versions
+                   1 < k ≤ 16: K7 ``csr_spmm`` (both
+                   also complex); wider: ELL, as in
+                   ``tpukk``
 RCM                K5 ``permute_gather`` (complex as     their plain versions
                    real views), the AUTO route of
                    P·A·Pᵀ, K5 back
@@ -33,10 +33,9 @@ DS                 the AUTO route, in native f64 (a      the same
                    complex x: complex128)
 =================  ====================================  =====================
 
-A complex 2-D x on the DIA or ONEHOT route raises NotImplementedError on
-every device: complex SpMM on K2 and K7 is ROADMAP A3b.  ``tpukk`` sends
-complex matrices to ELL on the CPU; the gate below sends them where it sends
-real ones, so complex SpMV runs on K1 and K3.
+``tpukk`` sends complex matrices to ELL on the CPU; the gate below sends
+them where it sends real ones, so complex SpMV runs on K1 and K3 and complex
+SpMM on K2 and K7.
 
 A ``BsrMatrix`` takes ``tpukk``'s routes (spmv.py:64-83): AUTO expands it to
 scalar CSR (``bsr2crs``, the blocks' explicit zeros kept) and takes DIA on
@@ -198,11 +197,6 @@ class SpmvHandle:
         dt = _compute_dtype(self.A, x)
         x = x.to(dt).contiguous()
         alg = self.algorithm
-        if (x.ndim == 2 and dt.is_complex
-                and alg in (SpmvAlgorithm.DIA, SpmvAlgorithm.PALLAS, SpmvAlgorithm.ONEHOT)):
-            raise NotImplementedError(
-                f"spmv: complex SpMM on the {alg.name} route (K2/K7) is not ported "
-                f"(ROADMAP A3b); pin ELL, SEGSUM or DENSE")
         if alg in (SpmvAlgorithm.DIA, SpmvAlgorithm.PALLAS):
             plan = self._plan("dia", dt)
             return spmv_cuda.dia_spmv(plan, x) if x.ndim == 1 else spmv_cuda.dia_spmm(plan, x)

@@ -6,9 +6,10 @@ is K6 (``gs_cuda.py``):
 
 * ``dia_spmv`` (K1, ``csrc/dia.cu``): banded SpMV in f32, f64, complex64 and
   complex128 — replaces ``_dia_call`` and the double-single ``_dia_ds_call``.
-* ``dia_spmm`` (K2, ``csrc/dia.cu``): banded SpMM, one diagonal pass for all
-  k columns, column lanes reading X's rows and writing Y's with vector
-  accesses (``vector_width``) — replaces ``_dia_mv_call``.
+* ``dia_spmm`` (K2, ``csrc/dia.cu``): banded SpMM in f32, f64, complex64 and
+  complex128, one diagonal pass for all k columns, column lanes reading X's
+  rows and writing Y's with vector accesses (``vector_width``) — replaces
+  ``_dia_mv_call``.
 * ``csr_spmv`` (K3, ``csrc/csr.cu``): unstructured CSR SpMV, sum or max, f32
   and f64 (the sum also complex64 and complex128), a block a tile of the
   plan's entry-balanced tiles of whole rows (``build_csr_tiles``), read
@@ -16,16 +17,15 @@ is K6 (``gs_cuda.py``):
   device memory, past it — replaces the seven one-hot/gather-table layouts
   behind ``onehot_spmv`` and the double-single ``_gi4_ds_call_batched``.
 * ``csr_spmm`` (K7, ``csrc/csr.cu``): unstructured CSR SpMM for row-major X
-  of shape (ncols, k), 1 ≤ k ≤ 16, one pass over A for all k columns, f32 and
-  f64: a group of lanes a row, column lanes reading X's rows with vector
+  of shape (ncols, k), 1 ≤ k ≤ 16, one pass over A for all k columns, f32,
+  f64, complex64 and complex128: a group of lanes a row, column lanes reading X's rows with vector
   loads and entry slots sharing the row's entries (``spmm_geometry``) —
   replaces the five multi-RHS layouts behind ``onehot_spmm``
   (``_dl_mm_call``, ``_dl_mm_call_batched``, ``_onehot_spmm_call``,
   ``_gt_mm_call_batched``, ``_pk_mm_call_batched``).
 
 Each wrapper checks device, dtype, shape and contiguity and raises on
-anything else; K2 and K7 refuse complex values on every device (complex SpMM
-is ROADMAP A3b).  On a CPU tensor it runs the kernel's plain version, which
+anything else.  On a CPU tensor it runs the kernel's plain version, which
 lives beside it (``dia_plain``, ``csr_plain``, ``csr_spmm_plain``).  On a CUDA tensor it launches
 the kernel on the current stream or raises: there is no fallback.  It adds one
 to its ``launches`` count each time it launches its kernel, and nowhere else.
@@ -63,7 +63,6 @@ __all__ = [
     "reset_launch_counts",
 ]
 
-_DTYPE_CODE = _kernels.DTYPE_CODE
 _CPLX_CODE = _kernels.COMPLEX_DTYPE_CODE
 _dtype_code = _kernels.dtype_code
 _REDUCE_CODE = {"sum": 0, "max": 1}
@@ -85,11 +84,11 @@ def dia_plain(plan: DiaPlan, x: torch.Tensor) -> torch.Tensor:
     return apply_dia(plan, x)
 
 
-def _check_dia(plan: DiaPlan, x: torch.Tensor, ndim: int, name: str, codes: dict) -> int:
-    """Checks K1's or K2's operands; returns the dtype's code in ``codes``."""
+def _check_dia(plan: DiaPlan, x: torch.Tensor, ndim: int, name: str) -> int:
+    """Checks K1's or K2's operands; returns the dtype's code."""
     check(x.ndim == ndim, f"{name}: x must be rank-{ndim}, got rank {x.ndim}")
     check(x.shape[0] == plan.ncols, f"{name}: x has {x.shape[0]} rows, plan {plan.ncols} cols")
-    code = _dtype_code(plan.diags.dtype, codes, name)
+    code = _dtype_code(plan.diags.dtype, _CPLX_CODE, name)
     check(len(plan.offsets) <= DIA_MAX_DIAGS, f"{name}: at most {DIA_MAX_DIAGS} diagonals")
     _check_operand(x, name, plan.diags.dtype, plan.diags.device)
     check(plan.diags.is_contiguous() and plan.offsets_dev.device == x.device,
@@ -100,7 +99,7 @@ def _check_dia(plan: DiaPlan, x: torch.Tensor, ndim: int, name: str, codes: dict
 def dia_spmv(plan: DiaPlan, x: torch.Tensor) -> torch.Tensor:
     """K1: y = A·x for a DiaPlan and vector x (plan dtype, same device; f32,
     f64, complex64 or complex128)."""
-    code = _check_dia(plan, x, 1, "dia_spmv", _CPLX_CODE)
+    code = _check_dia(plan, x, 1, "dia_spmv")
     if not _on_cuda(x, "dia_spmv"):
         return dia_plain(plan, x)
     y = torch.empty(plan.nrows, dtype=x.dtype, device=x.device)
@@ -127,9 +126,9 @@ def vector_width(k: int, itemsize: int, offset: int = 0) -> int:
 
 def dia_spmm(plan: DiaPlan, X: torch.Tensor) -> torch.Tensor:
     """K2: Y = A·X for a DiaPlan and row-major X of shape (ncols, k), any k;
-    its column lanes move ``vector_width`` values of X's row at once; f32 and
-    f64."""
-    code = _check_dia(plan, X, 2, "dia_spmm", _DTYPE_CODE)
+    its column lanes move ``vector_width`` values of X's row at once; f32,
+    f64, complex64 and complex128."""
+    code = _check_dia(plan, X, 2, "dia_spmm")
     if not _on_cuda(X, "dia_spmm"):
         return dia_plain(plan, X)
     k = X.shape[1]
@@ -164,7 +163,7 @@ class CsrPlan:
 
     row_map: torch.Tensor   # (nrows+1,) int32
     entries: torch.Tensor   # (nnz,) int32
-    values: torch.Tensor    # (nnz,) f32/f64
+    values: torch.Tensor    # (nnz,) f32, f64, complex64 or complex128
     nrows: int
     ncols: int
     group: int              # lanes per row: 1, 2, 4, 8, 16 or 32
@@ -244,8 +243,8 @@ def build_csr_plan(A: CsrMatrix, dtype: torch.dtype, streamed: bool | None = Non
     """The plan of K3 and K7 for A in dtype, on A's arrays where they already
     have the dtype.  K3 streams past L1 when colidx and vals pass STREAM_BYTES;
     ``streamed`` pins the mode instead (the tests and scripts/k3_sweep_torch.py
-    run both on small matrices).  f32, f64, complex64 or complex128 (K3's
-    sum; K7 and the max take real values)."""
+    run both on small matrices).  f32, f64, complex64 or complex128 (the
+    max reduction takes real values)."""
     _dtype_code(dtype, _CPLX_CODE, "csr plan")
     if streamed is None:
         streamed = A.nnz * (4 + dtype.itemsize) > STREAM_BYTES
@@ -337,8 +336,8 @@ def spmm_geometry(mean_entries: float, nrows: int, k: int, itemsize: int,
     ``SPMM_FILL_THREADS`` and each slot still gets an entry, up to 32 lanes
     a row (scripts/k7_sweep_torch.py --geometries on the H100, PERF.md: the
     best or within 1 % of it on the paths' three shapes)."""
-    check(1 <= k <= SPMM_MAX_K and itemsize in (4, 8),
-          f"spmm geometry: k {k} not in 1..{SPMM_MAX_K} or itemsize {itemsize} not 4/8")
+    check(1 <= k <= SPMM_MAX_K and itemsize in (4, 8, 16),
+          f"spmm geometry: k {k} not in 1..{SPMM_MAX_K} or itemsize {itemsize} not 4/8/16")
     vec = vector_width(k, itemsize, x_offset)
     cols = _pow2_at_least(-(-k // vec))
     per_slot = max(4, cols)
@@ -360,7 +359,8 @@ def csr_spmm_plain(plan: CsrPlan, X: torch.Tensor) -> torch.Tensor:
 
 def csr_spmm(plan: CsrPlan, X: torch.Tensor, geometry: SpmmGeometry | None = None
              ) -> torch.Tensor:
-    """K7: Y = A·X for row-major X of shape (ncols, k), 1 ≤ k ≤ 16.
+    """K7: Y = A·X for row-major X of shape (ncols, k), 1 ≤ k ≤ 16 (f32,
+    f64, complex64 or complex128).
     ``geometry`` pins the kernel's lanes (the card tests and
     scripts/k7_sweep_torch.py); by default ``spmm_geometry`` picks them."""
     check(X.ndim == 2, f"csr_spmm: X must be rank-2, got rank {X.ndim}")
@@ -368,7 +368,7 @@ def csr_spmm(plan: CsrPlan, X: torch.Tensor, geometry: SpmmGeometry | None = Non
     k = X.shape[1]
     check(1 <= k <= SPMM_MAX_K, f"csr_spmm: X must have 1 to {SPMM_MAX_K} columns, got {k}")
     _check_operand(X, "csr_spmm", plan.values.dtype, plan.values.device)
-    code = _dtype_code(X.dtype, _DTYPE_CODE, "csr_spmm")
+    code = _dtype_code(X.dtype, _CPLX_CODE, "csr_spmm")
     check(plan.row_map.device == X.device and plan.entries.device == X.device,
           "csr_spmm: plan arrays must be on X's device")
     if not _on_cuda(X, "csr_spmm"):

@@ -14,7 +14,7 @@ Laplacian (K1, complex128 and complex64), on rand100k with complex64 values
 and on fem2d_30k + 0.5i·diag (K3), Jacobi PCG on the magnetic Laplacian,
 GMRES on the complex FEM matrix (Jacobi, imported complex SuperLU factors,
 RCM on K5's real views), SEQLVLSCHD and SUPERNODAL solves (K4), A·A with
-reuse (K8), SpADD and bspgemm in complex; and the ninth: complex SpMM on K2
+reuse (K8), SpADD and bspgemm in complex; the ninth: complex SpMM on K2
 (the magnetic Laplacian, k = 8) and K7 (rand100k c64 k = 8, fem2d_30k +
 0.5i·diag c128 k = 4), complex POINT, CLUSTER and TWOSTAGE Gauss-Seidel on
 K6 and K7, GsPrec-PCG on the magnetic Laplacian, complex block GS (K1/K2 on
@@ -23,7 +23,15 @@ batched layer (65,536 dense 16x16 systems: getrf/getrs, gesv, LU, QR,
 trsm, pttrf/pttrs, pbtrf/pbtrs; 4,096 banded systems of 1,024 rows; eig
 of 4,096 16x16 matrices beside torch.linalg.eig; CG and GMRES on 1,024
 sparse systems) and the ODE layer (batched adaptive RKDP on 65,536 decays,
-batched adaptive BDF on 16,384 Robertson systems) with three examples.
+batched adaptive BDF on 16,384 Robertson systems) with three examples; and
+the tenth, the distributed layer: NCCL at world size 1 in this process
+(Jacobi PCG on lap1000 f64 through DistGtPlan on K3, the one-part GS plan
+on K6's fused sweep, the ring A·A on fem2d_30k on K8, held bit for bit to
+spgemm_numeric) and 4 gloo ranks on cuda:0 (dist_spmv_gt through both K3
+plans on lap1000, PCG and two GMRES cycles on fem2d_30k, the colored sweep
+on K6's color step held to the one-process sweep with the same colors, the
+ring A·A on K8), each rank's kernels held to their plain versions and its
+launches counted with the main path's.
 
     python3 chip_smoke.py
 
@@ -60,6 +68,7 @@ nothing of JAX or of tpukk.
 """
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import json
 import math
@@ -152,6 +161,86 @@ def csr_bytes(A, itemsize: int) -> int:
     return A.nnz * (itemsize + 4) + (A.nrows + 1) * 4 + (A.ncols + A.nrows) * itemsize
 
 
+def dist_rank_job(entry, plan, vectors, kwargs, seed):
+    """One rank of chip_smoke's 4-rank phase (gloo, cuda:0): its shard of
+    ``plan`` and of each whole padded vector, the entry point with the
+    kernels' launch counts set to 0 just before it and read just after, then
+    this rank's kernels of that path against their plain versions on inputs
+    drawn from ``seed`` at the path's shapes (launches not counted).  Returns
+    (result on the host, launch counts, seconds, checks)."""
+    import torch
+
+    import tpukk_torch.dist as td
+    from tpukk_torch.dist import ranks
+    from tpukk_torch.sparse import gs_cuda as kg
+    from tpukk_torch.sparse import spgemm_cuda as ksg
+    from tpukk_torch.sparse import spmv_cuda as kc
+
+    rank, _ = ranks.world()
+    dev = torch.device("cuda", 0)
+    shard = td.shard_plan(plan, device=dev)
+    n = plan.padded_rows // plan.n_parts if hasattr(plan, "padded_rows") else 0
+    args = [torch.from_numpy(v[rank * n:(rank + 1) * n]).to(dev) for v in vectors]
+    kw = dict(kwargs)
+    if kw.get("inv_diag") is not None:
+        kw["inv_diag"] = torch.from_numpy(kw["inv_diag"][rank * n:(rank + 1) * n]).to(dev)
+    mods = (kc, kg, ksg)
+    for m in mods:
+        m.reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = getattr(td, entry)(shard, *args, **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    counts = {k: v for m in mods for k, v in m.launch_counts().items()}
+    gen = torch.Generator(device=dev).manual_seed(seed + rank)
+    checks = []
+
+    def rand(k, dt):
+        return torch.randn(k, generator=gen, dtype=torch.float64, device=dev).to(dt)
+
+    def k3(label, cp):
+        x = rand(cp.ncols, cp.values.dtype)
+        acp = dataclasses.replace(cp, values=cp.values.abs())
+        err = (kc.csr_spmv(cp, x) - kc.csr_plain(cp, x)).abs()
+        tol = 20 * torch.finfo(x.dtype).eps * kc.csr_plain(acp, x.abs())
+        checks.append(("csr_spmv", label, float(err.max()), bool((err <= tol).all())))
+
+    if isinstance(shard, td.DistGtPlan):
+        k3(f"rank {rank} local block over x_ext", shard.csr)
+    elif isinstance(shard, td.DistGtPlan2):
+        k3(f"rank {rank} interior block", shard.int_plan)
+        k3(f"rank {rank} boundary block over the halo", shard.bnd_plan)
+    elif isinstance(shard, td.DistGsGtPlan):
+        for c, blk in enumerate(shard.blocks):
+            xe, be = rand(shard.ncols_ext, blk.csr.values.dtype), rand(shard.ncols_ext,
+                                                                       blk.csr.values.dtype)
+            rows = slice(blk.start, blk.start + blk.nrows)
+            got = kg.gs_color_step(blk, xe.clone(), be, shard.omega)[rows]
+            plain = kg.gs_color_step_plain(blk, xe.clone(), be, shard.omega)[rows]
+            err = (got - plain).abs()
+            ok = bool((err <= kg.step_error_bound(blk, xe, be, shard.omega)).all())
+            checks.append(("gs_color_step", f"rank {rank} color {c}", float(err.max()), ok))
+    elif isinstance(shard, td.RingSpgemmPlan):
+        for s, (k8, sel, nb) in enumerate(shard.steps):
+            if k8.nnz_a:
+                a, b = shard.a_vals_pad[sel], rand(nb, shard.a_vals_pad.dtype)
+                got, plain = ksg.spgemm_rows(k8, a, b), ksg.spgemm_rows_plain(k8, a, b)
+                checks.append(("spgemm_rows", f"rank {rank} ring step {s}",
+                               float((got - plain).abs().max()) if k8.nnz_c else 0.0,
+                               bool(torch.equal(got, plain))))
+    torch.cuda.synchronize()
+
+    def host(v):
+        if isinstance(v, torch.Tensor):
+            return v.cpu().numpy()
+        if isinstance(v, tuple):
+            return tuple(host(u) for u in v)
+        return v.to_scipy() if hasattr(v, "to_scipy") else v
+
+    return host(out), counts, seconds, checks
+
+
 def main() -> int:
     import torch
 
@@ -159,7 +248,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
-    import dataclasses
 
     import numpy as np
     import scipy.sparse as sps
@@ -2449,6 +2537,227 @@ def main() -> int:
         torch.cuda.synchronize()
         emit("main_example", example=name, clean_exit=True, seconds=time.perf_counter() - t)
 
+    # ---- 3n. the tenth slice: dist (A15) over torch.distributed, at world size
+    # 1 (NCCL, this process) and 4 (gloo ranks on cuda:0), each path's launches
+    # counted, each rank's K3/K6/K8 held to its plain version --------------------
+    import datetime
+    import tempfile
+
+    import torch.distributed as tdist
+
+    import tpukk_torch.dist as td
+    from tpukk_torch.dist import ranks as dranks
+    from tpukk_torch.dist.gt_spmv import build_all_to_all_plan
+
+    def padded(v, total):
+        out = np.zeros(total, v.dtype)
+        out[:v.shape[0]] = v
+        return out
+
+    def hold_gs(label, got, plain, dtype):
+        """K6's fused sweep within 1000·eps·max|plain| of its plain version."""
+        torch.cuda.synchronize()
+        err = float((got - plain).abs().max())
+        tol = 1000 * torch.finfo(dtype).eps * float(plain.abs().max())
+        errs["gs_sweep"] = max(errs["gs_sweep"], err)
+        emit("check", kernel="gs_sweep", case=label, dtype=str(dtype), max_abs_err=err,
+             tol="1000*eps*max|plain|", ok=err <= tol)
+        require(err <= tol, f"gs_sweep {label} disagrees with its plain version")
+
+    t_dist = time.perf_counter()
+    fem_sp = fem.to_scipy()
+    lap_sp64 = lap64.to_scipy()
+    rdv = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    tdist.init_process_group("nccl", init_method=f"file://{rdv}/rendezvous", world_size=1,
+                             rank=0, timeout=datetime.timedelta(seconds=300))
+    try:
+        # world size 1: PCG with Jacobi on lap1000 f64 through DistGtPlan (K3)
+        gt1 = td.shard_dist_gt_plan(td.build_dist_gt_plan(lap64, 1), device=dev)
+        require(isinstance(gt1, td.DistGtPlan) and gt1.no_remote, "one part: not a DistGtPlan")
+        rngd = np.random.default_rng(16)  # the phase's own: later phases draw what they drew
+
+        def dvec(n):
+            return torch.from_numpy(rngd.standard_normal(n)).to(dev)
+
+        xr = dvec(gt1.csr.ncols)
+        hold("csr_spmv", "dist one part: the local block", kc.csr_spmv(gt1.csr, xr),
+             kc.csr_plain(gt1.csr, xr),
+             kc.csr_plain(dataclasses.replace(gt1.csr, values=gt1.csr.values.abs()), xr.abs()),
+             torch.float64)
+        b1 = torch.zeros(gt1.rows_per_part, dtype=torch.float64, device=dev)
+        b1[:lap64.nrows] = dvec(lap64.nrows)
+        inv1 = torch.zeros_like(b1)
+        inv1[:lap64.nrows] = 1.0 / torch.from_numpy(lap_sp64.diagonal()).to(dev)
+        (x1, it1, rel1), counts, wall = counted(
+            "dist_pcg world 1", lambda: td.dist_pcg(gt1, b1, tol=1e-8, max_iters=8000,
+                                                    inv_diag=inv1), ("csr_spmv",))
+        bh = b1[:lap64.nrows].cpu().numpy()
+        true1 = float(np.linalg.norm(bh - lap_sp64 @ x1[:lap64.nrows].cpu().numpy())
+                      / np.linalg.norm(bh))
+        require(true1 <= 1e-7, f"dist_pcg world 1: ||b - Ax||/||b|| = {true1}")
+        emit("main_dist_pcg", world=1, backend="nccl",
+             case="lap1000 f64 Jacobi, DistGtPlan, tol 1e-8",
+             iterations=it1, rel=rel1, true_rel=true1, seconds=wall,
+             us_per_iter=wall / it1 * 1e6, launches=counts)
+        # where a world-1 iteration's time goes
+        state_it = 20
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            td.dist_pcg(gt1, b1, tol=0.0, max_iters=state_it, inv_diag=inv1)
+            torch.cuda.synchronize()
+        kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                and not e.key.startswith("tpukk::")]
+        host_ops = sorted([e for e in prof.key_averages() if e.device_type == DeviceType.CPU],
+                          key=lambda e: -e.self_cpu_time_total)[:8]
+        emit("profile_dist_pcg_iteration", world=1,
+             device_busy_us_per_iter=sum(e.self_device_time_total for e in kern) / state_it,
+             top_device=[[e.key[:60], e.self_device_time_total / state_it, e.count / state_it]
+                         for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:6]],
+             top_host=[[e.key[:60], e.self_cpu_time_total / state_it, e.count / state_it]
+                       for e in host_ops])
+        del x1, xr
+
+        # world size 1: the one-part GS plan, K6's fused sweep
+        gs1 = td.shard_dist_gs_plan(td.build_dist_gs_gt_plan(lap64, 1), device=dev)
+        bgs = b1.clone()
+        xg1, counts, wall = counted("dist_gs_sweep world 1",
+                                    lambda: td.dist_gs_sweep(gs1, torch.zeros_like(bgs), bgs),
+                                    ("gs_sweep",))
+        hold_gs("dist one part, lap1000 f64 symmetric", xg1[:lap64.nrows],
+                kg.gs_sweep_plain(_plan_in(gs1.single, torch.float64),
+                                  torch.zeros(lap64.nrows, dtype=torch.float64, device=dev),
+                                  bgs[:lap64.nrows], 1.0), torch.float64)
+        emit("main_dist_gs", world=1, case="lap1000 f64 one part (SERIAL colors)",
+             colors=gs1.num_colors, seconds=wall, launches=counts)
+        del gs1, bgs, xg1
+
+        # world size 1: the ring A·A on fem2d_30k, held to spgemm_numeric
+        hs1 = SpgemmHandle(SpgemmAlgorithm.KK)
+        spgemm_symbolic(hs1, fem, fem)
+        C_ref = spgemm_numeric(hs1, fem, fem)
+        ring1 = td.shard_ring_spgemm_plan(td.build_ring_spgemm_plan(fem, fem, 1), device=dev)
+        C1, counts, wall = counted("ring_spgemm world 1", lambda: td.ring_spgemm_numeric(ring1),
+                                   ("spgemm_rows",))
+        require(torch.equal(C1.values, C_ref.values)
+                and np.array_equal(C1.host_entries(), C_ref.host_entries()),
+                "ring world 1: not spgemm_numeric's C bit for bit")
+        for s_, (k8, sel, nb) in enumerate(ring1.steps):
+            hold_k8(f"dist ring one part, step {s_}", k8, ring1.a_vals_pad[sel],
+                    ring1.b_vals_pad[:nb].contiguous())
+        emit("main_dist_ring", world=1, case="fem2d_30k f64 A·A", nnz_c=C1.nnz, ms=wall * 1e3,
+             launches=counts)
+        del ring1, C1
+    finally:
+        tdist.destroy_process_group()
+
+    # world size 4: gloo ranks on cuda:0 (their collectives stage through the host)
+    P4 = 4
+    gt4 = td.build_dist_gt_plan(lap64, P4)
+    a2a4 = build_all_to_all_plan(lap64, P4)
+    require(isinstance(gt4, td.DistGtPlan2), "lap1000 at 4 parts: not the neighbour plan")
+    fem_gt4 = td.build_dist_gt_plan(fem, P4)
+    fem_gs4 = td.build_dist_gs_gt_plan(fem, P4)
+    fem_ring4 = td.build_ring_spgemm_plan(fem, fem, P4)
+    emit("dist_plans", world=P4, seconds=time.perf_counter() - t_dist,
+         lap1000=[type(gt4).__name__, list(gt4.offsets), gt4.halo_total],
+         lap1000_all_to_all_halo=a2a4.halo, fem2d_30k=type(fem_gt4).__name__,
+         fem2d_30k_colors=fem_gs4.num_colors)
+    xl = np.random.default_rng(17).standard_normal(lap64.nrows)
+    bf = np.random.default_rng(18).standard_normal(fem.nrows)
+    inv_f = padded(1.0 / fem_sp.diagonal(), fem_gt4.padded_rows)
+    fem_colors = graph_color(fem, ColoringAlgorithm.VB)
+
+    def on_ranks(pool, part, entry, plan, vectors, needs, seed, **kw):
+        """The entry point on the 4 ranks: the ranks' launches join the main
+        path's counts, their checks the kernel table's errors."""
+        outs = pool.run(dist_rank_job, entry, plan, vectors, kw, seed)
+        counts = {k: sum(o[1][k] for o in outs) for k in outs[0][1]}
+        for k, v in counts.items():
+            total[k] += v
+        require(all(counts[k] > 0 for k in needs), f"{part}: {needs} not launched: {counts}")
+        for kernel, label, err, ok in (c for o in outs for c in o[3]):
+            errs[kernel] = max(errs[kernel], err)
+            emit("check", kernel=kernel, case=f"dist 4 ranks {part}: {label}", max_abs_err=err,
+                 ok=ok)
+            require(ok, f"{kernel} {part} {label} disagrees with its plain version")
+        return [o[0] for o in outs], counts, max(o[2] for o in outs)
+
+    t4 = time.perf_counter()
+    with dranks.RankPool(P4, "gloo", timeout=300.0) as pool:
+        emit("dist_ranks_started", world=P4, backend="gloo", device="cuda:0",
+             seconds=time.perf_counter() - t4)
+        for label, plan in (("DistGtPlan2", gt4), ("DistGtPlan (all_to_all)", a2a4)):
+            ys, counts, wall = on_ranks(pool, f"dist_spmv_gt {label}", "dist_spmv_gt", plan,
+                                        [padded(xl, plan.padded_rows)], ("csr_spmv",), 1)
+            y = np.concatenate(ys)[:lap64.nrows]
+            ref = lap_sp64 @ xl
+            ok = bool((np.abs(y - ref) <= 20 * np.finfo(np.float64).eps
+                       * (abs(lap_sp64) @ np.abs(xl)) + 1e-300).all())
+            require(ok, f"dist_spmv_gt {label}: wrong vs scipy")
+            emit("main_dist_spmv", world=P4, plan=label, case="lap1000 f64",
+                 max_abs_err=float(np.abs(y - ref).max()), seconds=wall, launches=counts)
+        outs, counts, wall = on_ranks(pool, "dist_pcg", "dist_pcg", fem_gt4,
+                                      [padded(bf, fem_gt4.padded_rows)], ("csr_spmv",), 2,
+                                      tol=1e-7, max_iters=5000, inv_diag=inv_f)
+        x4 = np.concatenate([o[0] for o in outs])[:fem.nrows]
+        it4, rel4 = outs[0][1], outs[0][2]
+        require(len({(o[1], o[2]) for o in outs}) == 1, "dist_pcg: the ranks disagree")
+        true4 = float(np.linalg.norm(bf - fem_sp @ x4) / np.linalg.norm(bf))
+        require(true4 <= 1e-6, f"dist_pcg 4 ranks: ||b - Ax||/||b|| = {true4}")
+        emit("main_dist_pcg", world=P4, backend="gloo", case="fem2d_30k f64 Jacobi, DistGtPlan2",
+             iterations=it4, rel=rel4, true_rel=true4, seconds=wall,
+             us_per_iter=wall / it4 * 1e6, launches=counts)
+        outs, counts, wall = on_ranks(pool, "dist_gmres", "dist_gmres", fem_gt4,
+                                      [padded(bf, fem_gt4.padded_rows)], ("csr_spmv",), 3,
+                                      m=30, tol=0.0, max_restarts=2, inv_diag=inv_f)
+        xg4 = np.concatenate([o[0] for o in outs])[:fem.nrows]
+        bft = torch.from_numpy(bf).to(dev)
+        xs = torch.zeros_like(bft)
+        Afh, jp = SpmvHandle(fem), JacobiPrec(fem)
+        for _ in range(2):
+            xs = _arnoldi_cycle(Afh, jp, bft, xs, 30, Ortho.CGS2)
+        xs = xs.cpu().numpy()
+        gm_err = float(np.linalg.norm(xg4 - xs) / np.linalg.norm(xs))
+        require(gm_err <= 1e-6, f"dist_gmres 4 ranks: {gm_err} from the one-process cycles")
+        emit("main_dist_gmres", world=P4, case="fem2d_30k f64 Jacobi, m=30, 2 cycles",
+             rel=outs[0][2], rel_diff_vs_one_process=gm_err, seconds=wall,
+             us_per_iter=wall / 60 * 1e6, launches=counts)
+        outs, counts, wall = on_ranks(pool, "dist_gs_sweep", "dist_gs_sweep", fem_gs4,
+                                      [np.zeros(fem_gs4.padded_rows),
+                                       padded(bf, fem_gs4.padded_rows)], ("gs_color_step",), 4)
+        xgs = np.concatenate(outs)[:fem.nrows]
+        hgs = GsHandle(GsAlgorithm.POINT, ColoringAlgorithm.VB)
+        from tpukk_torch.sparse.gauss_seidel import set_color_order
+        set_color_order(hgs, fem, fem_colors)
+        gauss_seidel_numeric(hgs, fem)
+        xgs_ref = gauss_seidel_apply(hgs, fem, None, bft).cpu().numpy()
+        w = int(np.diff(fem_sp.indptr).max())
+        gbound = (2 * fem_gs4.num_colors * (w + 1) * np.finfo(np.float64).eps
+                  * (abs(fem_sp) @ np.abs(xgs_ref) + np.abs(bf)) / np.abs(fem_sp.diagonal()))
+        require(bool((np.abs(xgs - xgs_ref) <= gbound).all()),
+                "dist_gs_sweep 4 ranks: not the one-process colored sweep")
+        emit("main_dist_gs", world=P4, case="fem2d_30k f64 VB colors, symmetric from 0",
+             colors=fem_gs4.num_colors, max_abs_err_vs_one_process=float(
+                 np.abs(xgs - xgs_ref).max()), seconds=wall, launches=counts)
+        outs, counts, wall = on_ranks(pool, "ring_spgemm_numeric", "ring_spgemm_numeric",
+                                      fem_ring4, [], ("spgemm_rows",), 5)
+        C4 = outs[0]
+        require(all((o != C4).nnz == 0 for o in outs), "ring 4 ranks: the ranks' C differ")
+        sa = fem_sp.astype(np.float64)
+        ab = (sa @ sa).tocsr()
+        ab.sort_indices()
+        hold_scipy("dist ring 4 ranks fem2d_30k A·A", CsrMatrix.from_scipy(C4, device=dev), ab,
+                   abs_product(sa, sa), n_products(hs1.row_plan) + 1, torch.float64)
+        emit("main_dist_ring", world=P4, case="fem2d_30k f64 A·A", nnz_c=C4.nnz, ms=wall * 1e3,
+             max_abs_diff_vs_spgemm_numeric=float(abs(C4 - C_ref.to_scipy()).max()),
+             launches=counts)
+    emit("main_dist_total", seconds=time.perf_counter() - t_dist,
+         ranks_seconds=time.perf_counter() - t4)
+    dist_block = CsrMatrix.from_arrays(*a2a4.local_csr[0], nrows=a2a4.rows_per_part,
+                                       ncols=a2a4.ncols_ext, device=dev)
+    del gt4, a2a4, fem_gt4, fem_gs4, fem_ring4, hs1, C_ref
+
     # K6's two entries are one kernel: the path runs the fused sweep, the
     # per-color step is its yardstick (and the distributed sweep's step)
     path = {k: v for k, v in total.items() if k != "gs_color_step"}
@@ -2566,6 +2875,8 @@ def main() -> int:
     t_k3 = k3_row("rand100k_deg16 f32 (AUTO route)", rnd, torch.float32)
     k3_row("lap1000 f32 (pinned ONEHOT)", lap, torch.float32)
     k3_row("fem2d_30k f64 (PCG route)", fem, torch.float64)
+    k3_row("lap1000 f64: rank 0's local block of the 4-part all_to_all DistGtPlan, over "
+           "x_ext = [x_local | halo] (dist_spmv_gt)", dist_block, torch.float64)
     k3_row("fem2d_30k + 4I f32 (f32 GMRES route)",
            CsrMatrix.from_scipy((fem.to_scipy() + 4 * sps.identity(fem.nrows)).tocsr(),
                                 device=dev), torch.float32)

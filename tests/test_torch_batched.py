@@ -510,3 +510,83 @@ def test_batched_exports_match_tpukk():
         missing = {n for n in names if not hasattr(tmod, n)} - {"jax", "jnp", "check", "np"}
         assert not missing, missing
     assert set(jbd.__all__) == set(tbd.__all__)
+
+
+# ---- complex LU, add_radial and CG; batched_spmv's rows --------------------
+
+CPLX = [np.complex64, np.complex128]
+
+
+def _crandn(rng, shape, dtype):
+    return (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)).astype(dtype)
+
+
+@pytest.mark.parametrize("cdtype", CPLX, ids=["c64", "c128"])
+def test_complex_getrf_getrs_gbtrf_laswp(cdtype):
+    """getrf/getrs, gbtrf/gbtrs and laswp on complex batches: tpukk's pivots
+    and permutation exactly, factors and solutions as tpukk's, the swapped
+    rows exactly."""
+    rng = np.random.default_rng(41)
+    A = _crandn(rng, (3, 6, 6), cdtype)
+    b = _crandn(rng, (3, 6), cdtype)
+    lu_, piv, perm = tbd.getrf(T(A))
+    jlu, jpiv, jperm = jbd.getrf(A)
+    np.testing.assert_array_equal(_np(piv), np.asarray(jpiv))
+    np.testing.assert_array_equal(_np(perm), np.asarray(jperm))
+    _vs_tpukk(lu_, jlu, cdtype)
+    for trans in ("N", "T"):
+        _vs_tpukk(tbd.getrs(lu_, piv, T(b), trans), jbd.getrs(jlu, jpiv, b, trans), cdtype)
+    glu, gpiv, _ = tbd.gbtrf(T(A))
+    _vs_tpukk(tbd.gbtrs(glu, gpiv, T(b)), jbd.gbtrs(*jbd.gbtrf(A)[:2], b), cdtype)
+    np.testing.assert_array_equal(_np(tbd.laswp(piv, T(A))),
+                                  np.asarray(jbd.laswp(np.asarray(jpiv), A)))
+
+
+@pytest.mark.parametrize("cdtype", CPLX, ids=["c64", "c128"])
+def test_complex_add_radial(cdtype):
+    """add_radial on complex diagonals takes jnp's order on (real, imag):
+    0+1j ≥ 0, 0−1j < 0, as tpukk does."""
+    rng = np.random.default_rng(43)
+    A = _crandn(rng, (2, 4, 4), cdtype)
+    A[0, 0, 0], A[0, 1, 1], A[0, 2, 2], A[0, 3, 3] = 1j, -1j, 0, -2 + 5j
+    _vs_tpukk(tbd.add_radial(0.25, T(A)), jbd.add_radial(0.25, A), cdtype)
+
+
+def test_complex_batched_cg_cocg():
+    """batched_cg on complex symmetric systems: tpukk's unconjugated sums
+    (COCG), its iterate and its complex residual norms."""
+    rng = np.random.default_rng(47)
+    A0 = generate_diag_dominant_csr(30, 4, dtype=np.float64, seed=1)
+    sp = A0.to_scipy()
+    S = sps.csr_matrix((sp + sp.T) * 0.5)
+    S.sort_indices()
+    Aj0 = JCsr.from_scipy(S)
+    base = np.asarray(Aj0.values)
+    vals = np.stack([base * (1 + 0.1 * b) + 0.05j * b * base for b in range(4)])
+    Aj = jb.BatchedCrsMatrix.from_csr(Aj0, vals)
+    At = tb.BatchedCrsMatrix.from_csr(TCsr.from_scipy(S, device=CPU), T(vals))
+    B = _crandn(rng, (4, S.shape[0]), np.complex128)
+    Xs, it, res = tb.batched_cg(At, T(B), max_iters=60, tol=1e-10, prec=tb.JacobiPrec(At))
+    Xj, itj, resj = jb.batched_cg(Aj, B, max_iters=60, tol=1e-10, prec=jb.JacobiPrec(Aj))
+    assert it == itj == 60
+    _vs_tpukk(Xs, Xj, np.complex128)
+    np.testing.assert_allclose(_np(res), np.asarray(resj), rtol=1e-6, atol=1e-12)
+    for b in range(4):
+        Sb = S.copy()
+        Sb.data = vals[b]
+        assert np.abs(Sb @ _np(Xs)[b] - B[b]).max() < 1e-8 * np.abs(B[b]).max()
+
+
+def test_batched_spmv_rows_keyword():
+    """batched_spmv(A, X, rows): the entries' rows given, as tpukk takes them."""
+    rng = np.random.default_rng(53)
+    A0 = generate_diag_dominant_csr(30, 4, dtype=np.float64, seed=1)
+    vals = np.stack([np.asarray(A0.values) * (1 + 0.1 * b) for b in range(3)])
+    Aj = jb.BatchedCrsMatrix.from_csr(A0, vals)
+    At = tb.BatchedCrsMatrix.from_csr(TCsr.from_scipy(A0.to_scipy(), device=CPU), T(vals))
+    X = rng.standard_normal((3, 30))
+    rm = np.asarray(A0.row_map)
+    rows = np.repeat(np.arange(30, dtype=np.int32), np.diff(rm))
+    got = tb.batched_spmv(At, T(X), rows=T(rows))
+    _vs_tpukk(got, jb.batched_spmv(Aj, X, rows=jnp.asarray(rows)), np.float64)
+    _vs_tpukk(got, tb.batched_spmv(At, T(X)), np.float64)

@@ -24,7 +24,7 @@ from tpukk import blas as jblas
 
 NAMES = ["graph_wiki", "gmres_ex_real_A", "rcm_reorder_solve", "sptrsv_supernodal",
          "banded_spgemm", "sparse_wiki", "blas_wiki", "half_xpy", "batched_eig",
-         "batched_solve", "ode_integrate"]
+         "batched_solve", "ode_integrate", "dist_halo_spmv", "dist_gt_pcg"]
 
 
 def _main(name, capsys):
@@ -226,6 +226,61 @@ def test_ode_integrate(capsys):
     assert int(out["robertson"].status) == int(ra.status) == 0
     assert _rel(out["robertson"].y, ra.y) <= 1e-9
     assert "accepted steps" in printed
+
+
+def _mesh4():
+    import jax
+    from jax.sharding import Mesh
+
+    return Mesh(np.array(jax.devices()[:4]), ("parts",))
+
+
+def test_dist_halo_spmv(capsys):
+    """Four gloo ranks: the halo SpMV and ten CG steps as tpukk's on a mesh of
+    four (y 1e-5 relative in f32, the CG iterate 1e-4)."""
+    import jax
+    import tpukk.dist as jd
+
+    out, printed = _main("dist_halo_spmv", capsys)
+    mesh = _mesh4()
+    A = jkc.generate_structured_laplacian(64, 64, dtype=np.float32)
+    plan = jd.shard_halo_plan(jd.build_halo_plan(A, 4), mesh)
+    x = np.ones(plan.padded_rows, np.float32)
+    x[A.ncols:] = 0
+    assert _rel(out["y"], np.asarray(jd.dist_spmv_halo(plan, x, mesh))[:A.nrows]) <= 1e-5
+    cplan = jd.shard_partition(jd.partition_rows(A, 4), mesh)
+    b = np.zeros(cplan.padded_rows, np.float32)
+    b[:A.nrows] = 1.0
+    state = (np.zeros_like(b), b.copy(), b.copy(), float(b @ b))
+    step = jax.jit(lambda s: jd.dist_cg_step(cplan, s, mesh))
+    for _ in range(10):
+        state = step(state)
+    assert _rel(out["x"], np.asarray(state[0])[:A.nrows]) <= 1e-4
+    assert abs(out["rr"] - float(state[3])) <= 1e-4 * float(state[3])
+    assert "halo width = 64" in printed
+
+
+def test_dist_gt_pcg(capsys):
+    """Four gloo ranks: K3's plain version on each rank's block against
+    tpukk's gather-table SpMV (1e-5 relative in f32), PCG within one
+    iteration of tpukk's and both solutions within its tolerance."""
+    import jax.numpy as jnp
+    import tpukk.dist as jd
+
+    out, printed = _main("dist_gt_pcg", capsys)
+    mesh = _mesh4()
+    A = jkc.generate_structured_laplacian(48, 48, dtype=np.float32)
+    n = A.nrows
+    plan = jd.shard_dist_gt_plan(jd.build_dist_gt_plan(A, 4), mesh)
+    x = np.zeros(plan.padded_rows, np.float32)
+    x[:n] = np.random.default_rng(0).standard_normal(n).astype(np.float32)
+    assert _rel(out["y"], np.asarray(jd.dist_spmv_gt(plan, jnp.asarray(x), mesh))[:n]) <= 1e-5
+    b = np.zeros(plan.padded_rows, np.float32)
+    b[:n] = 1.0
+    xs, iters, rel = jd.dist_pcg(plan, jnp.asarray(b), mesh, tol=1e-5, max_iters=500)
+    assert abs(out["iters"] - int(iters)) <= 1 and out["rel"] <= 1e-5
+    assert _rel(out["x"], np.asarray(xs)[:n]) <= 1e-4
+    assert "PCG through the plan" in printed
 
 
 @pytest.mark.parametrize("name", NAMES)

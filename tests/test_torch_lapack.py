@@ -115,3 +115,20 @@ def test_getrf_pivots_are_tpukks(rng, scalar):
     X = lapack.getrs(lu, piv, _t(B))
     _close(X, np.asarray(jlapack.getrs(jlu, jpiv, B)), scalar, 20000)
     _close(A @ X.numpy(), B, scalar, 20000)
+
+
+@pytest.mark.parametrize("dtype", [np.complex64, np.complex128], ids=["c64", "c128"])
+def test_getrf_getrs_complex(dtype):
+    """Complex LU: tpukk's pivots and permutation exactly, the factors and
+    getrs's solution within 2000·eps of tpukk's."""
+    rng = np.random.default_rng(31)
+    n = 12
+    A = (rng.standard_normal((n, n)) + 1j * rng.standard_normal((n, n))).astype(dtype)
+    b = (rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype(dtype)
+    lu, piv, perm = lapack.getrf(_t(A))
+    jlu, jpiv, jperm = jlapack.getrf(A)
+    np.testing.assert_array_equal(piv.numpy(), np.asarray(jpiv))
+    np.testing.assert_array_equal(perm.numpy(), np.asarray(jperm))
+    real = np.float32 if dtype == np.complex64 else np.float64
+    _close(lu, jlu, real)
+    _close(lapack.getrs(lu, piv, _t(b)), jlapack.getrs(jlu, jpiv, b), real)

@@ -270,3 +270,47 @@ def test_ode_exports_match_tpukk():
     """tpukk_torch.ode exports every public name of tpukk.ode."""
     names = {n for n in dir(jo) if not n.startswith("_")}
     assert not {n for n in names if not hasattr(to, n)}
+
+
+# ---- Python numbers and lists enter as f64, and any state shape ------------
+
+def test_newton_python_list_is_f64():
+    """A Python list x0 is f64, as jnp.asarray makes it under x64: Newton on
+    x² − 2 from [1.0] converges in tpukk's 4 iterations."""
+    ref = jo.newton_solve(lambda x: x * x - 2.0, [1.0])
+    got = to.newton_solve(lambda x: x * x - 2.0, [1.0], device=CPU)
+    assert got.x.dtype == torch.float64
+    assert bool(got.converged) and bool(ref.converged)
+    assert int(got.num_iters) == int(ref.num_iters) == 4
+    _same_y(got.x, ref.x, 1e-15)
+
+
+def test_rk_python_list_is_f64():
+    """rk_solve of y' = −2y from [1.0, 2.0] takes tpukk's 11 f64 steps."""
+    ref = jo.rk_solve(lambda t, y: -2.0 * y, [1.0, 2.0], 0.0, 1.0)
+    got = to.rk_solve(lambda t, y: -2.0 * y, [1.0, 2.0], 0.0, 1.0, device=CPU)
+    assert got.y.dtype == torch.float64
+    assert int(got.num_steps) == int(ref.num_steps) == 11
+    _same_y(got.y, ref.y)
+
+
+@pytest.mark.parametrize("case", ["0-d", "2-D", "complex"])
+def test_rk_adaptive_any_state(case):
+    """Adaptive rk_solve on a 0-d, a 2-D and a complex y0: tpukk's shape,
+    dtype, status and step count, y within 1e-9 of max|y|."""
+    if case == "0-d":
+        y0, fj, ft = 1.5, (lambda t, y: -2.0 * y), (lambda t, y: -2.0 * y)
+    elif case == "2-D":
+        y0 = np.arange(1.0, 7.0).reshape(2, 3)
+        fj = lambda t, y: -jnp.sin(y) * (1.0 + t)
+        ft = lambda t, y: -torch.sin(y) * (1.0 + t)
+    else:
+        y0 = np.array([1.0 + 0.5j, 2.0 - 1.0j])
+        fj, ft = (lambda t, y: -2j * y), (lambda t, y: -2j * y)
+    ref = jo.rk_solve(fj, y0, 0.0, 1.0)
+    got = to.rk_solve(ft, y0, 0.0, 1.0, device=CPU)
+    assert tuple(got.y.shape) == tuple(np.shape(ref.y))
+    assert str(got.y.dtype).replace("torch.", "") == str(np.asarray(ref.y).dtype)
+    assert int(got.status) == int(ref.status) == 0
+    assert int(got.num_steps) == int(ref.num_steps)
+    _same_y(got.y, ref.y)

@@ -146,3 +146,17 @@ def test_permute_geometry_refuses():
         tperm.permute_geometry(10, 0, 4)
     with pytest.raises(TpuKKError):
         tperm.permute_geometry(10, 4, 2)
+
+
+@pytest.mark.parametrize("k", [1, 4])
+def test_static_permute_without_plan_sorts_by_keys(k):
+    """static_permute(None, x, keys) falls back to permute_via_sort, as in
+    tpukk: the same values in tpukk's order, exactly."""
+    rng = np.random.default_rng(61)
+    src = _src(777, 62)
+    x = rng.standard_normal((777, k) if k > 1 else 777)
+    keys = inverse_permutation(src).astype(np.int32)
+    ref = np.asarray(jperm.static_permute(None, jnp.asarray(x), jnp.asarray(keys)))
+    got = tperm.static_permute(None, torch.from_numpy(x), torch.from_numpy(keys))
+    np.testing.assert_array_equal(got.numpy(), ref)
+    np.testing.assert_array_equal(got.numpy(), x[src])

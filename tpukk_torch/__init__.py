@@ -8,10 +8,11 @@ nvcc at first use on a CUDA device, never at import (``_kernels.py``).
 """
 __version__ = "0.1.0"
 
-from . import batched, blas, common, containers, graph, interop, lapack, ode, sparse
+from . import batched, blas, common, containers, dist, graph, interop, lapack, native, ode, sparse
 from .containers import BsrMatrix, CcsMatrix, CooMatrix, CsrMatrix
 from .sparse import SpmvAlgorithm, SpmvHandle, spmm, spmv
 
-__all__ = ["batched", "blas", "common", "containers", "graph", "interop", "lapack", "ode",
+__all__ = ["batched", "blas", "common", "containers", "dist", "graph", "interop", "lapack",
+           "native", "ode",
            "sparse", "BsrMatrix",
            "CcsMatrix", "CooMatrix", "CsrMatrix", "SpmvAlgorithm", "SpmvHandle", "spmm", "spmv"]

@@ -130,7 +130,10 @@ def add_radial(eps, A):
     """A + eps·sign(diag)·I, sign(0) = +1 — the diagonal stabilizer
     (cf. KokkosBatched_AddRadial_Decl.hpp)."""
     d = torch.diagonal(A, dim1=-2, dim2=-1)
-    shift = eps * torch.where(d >= 0, 1.0, -1.0).to(A.dtype)
+    # jnp orders complex values on (real, imag): d ≥ 0 where real > 0, or
+    # real = 0 and imag ≥ 0
+    nonneg = (d.real > 0) | ((d.real == 0) & (d.imag >= 0)) if d.is_complex() else d >= 0
+    shift = eps * torch.where(nonneg, 1.0, -1.0).to(A.dtype)
     return A + shift[..., None] * torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
 
 
@@ -251,16 +254,7 @@ def getrf(A):
     return lapack.getrf(A)
 
 
-def _piv_to_perm(piv, n):
-    """LAPACK-style sequential row swaps (0-based) -> permutation (..., n)."""
-    flat = piv.reshape(-1, piv.shape[-1]).long()
-    perm = torch.arange(n, device=piv.device).repeat(flat.shape[0], 1)
-    for i in range(flat.shape[1]):
-        j = flat[:, i:i + 1]
-        a = perm[:, i:i + 1].clone()
-        perm[:, i:i + 1] = perm.gather(1, j)
-        perm.scatter_(1, j, a)
-    return perm.reshape(piv.shape[:-1] + (n,))
+_piv_to_perm = lapack._piv_to_perm
 
 
 @annotate("batched.getrs")

@@ -62,12 +62,14 @@ class BatchedCrsMatrix:
 
 
 @annotate("batched.batched_spmv")
-def batched_spmv(A: BatchedCrsMatrix, X):
-    """Y[b] = A[b]·X[b] for X (B, ncols) — cf. KokkosBatched_Spmv."""
+def batched_spmv(A: BatchedCrsMatrix, X, rows=None):
+    """Y[b] = A[b]·X[b] for X (B, ncols) — cf. KokkosBatched_Spmv.  ``rows``
+    (nnz,) gives each entry's row, as ``tpukk`` takes it; None: the plan's."""
     p = A.plan()
+    rows = p.rows if rows is None else torch.as_tensor(rows, device=X.device).long()
     prod = A.values * X[:, p.cols]
     Y = torch.zeros((X.shape[0], A.nrows), dtype=prod.dtype, device=X.device)
-    return Y.index_add_(1, p.rows, prod)
+    return Y.index_add_(1, rows, prod)
 
 
 class IdentityPrec:
@@ -98,7 +100,22 @@ class JacobiPrec:
 
 
 def _norm(R):
+    """sqrt(Σ R·R), unconjugated as in ``tpukk`` (complex for complex R)."""
     return torch.sqrt(torch.sum(R * R, dim=-1))
+
+
+def _greater(a, b):
+    """a > b, complex values ordered on (real, imag) as ``jnp`` orders them."""
+    if not (torch.is_complex(a) or torch.is_complex(b)):
+        return a > b
+    a, b = torch.broadcast_tensors(torch.as_tensor(a), torch.as_tensor(b, device=a.device))
+    return (a.real > b.real) | ((a.real == b.real) & (a.imag > b.imag))
+
+
+def _maximum(a, b):
+    """``jnp.maximum``: the larger on (real, imag) for complex values."""
+    b = torch.as_tensor(b, dtype=a.dtype, device=a.device)
+    return torch.where(_greater(b, a), b, a)
 
 
 @annotate("batched.batched_cg")
@@ -106,19 +123,21 @@ def batched_cg(A: BatchedCrsMatrix, B, max_iters: int = 100, tol: float = 1e-8,
                prec=None, X0=None):
     """Batched CG — cf. KokkosBatched_CG.  Returns (X, iterations, final
     residual norms): ``max_iters`` iterations, each system updated while its
-    residual exceeds tol·max(|b|, 1)."""
+    residual exceeds tol·max(|b|, 1).  The sums are unconjugated, as in
+    ``tpukk``: on a complex symmetric system this is COCG, and the norms
+    sqrt(Σ r·r) are complex, compared on (real, imag) as ``jnp`` does."""
     prec = prec or IdentityPrec()
     X = torch.zeros_like(B) if X0 is None else X0.clone()
     R = B - batched_spmv(A, X)
     Z = prec.apply(R)
     P = Z
     rz = torch.sum(R * Z, dim=-1)
-    tol_abs = tol * torch.clamp(_norm(B), min=1.0)
+    tol_abs = tol * _maximum(_norm(B), 1.0)
     zero = torch.zeros_like(rz)
     for _ in range(max_iters):
         AP = batched_spmv(A, P)
         pAp = torch.sum(P * AP, dim=-1)
-        active = _norm(R) > tol_abs
+        active = _greater(_norm(R), tol_abs)
         alpha = torch.where(active & (pAp != 0), rz / torch.where(pAp == 0, 1.0, pAp), zero)
         X = X + alpha[:, None] * P
         R = R - alpha[:, None] * AP

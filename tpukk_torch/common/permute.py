@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from .errors import check
+from .utils import permute_via_sort
 
 __all__ = ["PermutePlan", "build_permute_plan", "static_permute", "permute_gather",
            "permute_plain", "permute_geometry", "FILL_THREADS"]
@@ -56,9 +57,12 @@ def build_permute_plan(src, device) -> PermutePlan:
     return PermutePlan(torch.from_numpy(src.astype(np.int32)).to(device), n)
 
 
-def static_permute(plan: PermutePlan, x: torch.Tensor) -> torch.Tensor:
+def static_permute(plan: PermutePlan | None, x: torch.Tensor, keys=None) -> torch.Tensor:
     """x[plan.src] along the first axis, in x's dtype (f32, f64, complex64
-    or complex128 on CUDA)."""
+    or complex128 on CUDA); with plan None, ``permute_via_sort(x, keys)``
+    as in ``tpukk``."""
+    if plan is None:
+        return permute_via_sort(x, keys)
     return permute_gather(plan.src, x)
 
 

@@ -47,9 +47,21 @@ def getrf(A):
     """LU with partial pivoting: (lu, pivots, permutation), pivots 0-based
     int32 and A[permutation] = L·U, as ``jax.lax.linalg.lu`` gives them."""
     lu, piv = torch.linalg.lu_factor(A)
-    # A = P·L·U, so row i of L·U is row perm[i] of A, where P[perm[i], i] = 1
-    P = torch.lu_unpack(lu, piv, unpack_data=False)[0]
-    return lu, (piv - 1).to(torch.int32), P.argmax(-2).to(torch.int32)
+    piv = (piv - 1).to(torch.int32)
+    # the row swaps in turn: row i of L·U is row perm[i] of A (any dtype)
+    return lu, piv, _piv_to_perm(piv, A.shape[-2]).to(torch.int32)
+
+
+def _piv_to_perm(piv, n):
+    """LAPACK-style sequential row swaps (0-based) -> permutation (..., n)."""
+    flat = piv.reshape(-1, piv.shape[-1]).long()
+    perm = torch.arange(n, device=piv.device).repeat(flat.shape[0], 1)
+    for i in range(flat.shape[1]):
+        j = flat[:, i:i + 1]
+        a = perm[:, i:i + 1].clone()
+        perm[:, i:i + 1] = perm.gather(1, j)
+        perm.scatter_(1, j, a)
+    return perm.reshape(piv.shape[:-1] + (n,))
 
 
 @annotate("lapack.getrs")

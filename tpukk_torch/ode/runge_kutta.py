@@ -20,6 +20,7 @@ import dataclasses
 import enum
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
 from ..common.tracing import annotate
@@ -137,11 +138,15 @@ class RKResult(NamedTuple):
 
 def _as_state(y0, device) -> torch.Tensor:
     """y0 as a floating tensor: a tensor keeps its device, anything else
-    goes to default_device(device)."""
+    goes to default_device(device).  A tensor or an ndarray keeps its dtype;
+    a Python number or list takes numpy's, f64 (complex128 for a complex
+    number), as ``jnp.asarray`` gives it with x64 on."""
     if isinstance(y0, torch.Tensor) and device is None:
         y = y0
-    else:
+    elif isinstance(y0, (torch.Tensor, np.ndarray, np.generic)):
         y = torch.as_tensor(y0, device=default_device(device))
+    else:
+        y = torch.as_tensor(np.asarray(y0), device=default_device(device))
     return y if y.dtype.is_floating_point or y.dtype.is_complex else y.to(torch.float64)
 
 
@@ -188,23 +193,35 @@ def _rk_step(fun, tb: ButcherTableau, t, h, y):
 
 
 def _rk(fun, y0, t0, t1, kind, num_steps, rel_tol, abs_tol, max_steps):
-    """The batched integration of y0 (B, n)."""
+    """The batched integration of y0 (B, ...): each system's state is
+    flattened for the steps (the error norm is the max over every entry, as
+    in ``tpukk``) and given back to ``fun`` and the caller in its shape.  t
+    and h are real, in the real type of y0's dtype."""
     tb = tableau(kind)
-    nb, dt, dev = y0.shape[0], y0.dtype, y0.device
+    nb, shape, dt, dev = y0.shape[0], y0.shape[1:], y0.dtype, y0.device
+    rdt = dt.to_real() if dt.is_complex else dt
+    y0 = y0.reshape(nb, -1)
+
+    def flat(t, y):
+        return fun(t, y.reshape(nb, *shape)).reshape(nb, -1)
+
+    def result(y, status, steps):
+        return RKResult(y.reshape(nb, *shape), status, steps)
+
     if num_steps == 0 and tb.bhat is None:
         num_steps = 100  # non-embedded tableaus have no error estimate
     if num_steps:
-        h = torch.full((nb,), (t1 - t0) / num_steps, dtype=dt, device=dev)
+        h = torch.full((nb,), (t1 - t0) / num_steps, dtype=rdt, device=dev)
         y = y0
         for i in range(num_steps):
-            t = torch.full((nb,), t0 + i * ((t1 - t0) / num_steps), dtype=dt, device=dev)
-            y, _ = _rk_step(fun, tb, t, h, y)
-        return RKResult(y, torch.full((nb,), ODESolverStatus.SUCCESS.value, dtype=torch.int32,
-                                      device=dev),
-                        torch.full((nb,), num_steps, dtype=torch.int32, device=dev))
+            t = torch.full((nb,), t0 + i * ((t1 - t0) / num_steps), dtype=rdt, device=dev)
+            y, _ = _rk_step(flat, tb, t, h, y)
+        return result(y, torch.full((nb,), ODESolverStatus.SUCCESS.value, dtype=torch.int32,
+                                    device=dev),
+                      torch.full((nb,), num_steps, dtype=torch.int32, device=dev))
     min_h = (t1 - t0) / (10.0 * max_steps)
-    t = torch.full((nb,), t0, dtype=dt, device=dev)
-    h = torch.full((nb,), (t1 - t0) / 100.0, dtype=dt, device=dev)
+    t = torch.full((nb,), t0, dtype=rdt, device=dev)
+    h = torch.full((nb,), (t1 - t0) / 100.0, dtype=rdt, device=dev)
     y = y0
     steps = torch.zeros(nb, dtype=torch.int32, device=dev)
     done = torch.zeros(nb, dtype=torch.bool, device=dev)
@@ -213,7 +230,7 @@ def _rk(fun, y0, t0, t1, kind, num_steps, rel_tol, abs_tol, max_steps):
         if not bool(run.any()):
             break
         hs = torch.minimum(h, t1 - t)
-        ynew, err = _rk_step(fun, tb, t, hs, y)
+        ynew, err = _rk_step(flat, tb, t, hs, y)
         tol = abs_tol + rel_tol * torch.maximum(y.abs().amax(-1), ynew.abs().amax(-1))
         enorm = err.abs().amax(-1) / tol
         accept = run & (enorm <= 1.0)
@@ -227,7 +244,7 @@ def _rk(fun, y0, t0, t1, kind, num_steps, rel_tol, abs_tol, max_steps):
         steps = steps + run.to(torch.int32)
     status = torch.where(done, ODESolverStatus.SUCCESS.value,
                          ODESolverStatus.MAX_STEPS.value).to(torch.int32)
-    return RKResult(y, status, steps)
+    return result(y, status, steps)
 
 
 @annotate("ode.rk_solve")

@@ -66,17 +66,23 @@ class GmresStats:
     converged: bool
 
 
-def _norm(x: torch.Tensor) -> torch.Tensor:
+def _norm(x: torch.Tensor, reduce=None) -> torch.Tensor:
     """‖x‖₂ as a real 0-d tensor on x's device, conjugation-correct for
-    complex x."""
-    return torch.sqrt(torch.real(torch.sum(torch.conj(x) * x)))
+    complex x; ``reduce`` sums the local sum over the ranks of a row
+    partition (``dist.dist_gmres``)."""
+    s = torch.sum(torch.conj(x) * x)
+    return torch.sqrt(torch.real(s if reduce is None else reduce(s)))
 
 
-def _arnoldi_cycle(Ah, prec, b, x0, m: int, ortho: Ortho):
-    """One restart cycle from x0; returns the new iterate."""
+def _arnoldi_cycle(Ah, prec, b, x0, m: int, ortho: Ortho, reduce=None):
+    """One restart cycle from x0; returns the new iterate.  ``reduce``, when
+    given, sums each inner product's local value over the ranks that hold
+    the other rows of the vectors (the distributed GMRES); H and the
+    least-squares solve are then the same on every rank."""
+    red = (lambda t: t) if reduce is None else reduce
     r = b - Ah(x0)
     z = prec.apply(r)
-    beta = _norm(z).to(b.dtype)
+    beta = _norm(z, reduce).to(b.dtype)
     V = torch.zeros((m + 1, b.shape[0]), dtype=b.dtype, device=b.device)
     V[0] = z / _nonzero(beta)
     H = torch.zeros((m + 1, m), dtype=b.dtype, device=b.device)
@@ -86,17 +92,17 @@ def _arnoldi_cycle(Ah, prec, b, x0, m: int, ortho: Ortho):
             # classical Gram-Schmidt twice, against rows [0, j] only
             Vj = V[:j + 1]
             Vc = Vj.conj()
-            h1 = torch.mv(Vc, w)
+            h1 = red(torch.mv(Vc, w))
             w = w - torch.mv(Vj.T, h1)
-            h2 = torch.mv(Vc, w)
+            h2 = red(torch.mv(Vc, w))
             w = w - torch.mv(Vj.T, h2)
             H[:j + 1, j] = h1 + h2
         else:
             for i in range(j + 1):
-                hi = torch.vdot(V[i], w)
+                hi = red(torch.vdot(V[i], w))
                 w = w - hi * V[i]
                 H[i, j] = hi
-        hn = _norm(w).to(b.dtype)
+        hn = _norm(w, reduce).to(b.dtype)
         H[j + 1, j] = hn
         V[j + 1] = w / _nonzero(hn)
     # rank-safe least squares on the host (minimum norm when H is singular),

@@ -37,11 +37,11 @@ def main() -> int:
         return 1
     root = args.root.resolve()
     sys.path.insert(0, str(root))
-    from tpukk_torch.common import permute
     from tpukk_torch.containers import generate_structured_laplacian, read_mtx
     from tpukk_torch.sparse import (GsHandle, GsPrec, SpmvAlgorithm, SpmvHandle,
                                     gauss_seidel_numeric, gauss_seidel_symbolic, pcg)
     from tpukk_torch.sparse import gs_cuda as kg
+    from tpukk_torch.sparse import sptrsv_cuda as ks
 
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -60,7 +60,7 @@ def main() -> int:
         us, iters = [], None
         for _ in range(3):
             kg.reset_launch_counts()
-            permute.permute_gather.launches = 0
+            ks.reset_launch_counts()  # K4's and K5's
             torch.cuda.synchronize()
             t = time.perf_counter()
             x, st = pcg(Ah, b, tol=1e-8, max_iters=5000, prec=prec)
@@ -73,7 +73,7 @@ def main() -> int:
                               nvidia_smi=smi, iters=iters, converged=bool(st.converged),
                               rel_res_host=rel, us_per_iter=us,
                               k6_launches=kg.launch_counts(),
-                              k5_launches=permute.permute_gather.launches)), flush=True)
+                              k5_launches=ks.launch_counts()["permute_gather"])), flush=True)
     return 0
 
 

@@ -51,7 +51,7 @@ import torch
 
 import tpukk_torch.containers as tkc
 import tpukk_torch.graph as tg
-from tpukk_torch.common import TpuKKError
+from tpukk_torch.common import TpuKKError, tracing
 from tpukk_torch.sparse import (ClusteringAlgorithm, GmresHandle, GsAlgorithm, GsHandle, GsPrec,
                                 JacobiPrec, LUPrec, Ortho, SpilukHandle, SpmvAlgorithm,
                                 SpmvHandle, gauss_seidel_apply, gauss_seidel_numeric,
@@ -78,6 +78,11 @@ def _x(n, dtype, dev, k=None, seed=0):
     return torch.from_numpy(a).to(dev, dtype)
 
 
+def _launches(kernel) -> int:
+    """The registry's launch counter of a kernel function."""
+    return tracing.launch_counts([kernel])[kernel.__name__]
+
+
 def _held(got, plain, bound, dtype):
     torch.cuda.synchronize()
     return bool(((got - plain).abs() <= 20 * torch.finfo(dtype).eps * bound).all())
@@ -97,9 +102,9 @@ def test_csr_kernel_matches_plain(dev, dtype):
         x = _x(A.ncols, dtype, dev)
         cp = kc.build_csr_plan(A, dtype)
         acp = dataclasses.replace(cp, values=cp.values.abs())
-        n0 = kc.csr_spmv.launches
+        n0 = _launches(kc.csr_spmv)
         assert _held(kc.csr_spmv(cp, x), kc.csr_plain(cp, x), kc.csr_plain(acp, x.abs()), dtype)
-        assert kc.csr_spmv.launches == n0 + 1
+        assert _launches(kc.csr_spmv) == n0 + 1
         xa = x.abs()
         assert torch.equal(kc.csr_spmv(acp, xa, "max"), kc.csr_plain(acp, xa, "max"))
 
@@ -179,10 +184,10 @@ def test_csr_kernel_replays_in_a_cuda_graph(dev):
         direct = kc.csr_spmv(cp, x)
         torch.cuda.synchronize()
         g = torch.cuda.CUDAGraph()
-        n0 = kc.csr_spmv.launches
+        n0 = _launches(kc.csr_spmv)
         with torch.cuda.graph(g):
             y = kc.csr_spmv(cp, x)
-        assert kc.csr_spmv.launches == n0 + 1
+        assert _launches(kc.csr_spmv) == n0 + 1
         for _ in range(3):
             y.zero_()
             g.replay()
@@ -213,10 +218,10 @@ def test_dia_kernels_match_plain(dev, dtype):
         for k in (None, 1, 2, 3, 4, 8, 11, 16, 33):
             X = _x(A.ncols, dtype, dev, k)
             fn = kc.dia_spmv if k is None else kc.dia_spmm
-            n0 = fn.launches
+            n0 = _launches(fn)
             plain, bound = kc.dia_plain(p, X), kc.dia_plain(ap, X.abs())
             assert _held(fn(p, X), plain, bound, dtype)
-            assert fn.launches == n0 + 1
+            assert _launches(fn) == n0 + 1
             if k is None:
                 continue
             flat = _x(A.ncols * k + 1, dtype, dev, seed=k)[1:].view(A.ncols, k)
@@ -282,9 +287,9 @@ def _held_folded(plan, b, src=None, dst=None):
     """K4 with src/dst against its plain version under the M(T)⁻¹ bound (the
     bound of the plain version's level-order x, carried through dst), and
     three more calls on the same plan (new epochs) giving the same x."""
-    n0 = ks.sptrsv_levels.launches
+    n0 = _launches(ks.sptrsv_levels)
     x = ks.sptrsv_levels(plan, b, src, dst)
-    assert ks.sptrsv_levels.launches == n0 + 1
+    assert _launches(ks.sptrsv_levels) == n0 + 1
     xl = ks.sptrsv_plain(plan, b, src)
     torch.cuda.synchronize()
     tol = ks.scatter_dst(ks.solve_error_bound(plan, xl), dst, b.shape[0])
@@ -403,7 +408,7 @@ def test_permute_kernel_matches_plain(dev, dtype):
     from tpukk_torch.common.permute import permute_geometry
 
     rng = np.random.default_rng(4)
-    n0 = ks.permute_gather.launches
+    n0 = _launches(ks.permute_gather)
     launches = 0
     for n, k in ((1_000_003, None), (100_003, None), (1, None), (3, None), (5000, 2), (5000, 3),
                  (20_001, 8), (5000, 16)):
@@ -415,7 +420,7 @@ def test_permute_kernel_matches_plain(dev, dtype):
                                torch.cat([x.reshape(-1)[:1], x.reshape(-1)])[1:].view(x.shape))):
             y = ks.permute_gather(s_, x_)
             launches += 1
-            assert ks.permute_gather.launches == n0 + launches
+            assert _launches(ks.permute_gather) == n0 + launches
             assert torch.equal(y, ks.permute_plain(s_, x_)), (n, k, label)
         if k is None:
             assert permute_geometry(n, 1, x.element_size(), 4, 0, 0)[0] == 1
@@ -423,7 +428,7 @@ def test_permute_kernel_matches_plain(dev, dtype):
             vec, lanes = permute_geometry(n, k, x.element_size(), 0, x.element_size(), 0)
             assert vec == 1 and lanes >= min(k, 32)
     assert ks.permute_gather(src[:0], x).shape == (0, 16)
-    assert ks.permute_gather.launches == n0 + launches
+    assert _launches(ks.permute_gather) == n0 + launches
 
 
 def test_ilu_gmres_runs_through_the_kernels(dev):
@@ -536,9 +541,9 @@ def test_csr_spmm_kernel_matches_plain(dev, dtype):
         for k in range(1, kc.SPMM_MAX_K + 1):
             X = _x(A.ncols, dtype, dev, k)
             plain, bound = kc.csr_spmm_plain(cp, X), kc.csr_spmm_plain(acp, X.abs())
-            n0 = kc.csr_spmm.launches
+            n0 = _launches(kc.csr_spmm)
             assert _held(kc.csr_spmm(cp, X), plain, bound, dtype)
-            assert kc.csr_spmm.launches == n0 + 1
+            assert _launches(kc.csr_spmm) == n0 + 1
             for g in _spmm_geometries(k, size):
                 assert _held(kc.csr_spmm(cp, X, g), plain, bound, dtype), (A.shape, k, g)
 
@@ -570,9 +575,9 @@ def test_csr_spmm_kernel_misaligned_x(dev, dtype):
 def test_onehot_spmm_route_launches_k7(dev):
     A = tkc.generate_random_csr(5000, 4000, 9, seed=6, dtype=np.float64, device=dev)
     X = _x(A.ncols, torch.float64, dev, 8)
-    n0 = kc.csr_spmm.launches
+    n0 = _launches(kc.csr_spmm)
     Y = spmm(A, X)
-    assert kc.csr_spmm.launches == n0 + 1
+    assert _launches(kc.csr_spmm) == n0 + 1
     ref = A.to_scipy() @ X.cpu().numpy()
     assert np.abs(Y.cpu().numpy() - ref).max() <= 1e-12 * np.abs(ref).max()
 
@@ -608,10 +613,10 @@ def test_gs_color_step_kernel_matches_plain(dev, alg, dtype):
                 cases.append((dataclasses.replace(blk, coupled=True), torch.full(
                     (x[s:e].numel() + 3,), float("nan"), dtype=dtype, device=dev)))
                 for bv, scratch in cases:
-                    n0 = kg.gs_color_step.launches
+                    n0 = _launches(kg.gs_color_step)
                     got = kg.gs_color_step(bv, x.clone(), b, 1.2, scratch)
                     torch.cuda.synchronize()
-                    assert kg.gs_color_step.launches == n0 + 1
+                    assert _launches(kg.gs_color_step) == n0 + 1
                     assert ((got[s:e] - plain[s:e]).abs() <= tol).all()
                     assert torch.equal(got[:s], x[:s]) and torch.equal(got[e:], x[e:])
 
@@ -641,9 +646,9 @@ def test_gs_sweep_kernel_equals_per_color_path(dev, dtype):
                 for x in (None, _x(plan.n, dtype, dev, k, seed=2)):
                     for direction in ("forward", "backward", "symmetric"):
                         for permuted in (False, True):
-                            n0 = kg.gs_sweep.launches
+                            n0 = _launches(kg.gs_sweep)
                             got = kg.gs_sweep(p, x, b, h.omega, direction, 2, permuted)
-                            assert kg.gs_sweep.launches == n0 + 1
+                            assert _launches(kg.gs_sweep) == n0 + 1
                             ref = kg.gs_sweep_per_color(p, x, b, h.omega, direction, 2, permuted)
                             torch.cuda.synchronize()
                             assert torch.equal(got, ref), (name, k, direction, permuted)
@@ -659,11 +664,12 @@ def test_gsprec_apply_is_one_k6_launch(dev):
     r = _x(A.nrows, torch.float64, dev, seed=4)
     for alg in (GsAlgorithm.POINT, GsAlgorithm.CLUSTER):
         prec = GsPrec(_gs_handle(A, alg), A)
-        counts = (kg.gs_sweep.launches, kg.gs_color_step.launches, permute.permute_gather.launches)
+        counts = (_launches(kg.gs_sweep), _launches(kg.gs_color_step),
+                  _launches(permute.permute_gather))
         z = prec.apply(r)
         torch.cuda.synchronize()
-        assert (kg.gs_sweep.launches, kg.gs_color_step.launches,
-                permute.permute_gather.launches) == (counts[0] + 1, counts[1], counts[2])
+        assert (_launches(kg.gs_sweep), _launches(kg.gs_color_step),
+                _launches(permute.permute_gather)) == (counts[0] + 1, counts[1], counts[2])
         ref = GsPrec(_gs_handle(cpu, alg), cpu).apply(r.cpu())
         assert (z.cpu() - ref).abs().max() <= 1e-12 * ref.abs().max()
 
@@ -752,9 +758,9 @@ def test_cluster_sweep_matches_its_plain_version(dev):
         h = _gs_handle(A, GsAlgorithm.CLUSTER, clustering=clustering)
         hc = _gs_handle(cpu, GsAlgorithm.CLUSTER, clustering=clustering)
         np.testing.assert_array_equal(h.order, hc.order)
-        n0 = kg.gs_sweep.launches
+        n0 = _launches(kg.gs_sweep)
         x = gauss_seidel_apply(h, A, None, b, 3)
-        assert kg.gs_sweep.launches == n0 + 1
+        assert _launches(kg.gs_sweep) == n0 + 1
         ref = gauss_seidel_apply(hc, cpu, None, b.cpu(), 3)
         assert (x.cpu() - ref).abs().max() <= 1e-12 * ref.abs().max()
 
@@ -763,12 +769,12 @@ def test_gsprec_pcg_runs_through_k6(dev):
     A = tkc.generate_structured_laplacian(100, 100, dtype=np.float64, device=dev)
     b = _x(A.nrows, torch.float64, dev, seed=1)
     h = _gs_handle(A)
-    n0 = kg.gs_sweep.launches
+    n0 = _launches(kg.gs_sweep)
     xs, st = pcg(A, b, tol=1e-8, max_iters=2000, prec=GsPrec(h, A))
     r = b.cpu().numpy() - A.to_scipy() @ xs.cpu().numpy()
     assert st.converged and np.linalg.norm(r) <= 1e-7 * np.linalg.norm(b.cpu().numpy())
     # one K6 launch per preconditioner apply
-    assert kg.gs_sweep.launches - n0 >= st.num_iters
+    assert _launches(kg.gs_sweep) - n0 >= st.num_iters
     _, sj = pcg(A, b, tol=1e-8, max_iters=2000, prec=JacobiPrec(A))
     assert st.num_iters < sj.num_iters
 
@@ -777,9 +783,9 @@ def test_twostage_multivector_launches_k7(dev):
     A = tkc.generate_diag_dominant_csr(4000, 8, dtype=np.float64, seed=7, device=dev)
     h = _gs_handle(A, GsAlgorithm.TWOSTAGE)
     B = _x(A.nrows, torch.float64, dev, 8, seed=4)
-    n0 = kc.csr_spmm.launches
+    n0 = _launches(kc.csr_spmm)
     X = gauss_seidel_apply(h, A, None, B, 2)
-    assert kc.csr_spmm.launches > n0
+    assert _launches(kc.csr_spmm) > n0
     for j in range(8):
         xj = gauss_seidel_apply(h, A, None, B[:, j].contiguous(), 2)
         assert (X[:, j] - xj).abs().max() <= 1e-12 * xj.abs().max()
@@ -845,9 +851,9 @@ def test_spgemm_pairs_kernel_matches_plain(dev, dtype):
         spgemm_symbolic(h, A, B)
         plan = h.row_plan
         a, b = A.values.to(dtype), B.values.to(dtype)
-        n0 = ksg.spgemm_rows.launches
+        n0 = _launches(ksg.spgemm_rows)
         got = ksg.spgemm_rows(plan, a, b)
-        assert ksg.spgemm_rows.launches == n0 + 1, label
+        assert _launches(ksg.spgemm_rows) == n0 + 1, label
         plain = ksg.spgemm_rows_plain(plan, a, b)
         torch.cuda.synchronize()
         assert torch.equal(got, plain), label
@@ -892,9 +898,9 @@ def test_spgemm_numeric_on_cuda_matches_scipy(dev, dtype):
         B = A if B is None else B
         h = SpgemmHandle()
         spgemm_symbolic(h, A, B)
-        n0 = ksg.spgemm_rows.launches
+        n0 = _launches(ksg.spgemm_rows)
         C = spgemm_numeric(h, A, B)
-        assert ksg.spgemm_rows.launches == n0 + 1 and C.device == A.device
+        assert _launches(ksg.spgemm_rows) == n0 + 1 and C.device == A.device
         sa, sb = A.to_scipy().astype(np.float64), B.to_scipy().astype(np.float64)
         bound = (abs(sa) @ abs(sb)).tocsr()
         bound.sort_indices()
@@ -929,9 +935,9 @@ def test_spgemm_routes_on_cuda(dev):
     hj = SpgemmHandle()
     spgemm_symbolic(hj, L, B)
     dinv = 1.0 / L.to_scipy().diagonal()
-    n0 = ksg.spgemm_rows.launches
+    n0 = _launches(ksg.spgemm_rows)
     P = spgemm_jacobi(hj, L, B, 0.7, dinv)
-    assert ksg.spgemm_rows.launches == n0 + 1
+    assert _launches(ksg.spgemm_rows) == n0 + 1
     ref = B.to_scipy() - 0.7 * sps.diags(dinv) @ L.to_scipy() @ B.to_scipy()
     assert abs(P.to_scipy() - ref).max() <= 1e-12 * abs(ref).max()
 
@@ -976,9 +982,9 @@ def test_probe_kernel_matches_plain(dev):
     for variant in drv.VARIANTS:
         for n_ss, B in ((80, 3), (200, 1), *((drv.N_SS, b) for b in drv.BS)):
             plan, x = drv.make_plan(variant, n_ss, B, dev)
-            n0 = kp.probe_gather_acc.launches
+            n0 = _launches(kp.probe_gather_acc)
             y = kp.probe_gather_acc(plan, x)
-            assert kp.probe_gather_acc.launches == n0 + 1
+            assert _launches(kp.probe_gather_acc) == n0 + 1
             plain = kp.probe_plain(plan, x)
             torch.cuda.synchronize()
             assert torch.equal(y, plain), (variant, n_ss, B, float((y - plain).abs().max()))
@@ -1365,9 +1371,9 @@ def test_complex_dia_and_csr_kernels_match_plain(dev, dtype):
         p = spmv_impl.build_dia_plan(A, dtype=dtype)
         ap = dataclasses.replace(p, diags=p.diags.abs())
         x = _cx(A.ncols, dtype, dev, seed=i)
-        n0 = kc.dia_spmv.launches
+        n0 = _launches(kc.dia_spmv)
         assert _held(kc.dia_spmv(p, x), kc.dia_plain(p, x), kc.dia_plain(ap, x.abs()), dtype)
-        assert kc.dia_spmv.launches == n0 + 1
+        assert _launches(kc.dia_spmv) == n0 + 1
     long_rows = sps.random(64, 5000, density=0.0006, random_state=2, format="lil")
     long_rows[5, :] = 1.0
     long_rows[40, :700] = -0.5
@@ -1378,10 +1384,10 @@ def test_complex_dia_and_csr_kernels_match_plain(dev, dtype):
         for streamed in (False, True):
             cp = kc.build_csr_plan(A, dtype, streamed)
             acp = dataclasses.replace(cp, values=cp.values.abs())
-            n0 = kc.csr_spmv.launches
+            n0 = _launches(kc.csr_spmv)
             assert _held(kc.csr_spmv(cp, x), kc.csr_plain(cp, x), kc.csr_plain(acp, x.abs()),
                          dtype), (i, streamed)
-            assert kc.csr_spmv.launches == n0 + 1
+            assert _launches(kc.csr_spmv) == n0 + 1
 
 
 @pytest.mark.parametrize("dtype", CDTYPES, ids=["c64", "c128"])
@@ -1457,9 +1463,9 @@ def test_complex_permute_is_exact(dev, dtype):
         src = torch.from_numpy(rng.permutation(n).astype(np.int32)).to(dev)
         x = _cx(n if k is None else n * k, dtype, dev, seed=n)
         x = x if k is None else x.view(n, k)
-        n0 = ks.permute_gather.launches
+        n0 = _launches(ks.permute_gather)
         y = ks.permute_gather(src, x)
-        assert ks.permute_gather.launches == n0 + 1
+        assert _launches(ks.permute_gather) == n0 + 1
         assert y.dtype == dtype and torch.equal(y, ks.permute_plain(src, x))
 
 
@@ -1483,9 +1489,9 @@ def test_complex_spgemm_kernel_matches_plain(dev, dtype):
         spgemm_symbolic(h, A, B)
         plan = h.row_plan
         a, b = cvals(A, 1), cvals(B, 2)
-        n0 = ksg.spgemm_rows.launches
+        n0 = _launches(ksg.spgemm_rows)
         got = ksg.spgemm_rows(plan, a, b)
-        assert ksg.spgemm_rows.launches == n0 + 1, label
+        assert _launches(ksg.spgemm_rows) == n0 + 1, label
         plain = ksg.spgemm_rows_plain(plan, a, b)
         torch.cuda.synchronize()
         assert torch.equal(got, plain), label
@@ -1574,9 +1580,9 @@ def test_complex_spmm_kernels_match_plain(dev, dtype):
             assert ((Y - kc.csr_spmm_plain(cp, X)).abs() <= bound).all(), (k, g)
     for M, kern in ((A, kc.dia_spmm), (R, kc.csr_spmm)):
         X = _cx2((M.ncols, 4), dtype, dev, 40)
-        n0 = kern.launches
+        n0 = _launches(kern)
         spmm(M, X)
-        assert kern.launches == n0 + 1
+        assert _launches(kern) == n0 + 1
 
 
 @pytest.mark.parametrize("dtype", CDTYPES, ids=["c64", "c128"])
@@ -1608,9 +1614,9 @@ def test_complex_gs_kernel_matches_plain(dev, dtype):
             for k in ks:
                 b = _cx2((M.nrows, k) if k > 1 else M.nrows, dtype, dev, k)
                 for x in (None, _cx2(b.shape, dtype, dev, 50 + k)):
-                    n0 = kg.gs_sweep.launches
+                    n0 = _launches(kg.gs_sweep)
                     got = kg.gs_sweep(pl, x, b, 1.1, "symmetric", 1)
-                    assert kg.gs_sweep.launches == n0 + 1
+                    assert _launches(kg.gs_sweep) == n0 + 1
                     assert torch.equal(got, kg.gs_sweep_per_color(pl, x, b, 1.1, "symmetric", 1))
                     ref = kg.gs_sweep_plain(pl, x, b, 1.1, "symmetric", 1)
                     assert (got - ref).abs().max() <= tol * ref.abs().max(), (alg, G, k)
@@ -1639,9 +1645,9 @@ def test_complex_paths_run_through_the_kernels(dev):
         x = _cx(A.ncols, torch.complex128, dev, seed=3)
         xh = x.cpu().numpy()
         for mode, op in (("N", sp), ("T", sp.T), ("C", sp.conj()), ("H", sp.conj().T)):
-            n0 = kern.launches
+            n0 = _launches(kern)
             y = h(x, mode=mode).cpu().numpy()
-            assert kern.launches == n0 + 1
+            assert _launches(kern) == n0 + 1
             assert np.abs(y - op @ xh).max() <= 1e-12 * np.abs(op @ xh).max()
     # a Hermitian positive definite magnetic Laplacian (Landau gauge), Jacobi PCG
     nx = 40
@@ -1653,9 +1659,9 @@ def test_complex_paths_run_through_the_kernels(dev):
     H.eliminate_zeros()
     Hm = tkc.CsrMatrix.from_scipy(H, device=dev)
     b = _cx(H.shape[0], torch.complex128, dev, seed=4)
-    n0 = kc.dia_spmv.launches
+    n0 = _launches(kc.dia_spmv)
     x, st = pcg(Hm, b, tol=1e-10, max_iters=2000, prec=JacobiPrec(Hm))
-    assert st.converged and kc.dia_spmv.launches > n0
+    assert st.converged and _launches(kc.dia_spmv) > n0
     bh = b.cpu().numpy()
     assert np.linalg.norm(bh - H @ x.cpu().numpy()) <= 1e-9 * np.linalg.norm(bh)
     # GMRES with complex SuperLU factors, and in RCM-permuted space
@@ -1667,9 +1673,9 @@ def test_complex_paths_run_through_the_kernels(dev):
     assert ks.launch_counts() == {"sptrsv_levels": 2, "permute_gather": 0}
     x, st = gmres(GmresHandle(m=20, tol=1e-10, max_restarts=5), A, b, prec=slu)
     assert st.converged
-    n0 = permute_gather.launches
+    n0 = _launches(permute_gather)
     x, st = gmres(GmresHandle(m=30, tol=1e-10, max_restarts=20, reorder="rcm"), A, b)
-    assert st.converged and permute_gather.launches >= n0 + 3
+    assert st.converged and _launches(permute_gather) >= n0 + 3
     bh = b.cpu().numpy()
     assert np.linalg.norm(bh - A.to_scipy() @ x.cpu().numpy()) <= 1e-9 * np.linalg.norm(bh)
 

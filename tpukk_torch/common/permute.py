@@ -28,6 +28,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from . import tracing
 from .errors import check
 from .utils import permute_via_sort
 
@@ -134,8 +135,7 @@ def permute_gather(src: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         code, vec, lanes, src.data_ptr(), x.data_ptr(), out.data_ptr(),
         n, k, _kernels.stream_of(x))
     _kernels.check_launch(err, "permute_gather")
-    permute_gather.launches += 1
+    tracing.count("launches.permute_gather")
     return out
 
 
-permute_gather.launches = 0

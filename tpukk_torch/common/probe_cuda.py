@@ -34,6 +34,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from . import tracing
 from .errors import check
 
 __all__ = ["ProbePlan", "build_probe_plan", "lane_lists", "probe_gather_acc", "probe_plain",
@@ -203,18 +204,17 @@ def probe_gather_acc(plan: ProbePlan, x: torch.Tensor) -> torch.Tensor:
         None if plan.lo is None else plan.lo.data_ptr(), plan.v.data_ptr(), y.data_ptr(),
         plan.n_blocks * plan.tiles, _kernels.stream_of(x))
     _kernels.check_launch(err, "probe_gather_acc")
-    probe_gather_acc.launches += 1
+    tracing.count("launches.probe_gather_acc")
     return y
 
 
 KERNELS = (probe_gather_acc,)
-probe_gather_acc.launches = 0
 
 
 def launch_counts() -> dict:
-    return {k.__name__: k.launches for k in KERNELS}
+    """The registry's ``launches.<kernel>`` counters of this module's kernels."""
+    return tracing.launch_counts(KERNELS)
 
 
 def reset_launch_counts() -> None:
-    for k in KERNELS:
-        k.launches = 0
+    tracing.reset_launch_counts(KERNELS)

@@ -29,11 +29,13 @@ greedy, as in ``tpukk``: an algorithmic fallback, not a device one.
 from __future__ import annotations
 
 import enum
+import time
 
 import numpy as np
 import torch
 
 from .. import native
+from ..common import tracing
 from ..common.tracing import annotate
 
 __all__ = ["ColoringAlgorithm", "graph_color", "graph_color_d2", "verify_coloring",
@@ -229,7 +231,17 @@ def graph_color(graph, algorithm: ColoringAlgorithm = ColoringAlgorithm.VB, *,
                 _selection: bool = False) -> np.ndarray:
     """1-based colors per vertex (host int32).  The rounds run on the graph's
     device.  ``_selection=True`` sends any graph through the selection-matrix
-    gather, as ``tpukk``'s ``_interpret=True`` does with its one-hot kernel."""
+    gather, as ``tpukk``'s ``_interpret=True`` does with its one-hot kernel.
+    Sets the gauges ``graph.colors`` (distinct colors) and ``graph.color_s``
+    (the call's host seconds)."""
+    t = time.perf_counter()
+    colors = _color(graph, algorithm, _selection)
+    tracing.set("graph.color_s", time.perf_counter() - t)
+    tracing.set("graph.colors", int(np.count_nonzero(np.bincount(colors)[1:])))
+    return colors
+
+
+def _color(graph, algorithm: ColoringAlgorithm, _selection: bool) -> np.ndarray:
     rm, ent, nrows = _adjacency(graph)
     if algorithm == ColoringAlgorithm.SERIAL:
         return native.d1_greedy_color(rm, ent, nrows)

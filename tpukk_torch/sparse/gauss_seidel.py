@@ -53,7 +53,7 @@ import numpy as np
 import torch
 
 from ..common import check
-from ..common.tracing import annotate
+from ..common.tracing import annotate, profile_region
 from ..containers import BsrMatrix, CsrMatrix, StaticCrsGraph
 from ..graph.coloring import ColoringAlgorithm, color_sets, graph_color
 from . import gs_cuda
@@ -220,7 +220,8 @@ def gauss_seidel_numeric(handle: GsHandle, A, omega: float = 1.0):
     elif handle.algorithm == GsAlgorithm.TWOSTAGE:
         _twostage_numeric(handle, A)
     else:
-        plan = _sweep_plan(handle, A)
+        with profile_region("tpukk::gs_sweep_plan"):
+            plan = _sweep_plan(handle, A)
         handle._plans = {plan.csr.values.dtype: plan}
     handle.is_numeric_called = True
 

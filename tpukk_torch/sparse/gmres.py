@@ -24,12 +24,18 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..common.tracing import annotate
+from ..common.tracing import annotate, profile_region
 from .pcg import _nonzero
 from .preconditioner import IdentityPrec, Preconditioner
 from .spmv import SpmvHandle
 
 __all__ = ["Ortho", "GmresHandle", "GmresStats", "gmres"]
+
+# a restart cycle, and inside it its two host reads, each a check: H to the
+# host (with the least-squares solve and the update), then the residual
+# norm; no region inside an Arnoldi step
+BLOCK_REGION = "tpukk::gmres.block"
+CHECK_REGION = "tpukk::gmres.check"
 
 
 class Ortho(enum.Enum):
@@ -107,12 +113,13 @@ def _arnoldi_cycle(Ah, prec, b, x0, m: int, ortho: Ortho, reduce=None):
         V[j + 1] = w / _nonzero(hn)
     # rank-safe least squares on the host (minimum norm when H is singular),
     # in complex128 for a complex b
-    hdt = torch.complex128 if b.dtype.is_complex else torch.float64
-    Hb = torch.cat([H.reshape(-1), beta.reshape(1)]).to(hdt).cpu().numpy()
-    e1 = np.zeros(m + 1, Hb.dtype)
-    e1[0] = Hb[-1]
-    y = np.linalg.lstsq(Hb[:-1].reshape(m + 1, m), e1, rcond=None)[0]
-    return x0 + torch.mv(V[:m].T, torch.from_numpy(y).to(b.dtype).to(b.device))
+    with profile_region(CHECK_REGION):
+        hdt = torch.complex128 if b.dtype.is_complex else torch.float64
+        Hb = torch.cat([H.reshape(-1), beta.reshape(1)]).to(hdt).cpu().numpy()
+        e1 = np.zeros(m + 1, Hb.dtype)
+        e1[0] = Hb[-1]
+        y = np.linalg.lstsq(Hb[:-1].reshape(m + 1, m), e1, rcond=None)[0]
+        return x0 + torch.mv(V[:m].T, torch.from_numpy(y).to(b.dtype).to(b.device))
 
 
 @annotate("gmres")
@@ -136,10 +143,12 @@ def gmres(handle: GmresHandle, A, b: torch.Tensor, x0: Optional[torch.Tensor] = 
     iters = 0
     rel = float("inf")
     for _ in range(handle.max_restarts):
-        x = _arnoldi_cycle(Ah, prec, b, x, m, handle.ortho)
+        with profile_region(BLOCK_REGION):
+            x = _arnoldi_cycle(Ah, prec, b, x, m, handle.ortho)
+            with profile_region(CHECK_REGION):
+                # the true residual at the restart boundary
+                rel = float(_norm(b - Ah(x))) / bnorm
         iters += m
-        # the true residual at the restart boundary
-        rel = float(_norm(b - Ah(x))) / bnorm
         if rel <= handle.tol:
             break
     handle.num_iters = iters

@@ -44,7 +44,7 @@ import numpy as np
 import torch
 
 from .. import _kernels
-from ..common import check
+from ..common import check, tracing
 from ..common.permute import permute_gather, permute_plain
 from .spmv_cuda import CsrPlan, csr_spmm_plain, lanes_per_row
 
@@ -307,7 +307,7 @@ def gs_color_step(blk: GsBlock, x: torch.Tensor, b: torch.Tensor, omega: float,
         csr.values.data_ptr(), blk.inv_diag.data_ptr(), b.data_ptr(), x.data_ptr(),
         out.data_ptr(), blk.start, blk.nrows, k, float(omega), _kernels.stream_of(x))
     _kernels.check_launch(err, "gs_color_step")
-    gs_color_step.launches += 1
+    tracing.count("launches.gs_color_step")
     if blk.coupled:
         x[rows] = out
     return x
@@ -379,7 +379,7 @@ def gs_sweep(plan: GsSweepPlan, x, b: torch.Tensor, omega: float, direction: str
         None if permuted else out.data_ptr(), st.state.data_ptr(), k, float(omega),
         _kernels.stream_of(b))
     _kernels.check_launch(err, "gs_sweep")
-    gs_sweep.launches += 1
+    tracing.count("launches.gs_sweep")
     return out
 
 
@@ -413,14 +413,12 @@ def gs_sweep_per_color(plan: GsSweepPlan, x, b: torch.Tensor, omega: float,
 
 
 KERNELS = (gs_color_step, gs_sweep)
-gs_color_step.launches = 0
-gs_sweep.launches = 0
 
 
 def launch_counts() -> dict:
-    return {k.__name__: k.launches for k in KERNELS}
+    """The registry's ``launches.<kernel>`` counters of this module's kernels."""
+    return tracing.launch_counts(KERNELS)
 
 
 def reset_launch_counts() -> None:
-    for k in KERNELS:
-        k.launches = 0
+    tracing.reset_launch_counts(KERNELS)

@@ -15,11 +15,16 @@ from typing import Optional
 
 import torch
 
-from ..common.tracing import annotate
+from ..common.tracing import annotate, profile_region
 from .preconditioner import IdentityPrec, Preconditioner
 from .spmv import SpmvHandle
 
 __all__ = ["PcgStats", "pcg", "pcg_initial_state", "pcg_iteration", "pcg_iteration_body"]
+
+# a check_every block of iterations, and inside it the residual read (the
+# block's one host sync); no region inside an iteration
+BLOCK_REGION = "tpukk::pcg.block"
+CHECK_REGION = "tpukk::pcg.check"
 
 
 @dataclasses.dataclass
@@ -98,10 +103,12 @@ def pcg(A, b: torch.Tensor, x0: Optional[torch.Tensor] = None, tol: float = 1e-8
     iters = 0
     rel = float("inf")
     while iters < max_iters:
-        for _ in range(check_every):
-            state = pcg_iteration(Ah, prec, state)
-        iters += check_every
-        rel = float(torch.sqrt(torch.abs(_dot(state[1], state[1])))) / bnorm
+        with profile_region(BLOCK_REGION):
+            for _ in range(check_every):
+                state = pcg_iteration(Ah, prec, state)
+            iters += check_every
+            with profile_region(CHECK_REGION):
+                rel = float(torch.sqrt(torch.abs(_dot(state[1], state[1])))) / bnorm
         if rel <= tol:
             break
     return state[0], PcgStats(iters, rel, rel <= tol)

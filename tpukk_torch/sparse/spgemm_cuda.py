@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from .. import _kernels
-from ..common import TpuKKError, check
+from ..common import TpuKKError, check, tracing
 from ..containers import expand_row_ids
 
 __all__ = ["SpgemmRowPlan", "build_row_plan", "check_pattern", "spgemm_rows", "spgemm_rows_plain",
@@ -245,19 +245,17 @@ def spgemm_rows(plan: SpgemmRowPlan, a_vals: torch.Tensor, b_vals: torch.Tensor)
         b_vals.data_ptr(), plan.c_row_map.data_ptr(), plan.c_entries.data_ptr(), c.data_ptr(),
         plan.order.data_ptr(), plan.table.ctypes.data, _kernels.stream_of(a_vals))
     _kernels.check_launch(err, "spgemm_rows")
-    spgemm_rows.launches += 1
+    tracing.count("launches.spgemm_rows")
     return c
 
 
 KERNELS = (spgemm_rows,)
-for _k in KERNELS:
-    _k.launches = 0
 
 
 def launch_counts() -> dict:
-    return {k.__name__: k.launches for k in KERNELS}
+    """The registry's ``launches.<kernel>`` counters of this module's kernels."""
+    return tracing.launch_counts(KERNELS)
 
 
 def reset_launch_counts() -> None:
-    for k in KERNELS:
-        k.launches = 0
+    tracing.reset_launch_counts(KERNELS)

@@ -127,7 +127,8 @@ class SpmvHandle:
     def _plan(self, key: str, dtype: torch.dtype):
         p = self._plans.get((key, dtype))
         if p is None:
-            p = self._plans[(key, dtype)] = self._build_plan(key, dtype)
+            with profile_region(region_name("spmv_plan", self.algorithm.name)):
+                p = self._plans[(key, dtype)] = self._build_plan(key, dtype)
         return p
 
     def _build_plan(self, key: str, dtype: torch.dtype):

@@ -37,7 +37,7 @@ import dataclasses
 import torch
 
 from .. import _kernels
-from ..common import check
+from ..common import check, tracing
 from ..containers import CsrMatrix, expand_row_ids
 from .spmv_impl import DiaPlan, apply_dia
 
@@ -109,7 +109,7 @@ def dia_spmv(plan: DiaPlan, x: torch.Tensor) -> torch.Tensor:
         code, plan.diags.data_ptr(), plan.offsets_dev.data_ptr(),
         len(plan.offsets), x.data_ptr(), y.data_ptr(), plan.nrows, plan.ncols, _stream(x))
     _check_launch(err, "dia_spmv")
-    dia_spmv.launches += 1
+    tracing.count("launches.dia_spmv")
     return y
 
 
@@ -140,7 +140,7 @@ def dia_spmm(plan: DiaPlan, X: torch.Tensor) -> torch.Tensor:
         plan.diags.data_ptr(), plan.offsets_dev.data_ptr(),
         len(plan.offsets), X.data_ptr(), Y.data_ptr(), plan.nrows, plan.ncols, k, _stream(X))
     _check_launch(err, "dia_spmm")
-    dia_spmm.launches += 1
+    tracing.count("launches.dia_spmm")
     return Y
 
 
@@ -293,7 +293,7 @@ def csr_spmv(plan: CsrPlan, x: torch.Tensor, reduce: str = "sum") -> torch.Tenso
         plan.tiles.data_ptr(), plan.tiles.shape[0], plan.row_map.data_ptr(),
         plan.entries.data_ptr(), plan.values.data_ptr(), x.data_ptr(), y.data_ptr(), _stream(x))
     _check_launch(err, "csr_spmv")
-    csr_spmv.launches += 1
+    tracing.count("launches.csr_spmv")
     return y
 
 
@@ -389,7 +389,7 @@ def csr_spmm(plan: CsrPlan, X: torch.Tensor, geometry: SpmmGeometry | None = Non
         plan.row_map.data_ptr(), plan.entries.data_ptr(), plan.values.data_ptr(), X.data_ptr(),
         Y.data_ptr(), plan.nrows, k, _stream(X))
     _check_launch(err, "csr_spmm")
-    csr_spmm.launches += 1
+    tracing.count("launches.csr_spmm")
     return Y
 
 
@@ -398,14 +398,12 @@ def csr_spmm(plan: CsrPlan, X: torch.Tensor, geometry: SpmmGeometry | None = Non
 # ----------------------------------------------------------------------
 
 KERNELS = (dia_spmv, dia_spmm, csr_spmv, csr_spmm)
-for _k in KERNELS:
-    _k.launches = 0
 
 
 def launch_counts() -> dict:
-    return {k.__name__: k.launches for k in KERNELS}
+    """The registry's ``launches.<kernel>`` counters of this module's kernels."""
+    return tracing.launch_counts(KERNELS)
 
 
 def reset_launch_counts() -> None:
-    for k in KERNELS:
-        k.launches = 0
+    tracing.reset_launch_counts(KERNELS)

@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from .. import _kernels
-from ..common import check, cdiv
+from ..common import check, cdiv, tracing
 from ..common.permute import permute_gather, permute_plain
 from ..containers import expand_row_ids
 
@@ -296,7 +296,7 @@ def sptrsv_levels(plan: LevelPlan, b: torch.Tensor, src=None, dst=None) -> torch
         out.data_ptr(), plan.words.data_ptr(), plan.state.data_ptr(), plan.n, blocks,
         _kernels.stream_of(b))
     _kernels.check_launch(err, "sptrsv_levels")
-    sptrsv_levels.launches += 1
+    tracing.count("launches.sptrsv_levels")
     return out
 
 
@@ -305,13 +305,12 @@ def sptrsv_levels(plan: LevelPlan, b: torch.Tensor, src=None, dst=None) -> torch
 # ----------------------------------------------------------------------
 
 KERNELS = (sptrsv_levels, permute_gather)
-sptrsv_levels.launches = 0
 
 
 def launch_counts() -> dict:
-    return {k.__name__: k.launches for k in KERNELS}
+    """The registry's ``launches.<kernel>`` counters of this module's kernels."""
+    return tracing.launch_counts(KERNELS)
 
 
 def reset_launch_counts() -> None:
-    for k in KERNELS:
-        k.launches = 0
+    tracing.reset_launch_counts(KERNELS)

@@ -92,7 +92,8 @@ L2_BYTES = 50e6
 SOURCES = {"dia_spmv": "tpukk_torch/csrc/dia.cu", "dia_spmm": "tpukk_torch/csrc/dia.cu",
            "csr_spmv": "tpukk_torch/csrc/csr.cu", "sptrsv_levels": "tpukk_torch/csrc/sptrsv.cu",
            "permute_gather": "tpukk_torch/csrc/permute.cu",
-           "gs_sweep": "tpukk_torch/csrc/gs.cu", "csr_spmm": "tpukk_torch/csrc/csr.cu",
+           "gs_sweep": "tpukk_torch/csrc/gs.cu", "gs_sweep_dia": "tpukk_torch/csrc/gs.cu",
+           "csr_spmm": "tpukk_torch/csrc/csr.cu",
            "spgemm_rows": "tpukk_torch/csrc/spgemm.cu",
            "probe_gather_acc": "tpukk_torch/csrc/probe.cu"}
 REPLACES = {"dia_spmv": "tpukk/sparse/spmv_pallas.py:41",
@@ -101,6 +102,7 @@ REPLACES = {"dia_spmv": "tpukk/sparse/spmv_pallas.py:41",
             "sptrsv_levels": "tpukk/sparse/sptrsv_pallas.py:515",
             "permute_gather": "tpukk/common/permute.py:91",
             "gs_sweep": "tpukk/sparse/spmv_pallas.py:2125",
+            "gs_sweep_dia": "tpukk/sparse/spmv_pallas.py:2125",
             "csr_spmm": "tpukk/sparse/spmv_pallas.py:1074",
             "spgemm_rows": "tpukk/sparse/spgemm_pallas.py:1063",
             "probe_gather_acc": "scripts/probe_ss_cost.py:40"}
@@ -708,29 +710,42 @@ def main() -> int:
 
     def hold_sweep(label, hh, dt, k):
         """K6's fused sweep, a symmetric sweep from x = 0 (a GsPrec apply) and
-        two forward sweeps from a given x: equal to the per-color path (K5,
-        fill, a gs_color_step launch per color step at the sweep's lanes, K5)
-        bit for bit, and within 1000·eps·max|plain| of its plain version."""
+        two forward sweeps from a given x.  On the CSR: equal to the per-color
+        path (K5, fill, a gs_color_step launch per color step at the sweep's
+        lanes, K5) bit for bit, and within 1000·eps·max|plain| of its plain
+        version.  On the DIA route (a vector on a plan with the layout, from a
+        working buffer of NaN): within 1000·eps·max|plain| of its own plain
+        version, of the CSR's and of the per-color path."""
         plan = _plan_in(hh, dt)
+        dia = plan.dia is not None and k is None
+        kern = "gs_sweep_dia" if dia else "gs_sweep"
         b_, x_ = vec(plan.n, dt, k), vec(plan.n, dt, k)
         eps = torch.finfo(dt).eps
         for x0, direction, sweeps in ((None, "symmetric", 1), (x_, "forward", 2)):
+            if dia:
+                plan.buffer("work", plan.n, b_).fill_(float("nan"))
             got = kg.gs_sweep(plan, x0, b_, hh.omega, direction, sweeps)
             per = kg.gs_sweep_per_color(plan, x0, b_, hh.omega, direction, sweeps)
             plain = kg.gs_sweep_plain(plan, x0, b_, hh.omega, direction, sweeps)
             torch.cuda.synchronize()
-            equal = torch.equal(got, per)
-            err = float((got - plain).abs().max())
             tol = 1000 * eps * float(plain.abs().max())
-            errs["gs_sweep"] = max(errs["gs_sweep"], err)
-            emit("check", kernel="gs_sweep", case=f"{label} {direction} x sweeps={sweeps}, "
+            diff = float((got - per).abs().max())
+            equal = torch.equal(got, per) if not dia else diff <= tol
+            err = float((got - plain).abs().max())
+            if dia:
+                err = max(err, float((got - kg.gs_sweep_dia_plain(
+                    plan, x0, b_, hh.omega, direction, sweeps)).abs().max()))
+            errs[kern] = max(errs[kern], err)
+            emit("check", kernel=kern, case=f"{label} {direction} x sweeps={sweeps}, "
                  f"x0 {'given' if x0 is not None else 'zero'}, k={1 if k is None else k}",
                  dtype=str(dt), steps=int(plan.steps(direction, sweeps, x0 is not None).host.shape[0]),
-                 lanes=plan.csr.group, equal_to_per_color=equal,
-                 max_abs_diff_vs_per_color=float((got - per).abs().max()), max_abs_err=err,
+                 lanes=plan.csr.group, route="dia" if dia else "csr",
+                 **({"offsets_per_block": plan.dia.ndiag.tolist()} if dia else {}),
+                 equal_to_per_color=equal if not dia else None,
+                 max_abs_diff_vs_per_color=diff, max_abs_err=err,
                  max_err_over_tol=err / tol, tol="1000*eps*max|plain|", ok=equal and err <= tol)
-            require(equal, f"gs_sweep {label} {direction}: differs from the per-color path")
-            require(err <= tol, f"gs_sweep {label} {direction}: disagrees with its plain version")
+            require(equal, f"{kern} {label} {direction}: differs from the per-color path")
+            require(err <= tol, f"{kern} {label} {direction}: disagrees with its plain version")
 
     before = kg.launch_counts()
     for (mlabel, alg), hh in gs.items():
@@ -738,6 +753,8 @@ def main() -> int:
             for k in (None, 8):
                 hold_sweep(f"{mlabel} {alg}", hh, dt, k)
     require(kg.launch_counts()["gs_sweep"] > before["gs_sweep"], "K6's fused sweep never launched")
+    require(kg.launch_counts()["gs_sweep_dia"] > before["gs_sweep_dia"],
+            "K6's DIA route never launched")
 
     # ---- 3e. the Gauss-Seidel path: coloring, MIS2, sweeps, GsPrec-PCG --------
     coloring = {}
@@ -830,11 +847,13 @@ def main() -> int:
     def gs_pcg(label, A, key, hh, phase):
         b_, jac_iters = jacobi[key]
         prec = GsPrec(hh, A)
-        _, apply_counts, _ = counted(f"{label} one apply", lambda: prec.apply(b_), ("gs_sweep",))
-        require(apply_counts["gs_sweep"] == 1 and sum(apply_counts.values()) == 1,
+        # the plan's route: the DIA layout where it has one (a GsPrec apply is a vector)
+        kern = "gs_sweep_dia" if next(iter(hh._plans.values())).dia is not None else "gs_sweep"
+        _, apply_counts, _ = counted(f"{label} one apply", lambda: prec.apply(b_), (kern,))
+        require(apply_counts[kern] == 1 and sum(apply_counts.values()) == 1,
                 f"{label}: a GsPrec apply is not one K6 launch: {apply_counts}")
         st, rel, counts, wall = solve(label, A, b_, prec, 2 * jac_iters)
-        require(counts["gs_sweep"] > 0 and counts["gs_color_step"] == 0
+        require(counts[kern] > 0 and counts["gs_color_step"] == 0
                 and counts["permute_gather"] == 0, f"{label}: not on the fused sweep: {counts}")
         require(st.num_iters < jac_iters,
                 f"{label}: {st.num_iters} iterations, Jacobi {jac_iters}")
@@ -2554,15 +2573,16 @@ def main() -> int:
         out[:v.shape[0]] = v
         return out
 
-    def hold_gs(label, got, plain, dtype):
-        """K6's fused sweep within 1000·eps·max|plain| of its plain version."""
+    def hold_gs(kernel, label, got, plain, dtype):
+        """K6's fused sweep (``kernel``: the route that ran) within
+        1000·eps·max|plain| of its plain version."""
         torch.cuda.synchronize()
         err = float((got - plain).abs().max())
         tol = 1000 * torch.finfo(dtype).eps * float(plain.abs().max())
-        errs["gs_sweep"] = max(errs["gs_sweep"], err)
-        emit("check", kernel="gs_sweep", case=label, dtype=str(dtype), max_abs_err=err,
+        errs[kernel] = max(errs[kernel], err)
+        emit("check", kernel=kernel, case=label, dtype=str(dtype), max_abs_err=err,
              tol="1000*eps*max|plain|", ok=err <= tol)
-        require(err <= tol, f"gs_sweep {label} disagrees with its plain version")
+        require(err <= tol, f"{kernel} {label} disagrees with its plain version")
 
     t_dist = time.perf_counter()
     fem_sp = fem.to_scipy()
@@ -2621,10 +2641,12 @@ def main() -> int:
         # world size 1: the one-part GS plan, K6's fused sweep
         gs1 = td.shard_dist_gs_plan(td.build_dist_gs_gt_plan(lap64, 1), device=dev)
         bgs = b1.clone()
+        kern1 = ("gs_sweep_dia" if _plan_in(gs1.single, torch.float64).dia is not None
+                 else "gs_sweep")
         xg1, counts, wall = counted("dist_gs_sweep world 1",
                                     lambda: td.dist_gs_sweep(gs1, torch.zeros_like(bgs), bgs),
-                                    ("gs_sweep",))
-        hold_gs("dist one part, lap1000 f64 symmetric", xg1[:lap64.nrows],
+                                    (kern1,))
+        hold_gs(kern1, "dist one part, lap1000 f64 symmetric", xg1[:lap64.nrows],
                 kg.gs_sweep_plain(_plan_in(gs1.single, torch.float64),
                                   torch.zeros(lap64.nrows, dtype=torch.float64, device=dev),
                                   bgs[:lap64.nrows], 1.0), torch.float64)
@@ -2758,8 +2780,8 @@ def main() -> int:
                                        ncols=a2a4.ncols_ext, device=dev)
     del gt4, a2a4, fem_gt4, fem_gs4, fem_ring4, hs1, C_ref
 
-    # K6's two entries are one kernel: the path runs the fused sweep, the
-    # per-color step is its yardstick (and the distributed sweep's step)
+    # the path runs K6's fused sweep on one route or the other; the per-color
+    # step is the CSR route's yardstick (and the distributed sweep's step)
     path = {k: v for k, v in total.items() if k != "gs_color_step"}
     path["gs_sweep"] += total["gs_color_step"]
     require(all(v > 0 for v in path.values()), f"a kernel of the path never ran: {total}")
@@ -3079,34 +3101,52 @@ def main() -> int:
                                  np.full(nfl6 - 1, -0.5), np.ones(nfl6), np.arange(nfl6 + 1),
                                  np.arange(nfl6), dev)
     bfl6 = vec(nfl6, torch.float64)
-    require(torch.equal(kg.gs_sweep(fl6, None, bfl6, 1.0, "forward"),
-                        kg.gs_sweep_plain(fl6, None, bfl6, 1.0, "forward")),
-            "gs_sweep on the step-floor plan disagrees with its plain version")
-    floor6_us = event_ms(lambda: kg.gs_sweep(fl6, None, bfl6, 1.0, "forward"), 3) * 1e3 / nfl6
-    emit("timing_k6_floor", case=f"K6 gs_sweep, lower-bidiagonal, {nfl6} one-row steps, f64",
-         us_per_step=floor6_us)
-    del fl6
+    require(fl6.dia is not None, "the step-floor plan has no DIA layout")
+    floor6_us = {}  # by route
+    for route, p6 in (("dia", fl6), ("csr", dataclasses.replace(fl6, dia=None, _steps={},
+                                                                _bufs={}))):
+        require(torch.equal(kg.gs_sweep(p6, None, bfl6, 1.0, "forward"),
+                            kg.gs_sweep_plain(p6, None, bfl6, 1.0, "forward")),
+                f"gs_sweep on the step-floor plan ({route}) disagrees with its plain version")
+        floor6_us[route] = event_ms(lambda: kg.gs_sweep(p6, None, bfl6, 1.0, "forward"),
+                                    3) * 1e3 / nfl6
+        emit("timing_k6_floor", case=f"K6 gs_sweep, lower-bidiagonal, {nfl6} one-row steps, "
+             "f64", route=route, us_per_step=floor6_us[route])
+    del fl6, p6
 
-    def k6_sweep_row(label, hh, dt=torch.float64):
-        """One symmetric sweep from x = 0, as GsPrec applies it.  Bound:
-        the matrix's CSR, 1/diag, b and order read once, x written once;
-        sweep_bytes_ms: what the step chain moves (each step's block CSR,
-        1/diag, b rows, x rows read and written, and its distinct neighbour
-        values); step_bound_ms: steps x the floor."""
+    def k6_sweep_row(label, hh, dt=torch.float64, csr_route=False):
+        """One symmetric sweep from x = 0, as GsPrec applies it, on the
+        plan's route (``csr_route``: on the CSR, the layout left out).
+        Bound: the route's operands read once (the CSR's row pointers,
+        columns and values; the DIA layout's slots and a 4-byte mask a row),
+        1/diag, b and order read once, x written once; sweep_bytes_ms: what
+        the step chain moves (each step's block operands as above, its 1/diag,
+        b rows, x rows read and written, and its distinct neighbour values;
+        on the DIA route every slot, those skipped from zero too);
+        step_bound_ms: steps x the route's floor."""
         plan = _plan_in(hh, dt)
+        if csr_route:
+            plan = dataclasses.replace(plan, dia=None, _steps={}, _bufs={})
+        dia = plan.dia
+        route = "csr" if dia is None else "dia"
         n, nnz, sz = plan.n, plan.csr.entries.shape[0], dt.itemsize
-        host = plan.steps("symmetric", 1, False).host
+        host = plan.steps("symmetric", 1, False, dia=dia is not None).host
+        slots = {} if dia is None else {
+            s0: int(nd) * (s1 - s0)
+            for s0, s1, nd in zip(dia.starts[:-1].tolist(), dia.starts[1:].tolist(), dia.ndiag)}
         bb = cmat(n, None, dt) if dt.is_complex else vec(n, dt)
         sweep_bytes = 0
         for begin, end, mode, *_ in host.tolist():
             if mode in (kg.IN_PLACE, kg.TO_SCRATCH):
                 p0, p1 = int(plan.csr.row_map[begin]), int(plan.csr.row_map[end])
                 gathered = int(torch.unique(plan.csr.entries[p0:p1]).shape[0])
-                sweep_bytes += ((end - begin + 1) * 4 + (p1 - p0) * (4 + sz) + 4 * (end - begin) * sz
-                                + gathered * sz)
+                a_bytes = ((end - begin + 1) * 4 + (p1 - p0) * (4 + sz) if dia is None
+                           else (end - begin) * 4 + slots[begin] * sz)
+                sweep_bytes += a_bytes + 4 * (end - begin) * sz + gathered * sz
             else:
                 sweep_bytes += 3 * (end - begin) * sz
-        nbytes = (n + 1) * 4 + nnz * (4 + sz) + 3 * n * sz + 4 * n
+        a_bytes = (n + 1) * 4 + nnz * (4 + sz) if dia is None else 4 * n + dia.values.numel() * sz
+        nbytes = a_bytes + 3 * n * sz + 4 * n
 
         def make(i):
             p = plan if i == 0 else dataclasses.replace(
@@ -3114,6 +3154,8 @@ def main() -> int:
                                               entries=plan.csr.entries.clone(),
                                               values=plan.csr.values.clone(), _rows=None),
                 inv_diag=plan.inv_diag.clone(), order=plan.order.clone(), _blocks=None,
+                dia=None if dia is None else dataclasses.replace(
+                    dia, values=dia.values.clone(), mask=dia.mask.clone()),
                 _steps={}, _bufs={})
             bi = bb if i == 0 else bb.clone()
             kg.gs_sweep(p, None, bi, hh.omega)  # the copy's step list and buffers, before capture
@@ -3124,17 +3166,23 @@ def main() -> int:
             lambda: kg.gs_sweep_per_color(plan, None, bb, hh.omega), 10, 50) * 1e3
         steps = host.shape[0]
         ops = 4 if dt.is_complex else 1  # a complex multiply-add is 8 real operations
-        return timed_kernel(f"K6 gs_sweep {label}, symmetric sweep from x = 0", make, nbytes,
+        kernel = "gs_sweep" if dia is None else "gs_sweep_dia"
+        return timed_kernel(f"K6 {kernel} {label}, symmetric sweep from x = 0", make, nbytes,
                             ops * (4 * nnz + 10 * n), dt, (20, 100), (2, 6), None,
                             library="none: no single torch call computes a Gauss-Seidel sweep",
                             steps=steps, colors=len(plan.offsets) - 1, lanes=plan.csr.group,
-                            chunk_rows=plan.chunk_rows, sweep_bytes_MB=sweep_bytes / 1e6,
+                            route=route,
+                            chunk_rows=plan.chunk_rows if dia is None else kg.DIA_CHUNK_ROWS,
+                            sweep_bytes_MB=sweep_bytes / 1e6,
                             sweep_bytes_ms=sweep_bytes / bw * 1e3,
-                            step_bound_ms=steps * floor6_us * 1e-3, floor_us_per_step=floor6_us,
+                            step_bound_ms=steps * floor6_us[route] * 1e-3,
+                            floor_us_per_step=floor6_us[route],
                             per_color_path_ms=per_color_ms,
                             per_color_path="K5, fill, a gs_color_step launch per step, K5")
 
-    t_k6 = k6_sweep_row("lap1000 f64 POINT", gs[("lap1000", "POINT")])
+    t_k6 = k6_sweep_row("lap1000 f64 POINT, CSR route", gs[("lap1000", "POINT")], csr_route=True)
+    t_k6d = k6_sweep_row("lap1000 f64 POINT", gs[("lap1000", "POINT")])
+    require(t_k6d["route"] == "dia", "lap1000 f64 POINT: not on K6's DIA route")
     k6_sweep_row("fem2d_30k f64 POINT", hp)
     k6_sweep_row("fem2d_30k f64 CLUSTER", gs[("fem2d_30k f64", "CLUSTER")])
 
@@ -3377,6 +3425,11 @@ def main() -> int:
         A, Xs = spmm_c[key]
         cx.setdefault("csr_spmm", k7_row(f"{key} (spmm AUTO route)", A, A.dtype, Xs.shape[1], Xs))
     cx["gs_sweep"] = k6_sweep_row("magnetic lap1000 + 0.01I c128 POINT (GsPrec)", hgm, c128)
+    require(cx["gs_sweep"]["route"] == "csr", "magnetic lap1000 c128: not on K6's CSR route")
+    # the layout is built with the plan, in its dtype: a c64 plan of its own
+    # (the c128 plan above has none, and its c64 copy keeps none)
+    cx["gs_sweep_dia"] = k6_sweep_row("magnetic lap1000 c64 POINT", gs_handle(mag[c64]), c64)
+    require(cx["gs_sweep_dia"]["route"] == "dia", "magnetic lap1000 c64: not on K6's DIA route")
     k6_sweep_row("fem2d_30k + 0.5i diag c128 POINT", gs_c[(c128, "POINT")], c128)
     del spmm_c, gs_c, hgm
 
@@ -3440,8 +3493,8 @@ def main() -> int:
     total_k = []
     for name, row in (("dia_spmv", t_k1), ("dia_spmm", t_k2), ("csr_spmv", t_k3),
                       ("sptrsv_levels", t_k4), ("permute_gather", t_k5),
-                      ("gs_sweep", t_k6), ("csr_spmm", t_k7), ("spgemm_rows", t_k8),
-                      ("probe_gather_acc", t_k9)):
+                      ("gs_sweep", t_k6), ("gs_sweep_dia", t_k6d), ("csr_spmm", t_k7),
+                      ("spgemm_rows", t_k8), ("probe_gather_acc", t_k9)):
         entry = dict(name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
                      launches=path[name], max_abs_err=errs[name], ms=row["ms"],
                      plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],

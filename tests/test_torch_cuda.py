@@ -8,9 +8,11 @@ CHOLMOD imports, their applies two K4 launches and no K5, equal to K5, K4,
 K4, K5 bit for bit, PAR_ILUT, MDF, the ILU(k) refresh) through the kernels, and
 the probe kernel K9; K4 with the level permutations folded in (src/dst), at
 each lane width, replayed in a CUDA graph, and trapping on a plan that does
-not order its triangle; K6's fused sweep equal to the per-color path it
-replaces bit for bit, one launch per GsPrec apply, replayed in a CUDA graph,
-and trapping on a plan whose steps cannot finish; the BSR route's same bits on two calls,
+not order its triangle; K6's fused sweep on the CSR equal to the per-color
+path it replaces bit for bit, on the DIA layout within 1000·eps of its plain
+version and of the CSR route, one launch per GsPrec apply, replayed in a CUDA
+graph, and trapping on a plan whose steps cannot finish (on each route); the
+BSR route's same bits on two calls,
 block Gauss-Seidel's two K1 launches a color a symmetric sweep, bspgemm's exact reuse,
 getrf's 0-based pivots (tpukk's, recorded as constants) and the rotation constructors'
 placement on the card; complex values (K1, K3, K4 and K8 in complex64 and
@@ -631,15 +633,16 @@ def _sweep_cases(dev):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 def test_gs_sweep_kernel_equals_per_color_path(dev, dtype):
-    """K6's fused sweep against the path it replaces (K5, a fill, a
-    gs_color_step launch per color step at the sweep's lanes per row, K5),
+    """K6's fused sweep on the CSR against the path it replaces (K5, a fill,
+    a gs_color_step launch per color step at the sweep's lanes per row, K5),
     bit for bit: every direction, x given and not, natural and permuted
     order, k = 1 and 4, two sweeps; at the plan's chunk size and at chunks
-    of 7 rows (several chunks a step)."""
+    of 7 rows (several chunks a step).  The Laplacian's plan, whose vectors
+    would take the DIA route, is held on the CSR here without its layout."""
     from tpukk_torch.sparse.gauss_seidel import _plan_in
 
     for name, h in _sweep_cases(dev).items():
-        plan = _plan_in(h, dtype)
+        plan = dataclasses.replace(_plan_in(h, dtype), dia=None, _steps={}, _bufs={})
         for p in (plan, dataclasses.replace(plan, chunk_rows=7, _steps={}, _bufs={})):
             for k in (None, 4):
                 b = _x(plan.n, dtype, dev, k, seed=1)
@@ -654,22 +657,76 @@ def test_gs_sweep_kernel_equals_per_color_path(dev, dtype):
                             assert torch.equal(got, ref), (name, k, direction, permuted)
 
 
+def _dia_cases(dev):
+    """POINT plans that take K6's DIA route: a 5-point Laplacian (2 colors, 5
+    offsets a block) and HPCG's 27 points on 24³ (8 colors, 26 offsets)."""
+    t = sps.diags([1.0, 1.0, 1.0], [-1, 0, 1], shape=(24, 24))
+    hp = sps.kron(sps.kron(t, t), t).tocsr()
+    hp.data[:] = -1.0
+    hp.setdiag(26.0)
+    lap = tkc.generate_structured_laplacian(60, 60, dtype=np.float64, device=dev)
+    return {"lap": _gs_handle(lap, omega=1.2),
+            "hpcg24": _gs_handle(tkc.CsrMatrix.from_scipy(hp.tocsr(), device=dev), omega=1.2)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.complex64,
+                                   torch.complex128], ids=["f32", "f64", "c64", "c128"])
+def test_gs_sweep_dia_kernel_matches_plain(dev, dtype, monkeypatch):
+    """K6's DIA route against its plain version and against the CSR route:
+    every direction, x given and not, natural and permuted order, two
+    sweeps, at the route's chunk size and at chunks of 7 rows, from a
+    working buffer of NaN: within 1000·eps·max|plain| (the steps' 20·eps
+    bounds, chained), one gs_sweep_dia launch an apply and no gs_sweep."""
+    from tpukk_torch.sparse.gauss_seidel import _plan_in
+
+    eps = torch.finfo(dtype).eps
+    for name, h in _dia_cases(dev).items():
+        plan = _plan_in(h, dtype)
+        if plan.dia is None:  # the Laplacian in complex128: the bytes rule keeps the CSR
+            assert name == "lap" and dtype == torch.complex128
+            continue
+        csr = dataclasses.replace(plan, dia=None, _steps={}, _bufs={})
+
+        def vec(seed):
+            v = _x(plan.n, torch.float64, dev, seed=seed)
+            return (v + 0.5j * _x(plan.n, torch.float64, dev, seed=seed + 10)).to(dtype) \
+                if dtype.is_complex else v.to(dtype)
+
+        b = vec(1)
+        for chunk in (kg.DIA_CHUNK_ROWS, 7):
+            monkeypatch.setattr(kg, "DIA_CHUNK_ROWS", chunk)
+            p = dataclasses.replace(plan, _steps={}, _bufs={})
+            for x in (None, vec(2)):
+                for direction in ("forward", "backward", "symmetric"):
+                    for permuted in (False, True):
+                        p.buffer("work", plan.n, b).fill_(float("nan"))
+                        n0, n1 = _launches(kg.gs_sweep_dia), _launches(kg.gs_sweep)
+                        got = kg.gs_sweep(p, x, b, h.omega, direction, 2, permuted)
+                        assert (_launches(kg.gs_sweep_dia), _launches(kg.gs_sweep)) == (n0 + 1, n1)
+                        plain = kg.gs_sweep_dia_plain(p, x, b, h.omega, direction, 2, permuted)
+                        ref = kg.gs_sweep(csr, x, b, h.omega, direction, 2, permuted)
+                        torch.cuda.synchronize()
+                        tol = 1000 * eps * float(ref.abs().max())
+                        assert float((got - plain).abs().max()) <= tol, (name, direction)
+                        assert float((got - ref).abs().max()) <= tol, (name, direction)
+
+
 def test_gsprec_apply_is_one_k6_launch(dev):
-    """GsPrec.apply (POINT and CLUSTER): one gs_sweep launch, no color step,
-    no K5 permutation; its result equals the plain sweep's on the CPU."""
+    """GsPrec.apply (POINT and CLUSTER): one K6 launch (POINT's on the
+    Laplacian on the DIA route, CLUSTER's on the CSR), no color step, no K5
+    permutation; its result equals the plain sweep's on the CPU."""
     from tpukk_torch.common import permute
 
     A = tkc.generate_structured_laplacian(80, 80, dtype=np.float64, device=dev)
     cpu = tkc.CsrMatrix.from_scipy(A.to_scipy(), device="cpu")
     r = _x(A.nrows, torch.float64, dev, seed=4)
-    for alg in (GsAlgorithm.POINT, GsAlgorithm.CLUSTER):
+    kernels = (kg.gs_sweep_dia, kg.gs_sweep, kg.gs_color_step, permute.permute_gather)
+    for alg, want in ((GsAlgorithm.POINT, (1, 0, 0, 0)), (GsAlgorithm.CLUSTER, (0, 1, 0, 0))):
         prec = GsPrec(_gs_handle(A, alg), A)
-        counts = (_launches(kg.gs_sweep), _launches(kg.gs_color_step),
-                  _launches(permute.permute_gather))
+        counts = [_launches(kern) for kern in kernels]
         z = prec.apply(r)
         torch.cuda.synchronize()
-        assert (_launches(kg.gs_sweep), _launches(kg.gs_color_step),
-                _launches(permute.permute_gather)) == (counts[0] + 1, counts[1], counts[2])
+        assert tuple(_launches(kern) - n for kern, n in zip(kernels, counts)) == want
         ref = GsPrec(_gs_handle(cpu, alg), cpu).apply(r.cpu())
         assert (z.cpu() - ref).abs().max() <= 1e-12 * ref.abs().max()
 
@@ -699,10 +756,13 @@ def test_gs_sweep_replays_in_a_cuda_graph(dev):
             assert torch.equal(out, ref)
 
 
-def test_gs_sweep_traps_on_a_plan_that_cannot_finish(dev):
+@pytest.mark.parametrize("route", ["dia", "csr"])
+def test_gs_sweep_traps_on_a_plan_that_cannot_finish(dev, route):
     """A step that waits on more chunks than the step before it has never
     starts: the kernel traps after 2^28 polls and the launch fails, instead
-    of hanging the card (in a child process: a trap ends its CUDA context)."""
+    of hanging the card (in a child process: a trap ends its CUDA context);
+    on each route (the bidiagonal plan has a DIA layout: one offset a
+    block)."""
     import subprocess
     import sys
     from pathlib import Path
@@ -715,7 +775,10 @@ dev = torch.device("cuda", 0)
 n = 8
 plan = kg.build_gs_sweep_plan(np.r_[0, np.arange(n)], np.arange(n - 1), np.full(n - 1, -0.5),
                               np.ones(n), np.arange(n + 1), np.arange(n), dev)
-st = plan.steps("forward", 1, False)
+assert plan.dia is not None
+if {route!r} == "csr":
+    plan.dia = None
+st = plan.steps("forward", 1, False, dia=plan.dia is not None)
 st.steps[1, kg.STEP_FIELDS.index("wait")] += 1
 try:
     kg.gs_sweep(plan, None, torch.ones(n, dtype=torch.float64, device=dev), 1.0, "forward", 1)
@@ -769,12 +832,12 @@ def test_gsprec_pcg_runs_through_k6(dev):
     A = tkc.generate_structured_laplacian(100, 100, dtype=np.float64, device=dev)
     b = _x(A.nrows, torch.float64, dev, seed=1)
     h = _gs_handle(A)
-    n0 = _launches(kg.gs_sweep)
+    n0 = _launches(kg.gs_sweep_dia)
     xs, st = pcg(A, b, tol=1e-8, max_iters=2000, prec=GsPrec(h, A))
     r = b.cpu().numpy() - A.to_scipy() @ xs.cpu().numpy()
     assert st.converged and np.linalg.norm(r) <= 1e-7 * np.linalg.norm(b.cpu().numpy())
-    # one K6 launch per preconditioner apply
-    assert _launches(kg.gs_sweep) - n0 >= st.num_iters
+    # one K6 launch per preconditioner apply, on the DIA route (the Laplacian's plan)
+    assert _launches(kg.gs_sweep_dia) - n0 >= st.num_iters
     _, sj = pcg(A, b, tol=1e-8, max_iters=2000, prec=JacobiPrec(A))
     assert st.num_iters < sj.num_iters
 

@@ -26,6 +26,7 @@ held exactly (``torch.equal``) to the per-color loop of
 definition.
 """
 import dataclasses
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -478,3 +479,226 @@ def test_gs_sweep_plan_steps(sweep_handles):
             else:
                 assert next(rows) == [s, e, gs_cuda.IN_PLACE, int(rep == 2), *zero]
     assert next(rows, None) is None
+
+
+# ---- K6's DIA route: the plan's rule, and its plain version against the CSR's ----
+
+def _hpcg(m):
+    """HPCG's 27-point operator on an m³ grid: 26 on the diagonal, −1 for
+    each neighbour."""
+    t = sps.diags([1.0, 1.0, 1.0], [-1, 0, 1], shape=(m, m))
+    sp = sps.kron(sps.kron(t, t), t).tocsr()
+    sp.data[:] = -1.0
+    sp.setdiag(26.0)
+    return jkc.CsrMatrix.from_scipy(sp.tocsr())
+
+
+def _fem30k():
+    from tpukk_torch.containers import read_mtx
+    return read_mtx(Path(__file__).resolve().parent.parent / "data" / "fem2d_30k.mtx.gz",
+                    device=CPU)
+
+
+# name: (algorithm, matrix, takes the route)
+DIA_CASES = {
+    "hpcg16": ("POINT", lambda: _port(_hpcg(16)), True),
+    "lap": ("POINT", lambda: _port(_shifted_lap(20, 0.5)), True),
+    "fem2d_30k": ("POINT", _fem30k, False),
+    "cluster_hpcg16": ("CLUSTER", lambda: _port(_hpcg(16)), False),
+}
+
+
+@pytest.fixture(scope="module")
+def dia_handles():
+    out = {}
+    for name, (alg, make, _) in DIA_CASES.items():
+        At = make()
+        h = GsHandle(GsAlgorithm[alg])
+        gauss_seidel_symbolic(h, At)
+        gauss_seidel_numeric(h, At, omega=1.1)
+        out[name] = h, At
+    return out
+
+
+@pytest.mark.parametrize("case", sorted(DIA_CASES))
+def test_dia_route_is_the_plans_rule(dia_handles, case):
+    """The plan builds the layout exactly where its rule holds, and the
+    layout holds each block's distinct offsets, the values and the masks."""
+    h, _ = dia_handles[case]
+    plan = h._plans[torch.float64]
+    assert (plan.dia is not None) == DIA_CASES[case][2]
+    rows = np.repeat(np.arange(plan.n), np.diff(plan.csr.row_map.numpy()))
+    dist = plan.csr.entries.numpy().astype(np.int64) - rows
+    blocks = list(zip(plan.offsets[:-1], plan.offsets[1:]))
+    counts = [np.unique(dist[(rows >= s) & (rows < e)]).size for s, e in blocks]
+    slots = sum(c * (e - s) for c, (s, e) in zip(counts, blocks))
+    if plan.dia is None:
+        assert (any(plan.coupled) or max(counts) > gs_cuda.DIA_SLOTS
+                or slots * 8 >= dist.size * 12)
+        return
+    dia = plan.dia
+    assert dia.ndiag.tolist() == counts and dia.values.numel() == slots
+    assert slots * 8 < dist.size * 12  # the route's bytes: fewer than the CSR's
+    if case == "hpcg16":
+        assert counts == [26] * 8 and slots == 106_496
+    if case == "lap":
+        assert counts == [5] * (len(blocks))
+    # every entry sits in its slot, every other slot is 0 with its mask bit clear
+    dense = sps.csr_matrix((plan.csr.values.numpy(), plan.csr.entries.numpy(),
+                            plan.csr.row_map.numpy()), shape=(plan.n, plan.n)).toarray()
+    mask = dia.mask.numpy().view(np.uint32)
+    for c, (s, e) in enumerate(blocks):
+        offs = dia.offs[c, :counts[c]].numpy()
+        np.testing.assert_array_equal(offs, np.unique(dist[(rows >= s) & (rows < e)]))
+        vals = dia.values[int(dia.vbase[c]):int(dia.vbase[c]) + counts[c] * (e - s)].numpy()
+        for d, off in enumerate(offs):
+            r = np.arange(s, e)
+            cols = r + off
+            inside = (cols >= 0) & (cols < plan.n)
+            want = np.zeros(e - s)
+            want[inside] = dense[r[inside], cols[inside]]
+            present = np.zeros(e - s, bool)
+            present[inside] = dense[r[inside], cols[inside]] != 0
+            np.testing.assert_array_equal(vals[d * (e - s):(d + 1) * (e - s)], want)
+            np.testing.assert_array_equal((mask[s:e] >> d) & 1, present)
+
+
+def test_dia_layout_weighs_bytes_at_each_width(dia_handles):
+    """``to(dtype)`` keeps the layout where its bytes still pay at the new
+    width: the 5-point Laplacian's 28 % padding pays in f32 and complex64,
+    not in complex128 (16-byte values against 20 bytes an entry)."""
+    h, _ = dia_handles["lap"]
+    for dt, kept in ((torch.float32, True), (torch.complex64, True),
+                     (torch.complex128, False)):
+        plan = _plan_in(h, dt)
+        assert (plan.dia is not None) == kept
+        if kept:
+            assert plan.dia.values.dtype == dt
+    h, _ = dia_handles["hpcg16"]
+    assert _plan_in(h, torch.complex128).dia is not None  # 14 % padding
+
+
+def test_dia_layout_refuses_two_entries_on_one_slot():
+    """A row with two entries on one offset (a repeated column) keeps the
+    CSR: a slot holds one value.  The same rows without the repeat take the
+    layout (each row its own block, one offset a block)."""
+    n = 8
+    order, offsets = np.arange(n), np.arange(n + 1)
+    for repeat in (False, True):
+        ent = np.r_[0, np.arange(n - 1)] if repeat else np.arange(n - 1)
+        rm = np.r_[0, 0, np.arange(2, n + 1)] if repeat else np.r_[0, np.arange(n)]
+        plan = gs_cuda.build_gs_sweep_plan(rm, ent, np.full(ent.size, -0.5), np.ones(n),
+                                           offsets, order, CPU)
+        assert (plan.dia is None) == repeat
+
+
+def _dia_steps_hold(plan, x, b, omega, direction):
+    """Each relaxation step of the DIA layout against the CSR's color step on
+    the same input (the zero range read as 0, the rest of the working buffer
+    NaN where not yet written), within ``step_error_bound``; returns the sum
+    of the steps' largest bounds."""
+    dia = plan.dia
+    host = plan.steps(direction, 1, x is not None, dia=True).host
+    o = plan.order.long()
+    bp = b[o]
+    work = torch.full_like(bp, float("nan"))
+    blocks = {blk.start: (c, blk) for c, blk in enumerate(plan.blocks)}
+    total = 0.0
+    for begin, end, mode, _, zlo, zhi, _, _ in host.tolist():
+        if mode == gs_cuda.GATHER:
+            work[begin:end] = x[o][begin:end]
+            continue
+        c, blk = blocks[begin]
+        seen = work.clone()
+        seen[zlo:zhi] = 0
+        want = gs_cuda.gs_color_step_plain(blk, seen.clone(), bp, omega)[begin:end]
+        got = gs_cuda.gs_dia_step_plain(dia, c, work, bp, plan.inv_diag, omega, zlo, zhi)
+        bound = gs_cuda.step_error_bound(blk, seen, bp, omega)
+        assert bool(((got - want).abs() <= bound).all()), float(((got - want).abs() / bound).max())
+        total += float(bound.max())
+        work[begin:end] = want
+    return total
+
+
+@pytest.mark.parametrize("x_given", [False, True], ids=["x0", "x"])
+@pytest.mark.parametrize("direction", ["forward", "backward", "symmetric"])
+@pytest.mark.parametrize("case,dtype", [
+    ("hpcg16", torch.float32), ("hpcg16", torch.float64), ("hpcg16", torch.complex128),
+    # the 5-point Laplacian's layout does not pay in complex128 (see above)
+    ("lap", torch.float32), ("lap", torch.float64), ("lap", torch.complex64)],
+    ids=["hpcg16-f32", "hpcg16-f64", "hpcg16-c128", "lap-f32", "lap-f64", "lap-c64"])
+def test_gs_sweep_dia_plain_within_bound_of_csr(dia_handles, case, dtype, direction, x_given):
+    """The DIA route's plain version (the layout in torch ops) against
+    ``gs_sweep_plain`` on the CSR: every step within ``step_error_bound``'s
+    20·eps rule, and the apply within the sum of its steps' bounds (a
+    relaxation of a diagonally dominant row does not grow an error that
+    reaches it)."""
+    h, At = dia_handles[case]
+    plan = _plan_in(h, dtype)
+    rng = np.random.default_rng(7)
+    b = torch.from_numpy(rng.standard_normal(plan.n)).to(dtype)
+    x = torch.from_numpy(rng.standard_normal(plan.n)).to(dtype) if x_given else None
+    if dtype.is_complex:
+        b = b + 0.5j * torch.from_numpy(rng.standard_normal(plan.n)).to(dtype)
+    total = _dia_steps_hold(plan, x, b, h.omega, direction)
+    got = gs_cuda.gs_sweep_dia(plan, x, b, h.omega, direction)  # the CPU runs the plain version
+    want = gs_cuda.gs_sweep_plain(plan, x, b, h.omega, direction)
+    assert float((got - want).abs().max()) <= total
+    if dtype == torch.float64:
+        assert torch.equal(gauss_seidel_apply(h, At, x, b, 1, direction), want)
+
+
+@pytest.mark.parametrize("permuted", [False, True], ids=["natural", "permuted"])
+@pytest.mark.parametrize("x_given", [False, True], ids=["x0", "x"])
+@pytest.mark.parametrize("case", ["hpcg16", "lap"])
+def test_gs_sweep_dia_ignores_what_the_buffer_held(dia_handles, case, x_given, permuted):
+    """The working buffer is never filled: a padded slot, a column in the
+    zero range and a row not yet written read nothing from it, so a buffer
+    of NaN gives the same bits as one of zeros."""
+    h, _ = dia_handles[case]
+    plan = _plan_in(h, torch.float64)
+    rng = np.random.default_rng(9)
+    b = torch.from_numpy(rng.standard_normal(plan.n))
+    x = torch.from_numpy(rng.standard_normal(plan.n)) if x_given else None
+    outs = []
+    for fill in (float("nan"), 0.0):
+        plan.buffer("work", plan.n, b).fill_(fill)
+        outs.append(gs_cuda.gs_sweep_dia_plain(plan, x, b, h.omega, "symmetric", 2, permuted))
+    assert torch.equal(outs[0], outs[1]) and bool(torch.isfinite(outs[0]).all())
+
+
+class _FakeGsLibrary:
+    """K6's C entries as a CUDA launch would reach them, each returning 0:
+    what the wrappers decide, counted without a card."""
+
+    def tpukk_gs_sweep(self, *args):
+        return 0
+
+    def tpukk_gs_sweep_dia(self, *args):
+        return 0
+
+
+@pytest.mark.parametrize("case,k,route", [("hpcg16", 1, "gs_sweep_dia"),
+                                          ("lap", 1, "gs_sweep_dia"),
+                                          ("hpcg16", 4, "gs_sweep"),
+                                          ("fem2d_30k", 1, "gs_sweep"),
+                                          ("cluster_hpcg16", 1, "gs_sweep")])
+def test_gs_sweep_route_and_its_launch_counter(dia_handles, monkeypatch, case, k, route):
+    """An apply on a plan with the layout and a vector b launches
+    ``gs_sweep_dia`` once and ``gs_sweep`` never; a multivector b, and a
+    plan without the layout, the other way round.  A ``GsPrec`` apply (the
+    cell's) counts the same."""
+    from tpukk_torch import _kernels
+    h, At = dia_handles[case]
+    monkeypatch.setattr(_kernels, "on_cuda", lambda t, name: True)
+    monkeypatch.setattr(_kernels, "library", lambda name: _FakeGsLibrary())
+    monkeypatch.setattr(_kernels, "stream_of", lambda t: 0)
+    b = torch.ones((At.nrows,) if k == 1 else (At.nrows, k), dtype=torch.float64)
+    gs_cuda.reset_launch_counts()
+    gauss_seidel_apply(h, At, None, b)
+    assert gs_cuda.launch_counts() == {"gs_color_step": 0, "gs_sweep": int(route == "gs_sweep"),
+                                       "gs_sweep_dia": int(route == "gs_sweep_dia")}
+    if k == 1:
+        GsPrec(h, At).apply(b)
+        assert gs_cuda.launch_counts()[route] == 2 and sum(gs_cuda.launch_counts().values()) == 2
+    gs_cuda.reset_launch_counts()

@@ -206,7 +206,7 @@ def test_counters_count_set_and_reset():
 
 @pytest.mark.parametrize("mod,names", [
     (spmv_cuda, ["dia_spmv", "dia_spmm", "csr_spmv", "csr_spmm"]),
-    (gs_cuda, ["gs_color_step", "gs_sweep"]),
+    (gs_cuda, ["gs_color_step", "gs_sweep", "gs_sweep_dia"]),
     (sptrsv_cuda, ["sptrsv_levels", "permute_gather"]),
     (spgemm_cuda, ["spgemm_rows"]),
     (probe_cuda, ["probe_gather_acc"]),

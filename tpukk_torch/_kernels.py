@@ -60,6 +60,8 @@ SOURCES = {
                                 ctypes.c_double, _P],
         "tpukk_gs_sweep": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                            _P, _I, ctypes.c_double, _P],
+        "tpukk_gs_sweep_dia": [_I, _I, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P,
+                               _P, _P, _P, _P, ctypes.c_double, _P],
     },
     "sptrsv": {
         "tpukk_sptrsv_levels": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],

@@ -23,9 +23,14 @@ ROOT = HERE.parent
 
 class Registry:
     def __init__(self, roots=(), bench_file: Path | None = None):
-        self.roots = [Path(r) for r in roots] + [HERE]
+        self._args = ([Path(r) for r in roots], bench_file)
+        self.roots = self._args[0] + [HERE]
         self.bench = json.loads(Path(bench_file or ROOT / "BENCHMARK.json").read_text())
         self._modules: dict = {}
+
+    def __reduce__(self):
+        # a rank process opens the same registry anew (modules do not pickle)
+        return type(self), self._args
 
     def _find(self, sub: str, name: str, ext: str) -> Path:
         for r in self.roots:

@@ -6,9 +6,9 @@ line of standard output:
 ``--trace 0`` prints the cell's end-to-end metrics, ``--trace 1`` its
 per-layer metrics with the device's busy seconds and the breakdown.  The
 numbers that decide ``correct`` are the last lines of standard error and
-the result's last key.  A run without enough CUDA devices, or whose
-process holds JAX or ``tpukk`` once the window has closed, exits non-zero
-and prints no result.
+the result's last key.  A run without enough CUDA devices, whose process
+or any of whose rank processes holds JAX or ``tpukk`` once the window has
+closed, or one of whose ranks fails, exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -21,7 +21,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 
-def main(argv=None) -> int:
+def main(argv=None, reg=None, device=None) -> int:
+    """Tests pass a registry of their own cells (``reg``; None:
+    BENCHMARK.json's) and the CPU (``device``; None: the cards)."""
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--workload", required=True)
     p.add_argument("--seed", type=int, required=True)
@@ -35,10 +37,14 @@ def main(argv=None) -> int:
     from kkbench import harness
 
     try:
-        result = harness.run(args.workload, args.seed, args.seconds, bool(args.trace))
+        result = harness.run(args.workload, args.seed, args.seconds, bool(args.trace), reg=reg,
+                             device=device)
     except harness.NoDevice as e:
         print(e, file=sys.stderr)
         return 2
+    except harness.Forbidden as e:
+        print(e, file=sys.stderr)
+        return 3
     bad = harness.forbidden_modules()
     if bad:
         print(f"kkbench: the run's process holds {bad}: no result", file=sys.stderr)

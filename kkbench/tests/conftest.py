@@ -17,9 +17,10 @@ LIMITS = {"symgs_pcg": dict(_GAPS, color_conflicts=0), "jacobi_pcg": dict(_GAPS)
           "ilu_gmres": dict(_GAPS, iters_gap=0.25, ilu_gap=1e-12)}
 
 
-def write_root(root: Path, cfg: dict, mixes=MIXES, extra_metrics=(), limits=None) -> Path:
-    """A folder holding a BENCHMARK.json of cells ``<cfg>.<mix>``, the
-    configuration and each cell's limits."""
+def write_root(root: Path, cfg: dict, mixes=MIXES, extra_metrics=(), limits=None,
+               chips: int = 1) -> Path:
+    """A folder holding a BENCHMARK.json of cells ``<cfg>.<mix>`` on
+    ``chips`` chips, the configuration and each cell's limits."""
     bench = json.loads((ROOT / "BENCHMARK.json").read_text())
     (root / "configs").mkdir(parents=True, exist_ok=True)
     (root / "limits").mkdir(exist_ok=True)
@@ -27,7 +28,7 @@ def write_root(root: Path, cfg: dict, mixes=MIXES, extra_metrics=(), limits=None
     bench["configs"] = [{"name": cfg["name"], "source": "test", "file": "configs/x.json",
                          "reduced": [], "why": "test"}]
     bench["workloads"] = [{"name": f"{cfg['name']}.{m}", "config": cfg["name"], "traffic": m,
-                           "chips": 1, "why": "test"} for m in mixes]
+                           "chips": chips, "why": "test"} for m in mixes]
     for m in bench["end_to_end"]:
         m.pop("workloads", None)
     bench["per_layer"] += list(extra_metrics)

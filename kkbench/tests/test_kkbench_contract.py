@@ -63,8 +63,15 @@ def test_cell_parts_found_by_name(w):
     assert (KKB / "reference" / f"prec_{mix['prec']}.py").is_file()
     limits = json.loads((KKB / "limits" / f"{w['name']}.json").read_text())
     assert {"relres", "spmv_gap", "prec_gap"} <= set(limits)
-    assert w["chips"] == 1 and len(w["why"]) <= 200
+    assert w["chips"] in (1, 4) and len(w["why"]) <= 200
     assert any(c["name"] == w["config"] for c in BENCH["configs"])
+
+
+def test_four_chip_cells_are_few():
+    """At most a quarter of the cells, rounded down, ask for four chips; one
+    always may."""
+    four = sum(w["chips"] == 4 for w in BENCH["workloads"])
+    assert four <= max(1, len(BENCH["workloads"]) // 4)
 
 
 @pytest.mark.parametrize("c", BENCH["configs"], ids=lambda c: c["name"])

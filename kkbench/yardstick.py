@@ -9,6 +9,7 @@ take the matrix (a SciPy CSR matrix), never the route.
 """
 from __future__ import annotations
 
+import inspect
 import math
 
 import numpy as np
@@ -112,3 +113,73 @@ def slope_seconds(calls, k1: int = 50, k2: int = 250, reps: int = 7) -> float:
     if b2 <= b1:
         return b2 / k2
     return (b2 - b1) / (k2 - k1)
+
+
+# a capture that other threads' CUDA calls leave alone, where torch has it
+_THREAD_LOCAL = ({"capture_error_mode": "thread_local"}
+                 if "capture_error_mode" in inspect.signature(torch.cuda.graph).parameters else {})
+
+
+def slope_seconds_ranks(calls, team, k1: int = 50, k2: int = 250, reps: int = 7) -> tuple:
+    """``slope_seconds`` for a call that every rank of ``team`` makes in
+    step, its collectives waiting for the other ranks: (seconds per call on
+    this rank, the method).
+
+    Each rank captures k1 and k2 calls into two CUDA graphs, in the same
+    order on every rank ("graphs"), where every rank's capture succeeds
+    (NCCL's collectives can be captured; the capture is thread-local, so
+    NCCL's watchdog thread may query its events meanwhile); otherwise the
+    k1 and k2 calls run eagerly between CUDA events ("events").
+    Every replay or run starts after a barrier of the ranks, and the best of
+    ``reps`` enters the slope, as in ``slope_seconds``."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            for fn in calls:
+                fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graphs = {}
+    try:
+        for k in (k1, k2):
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g, **_THREAD_LOCAL):
+                for i in range(k):
+                    calls[i % len(calls)]()
+            graphs[k] = g
+    except RuntimeError:
+        graphs = {}
+    torch.cuda.synchronize()
+    captured = team.all(len(graphs) == 2)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+
+    def once(k: int) -> None:
+        if captured:
+            graphs[k].replay()
+        else:
+            for i in range(k):
+                calls[i % len(calls)]()
+
+    def best(k: int) -> float:
+        team.barrier()
+        once(k)
+        torch.cuda.synchronize()
+        t = float("inf")
+        for _ in range(reps):
+            team.barrier()
+            start.record()
+            once(k)
+            end.record()
+            end.synchronize()
+            t = min(t, start.elapsed_time(end) * 1e-3)
+        return t
+
+    b1, b2 = best(k1), best(k2)
+    del graphs
+    torch.cuda.synchronize()
+    method = "graphs" if captured else "events"
+    if b2 <= b1:
+        return b2 / k2, method
+    return (b2 - b1) / (k2 - k1), method

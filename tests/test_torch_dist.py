@@ -31,7 +31,9 @@ from tpukk.containers import generate_diag_dominant_csr as j_diag_dominant
 from tpukk.containers import generate_structured_laplacian as j_laplacian
 from tpukk.dist import gt_spmv as jgt
 from tpukk.dist import halo as jhalo
+import torch_dist_jobs
 from tpukk_torch import dist as td
+from tpukk_torch.common import TpuKKError
 from tpukk_torch.containers import CsrMatrix as TCsr
 from tpukk_torch.dist import gt_spmv as tgt
 from tpukk_torch.dist import ranks
@@ -429,3 +431,173 @@ def test_exports_match_tpukk():
     assert sorted(td.__all__) == sorted(jd.__all__) and len(td.__all__) == 29
     assert all(hasattr(td, n) for n in td.__all__)
     assert "dist" in tpukk_torch.__all__
+
+
+# ---- PCG with the distributed multicolor Gauss-Seidel (DistGsPrec) --------
+
+def _hpcg_tiny():
+    """HPCG's 27-point operator on a 2 × 2 × 1 process grid of 6 × 5 × 4
+    boxes (kkbench's builder), the parts in rank order: the port's K3 and
+    Gauss-Seidel plans of the whole (SERIAL colors), and the SciPy matrix."""
+    from kkbench.harness import concat_parts
+    from kkbench.matrices import stencil27
+    from tpukk_torch.graph import ColoringAlgorithm
+
+    cfg = {"nx": 6, "ny": 5, "nz": 4, "diagonal": 26.0, "offdiagonal": -1.0,
+           "dtype": "float64", "process_grid": [2, 2, 1]}
+    whole = concat_parts([stencil27.build_part(cfg, "cpu", r, P) for r in range(P)])
+    sp = sps.csr_matrix((whole["values"].numpy(), whole["entries"].numpy(),
+                         whole["row_map"].numpy()), shape=(whole["nrows"], whole["ncols"]))
+    TA = TCsr.from_scipy(sp, device=CPU)
+    gs = td.build_dist_gs_gt_plan(TA, P, coloring=ColoringAlgorithm.SERIAL)
+    plan = td.build_dist_gt_plan(TA, P)
+    assert gs.rows_per_part == plan.rows_per_part == sp.shape[0] // P
+    return plan, gs, sp
+
+
+def _ref_prec(sp, colors):
+    from kkbench.reference import prec_symgs
+
+    return prec_symgs.Reference(sp, {"colors": colors}, "cpu", torch.float64)
+
+
+def test_dist_gs_prec_is_the_global_colored_sweep(pool, rng):
+    """DistGsPrec.apply on four ranks equals the plain global multicolor
+    symmetric sweep from zero in the plan's colors (the benchmark's
+    reference) within 1e-12 relative; its colors are a distance-1 coloring
+    of the whole matrix."""
+    from kkbench.reference import prec_symgs
+
+    _, gs, sp = _hpcg_tiny()
+    r = rng.standard_normal(sp.shape[0])
+    outs = pool.run(torch_dist_jobs.gs_apply, gs, r)
+    z = np.concatenate([o[0] for o in outs])
+    colors = np.concatenate([o[1] for o in outs])
+    assert prec_symgs.conflicts(sp, colors) == 0 and colors.max() == gs.num_colors
+    z_ref = _ref_prec(sp, colors).apply(torch.from_numpy(r)).numpy()
+    assert np.abs(z - z_ref).max() <= 1e-12 * np.abs(z_ref).max()
+
+
+def _gs_pcg(pool, rng, check_every=10):
+    plan, gs, sp = _hpcg_tiny()
+    b = sp @ rng.standard_normal(sp.shape[0])
+    outs = pool.run(torch_dist_jobs.gs_pcg, plan, gs, b, tol=1e-8, max_iters=500,
+                    check_every=check_every)
+    assert len({(o[1], o[2]) for o in outs}) == 1  # every rank alike
+    return plan, gs, sp, b, outs
+
+
+def test_dist_pcg_with_gs_prec_matches_the_reference(pool, rng):
+    """dist_pcg(prec=DistGsPrec, check_every=10) converges to 1e-8 in the
+    iterations of the benchmark's plain PCG with the plain sweep."""
+    from kkbench.reference import csr, pcg
+
+    plan, gs, sp, b, outs = _gs_pcg(pool, rng)
+    x = np.concatenate([o[0] for o in outs])
+    its, rel = outs[0][1], outs[0][2]
+    assert rel <= 1e-8 and its % 10 == 0
+    colors = np.concatenate([o[4] for o in outs])
+    bt = torch.from_numpy(b)
+    x_ref, its_ref, ok = pcg.solve(csr.to_torch(sp, "cpu", torch.float64), bt,
+                                   _ref_prec(sp, colors).apply, 1e-8,
+                                   {"check_every": 10, "max_iters": 500})
+    assert ok and its == its_ref
+    assert np.linalg.norm(sp @ x - b) <= 1e-8 * np.linalg.norm(b) * 1.01
+    assert np.abs(x - x_ref.numpy()).max() <= 1e-8 * np.abs(x_ref.numpy()).max()
+
+
+def test_dist_pcg_jacobi_unchanged_bit_for_bit(pool, rng):
+    """With inv_diag and check_every 1, dist_pcg gives bit for bit what its
+    loop gave before it took prec and check_every."""
+    plan, _, sp = _hpcg_tiny()
+    b = rng.standard_normal(sp.shape[0])
+    outs = pool.run(torch_dist_jobs.jacobi_pcg_now_and_before, plan, b,
+                    1.0 / sp.diagonal(), 1e-10, 300)
+    for (x, its, rel), (x0, its0, rel0) in outs:
+        assert its == its0 and rel == rel0 and np.array_equal(x, x0)
+    assert outs[0][0][2] <= 1e-10
+
+
+def test_dist_pcg_counts_its_halo_exchanges(pool, rng):
+    """dist.halo_exchanges: 2 × colors a preconditioner apply and one a
+    SpMV, so 2 × colors + 1 an iteration and the apply before the loop;
+    dist.halo_bytes: what those exchanges send to the other ranks."""
+    plan, gs, _, _, outs = _gs_pcg(pool, rng)
+    colors = gs.num_colors
+    for _, its, _, counted, _, _ in outs:
+        applies, spmvs = its + 1, its
+        assert counted["dist.halo_exchanges"] == (2 * colors + 1) * its + 2 * colors
+        gs_bytes = (P - 1) * gs.halo * 8
+        spmv_bytes = (plan.halo_total if isinstance(plan, td.DistGtPlan2)
+                      else (P - 1) * plan.halo) * 8
+        assert counted["dist.halo_bytes"] == 2 * colors * applies * gs_bytes + spmvs * spmv_bytes
+
+
+@pytest.mark.parametrize("fails_on", [None, 1])
+def test_dist_pcg_graphed_blocks_are_the_blocks(pool, rng, fails_on):
+    """With a cache of graphs, dist_pcg replays a graph of a block from the
+    first solve's second block on, which gives bit for bit the solves of the
+    blocks run as they are, and counts the same halo exchanges and bytes;
+    where one rank's capture fails, every rank runs its blocks as they are
+    (the capture is a stand-in here, off the card)."""
+    plan, gs, sp = _hpcg_tiny()
+    bs = [sp @ rng.standard_normal(sp.shape[0]) for _ in range(2)]
+    outs = pool.run(torch_dist_jobs.graphed_pcg, plan, gs, bs, fails_on=fails_on, tol=1e-8,
+                    max_iters=500, check_every=10)
+    for (plain, graphed), replayed in outs:
+        assert replayed == (fails_on is None)
+        for (x, its, rel), (x0, its0, rel0) in zip(graphed[0], plain[0]):
+            assert its == its0 and rel == rel0 and rel <= 1e-8 and np.array_equal(x, x0)
+        assert graphed[1] == plain[1]
+        total = sum(its for _, its, _ in plain[0])
+        colors = gs.num_colors
+        assert plain[1]["dist.halo_exchanges"] == (2 * colors + 1) * total + 2 * colors * len(bs)
+
+
+def test_dist_pcg_spans_nest(pool, rng):
+    """tpukk::dist_pcg opens a solve; each check_every block is a
+    tpukk::dist_pcg.block under it holding one .check; each preconditioner
+    apply is a tpukk::dist.gs_apply and each exchange a
+    tpukk::dist.halo_exchange inside the sweep or the SpMV."""
+    _, gs, _, _, outs = _gs_pcg(pool, rng)
+    colors = gs.num_colors
+    for _, its, _, _, _, spans in outs:
+        names = [n for n, _, _ in spans]
+        assert names[0] == "tpukk::dist_pcg" and spans[0][1] is None
+        assert all(solve == 1 for _, _, solve in spans)
+        blocks = [i for i, n in enumerate(names) if n == "tpukk::dist_pcg.block"]
+        assert len(blocks) == its // 10 and all(spans[i][1] == 0 for i in blocks)
+        checks = [p for n, p, _ in spans if n == "tpukk::dist_pcg.check"]
+        assert checks == blocks
+        applies = [p for n, p, _ in spans if n == "tpukk::dist.gs_apply"]
+        assert len(applies) == its + 1 and applies[0] == 0 and set(applies[1:]) == set(blocks)
+        halo_parents = {names[p] for n, p, _ in spans if n == "tpukk::dist.halo_exchange"}
+        assert halo_parents == {"tpukk::dist.dist_gs_sweep", "tpukk::dist.dist_spmv_gt"}
+        assert names.count("tpukk::dist.halo_exchange") == (2 * colors + 1) * its + 2 * colors
+
+
+def test_dist_gs_prec_takes_a_gs_gt_shard():
+    """DistGsPrec takes a rank's shard of a DistGsGtPlan; dist_pcg takes one
+    preconditioner; a one-part plan's colors are its handle's."""
+    from tpukk_torch.dist.gauss_seidel import DistGsPrec
+
+    plan, gs, _ = _hpcg_tiny()
+    with pytest.raises(TpuKKError):
+        DistGsPrec(gs)
+    with pytest.raises(TpuKKError):
+        DistGsPrec(td.shard_dist_gs_plan(td.build_dist_gs_plan(TCsr.from_scipy(
+            j_laplacian(8, 8, dtype=np.float64).to_scipy(), device=CPU), P), rank=0, device=CPU))
+    shard = td.shard_plan(plan, rank=0, device=CPU)
+    prec = DistGsPrec(td.shard_dist_gs_plan(gs, rank=0, device=CPU))
+    b = torch.ones(plan.rows_per_part, dtype=torch.float64)
+    with pytest.raises(TpuKKError):
+        td.dist_pcg(shard, b, prec=prec, inv_diag=b)
+    sp = j_laplacian(12, 10, dtype=np.float64).to_scipy()
+    one = td.build_dist_gs_gt_plan(TCsr.from_scipy(sp, device=CPU), 1)
+    prec1 = DistGsPrec(td.shard_dist_gs_plan(one, rank=0, device=CPU))
+    colors = prec1.colors()
+    assert np.array_equal(colors[:sp.shape[0]], one.single) and not colors[sp.shape[0]:].any()
+    r = torch.from_numpy(np.linspace(-1.0, 1.0, one.rows_per_part))
+    z = prec1.apply(r).numpy()[:sp.shape[0]]
+    z_ref = _ref_prec(sps.csr_matrix(sp), one.single).apply(r[:sp.shape[0]]).numpy()
+    assert np.abs(z - z_ref).max() <= 1e-12 * np.abs(z_ref).max()

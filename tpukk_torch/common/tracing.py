@@ -11,12 +11,13 @@ a CUDA device is present.
 
 Spans carry the profiler's host clock (Unix time in ns, ``time.time_ns``),
 so recorded spans and a profiler's device events lie on one timeline.  The
-solvers' root spans (``tpukk::pcg``, ``tpukk::gmres``) open a new solve id;
-the spans nested in them carry it.
+solvers' root spans (``tpukk::pcg``, ``tpukk::gmres``, ``tpukk::dist_pcg``)
+open a new solve id; the spans nested in them carry it.
 
 Counters are one registry for the process: ``count`` adds, ``set`` holds a
 gauge.  The kernels' launches are ``launches.<kernel>``; ``graph_color``
-sets ``graph.colors`` and ``graph.color_s`` on every call.
+sets ``graph.colors`` and ``graph.color_s`` on every call; each halo
+exchange of ``dist`` adds to ``dist.halo_exchanges`` and ``dist.halo_bytes``.
 
 :func:`trace` is the opt-in ``torch.profiler`` session around a block of
 user code, written as a Chrome trace: the one file exporter.
@@ -41,7 +42,7 @@ __all__ = ["profile_region", "annotate", "trace", "region_name", "recording", "R
            "launch_counts", "reset_launch_counts"]
 
 # spans that open a new solve id
-SOLVE_ROOTS = frozenset({"tpukk::pcg", "tpukk::gmres"})
+SOLVE_ROOTS = frozenset({"tpukk::pcg", "tpukk::gmres", "tpukk::dist_pcg"})
 
 _recorder = None  # the Recorder that is on, or None
 _counters: dict = {}

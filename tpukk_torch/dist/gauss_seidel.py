@@ -25,6 +25,10 @@ b: its ``rows_per_part`` natural rows, or its ``rpp_perm`` permuted rows
 with ``permuted=True`` (``DistGsGtPlan`` only); ``to_internal`` and
 ``to_natural`` convert a shard, or on the host plan the whole padded
 vector.
+
+``DistGsPrec`` is the sweep as a preconditioner of ``dist_pcg``: z = M⁻¹r,
+symmetric sweeps from zero on a ``DistGsGtPlan`` shard, the global
+multicolor Gauss-Seidel in the plan's color order.
 """
 from __future__ import annotations
 
@@ -35,7 +39,7 @@ import numpy as np
 import torch
 
 from ..common import TpuKKError, round_up
-from ..common.tracing import annotate
+from ..common.tracing import annotate, profile_region
 from ..common.types import default_device
 from ..containers import CsrMatrix
 from ..graph.coloring import ColoringAlgorithm, graph_color
@@ -44,7 +48,7 @@ from ..sparse.spmv_cuda import CsrPlan, lanes_per_row
 from .halo import import_index, import_lists
 from .spmv import check_host, check_shard, halo_exchange, shard_rank, to_dev
 
-__all__ = ["DistGsPlan", "DistGsGtPlan", "build_dist_gs_plan",
+__all__ = ["DistGsPlan", "DistGsGtPlan", "DistGsPrec", "build_dist_gs_plan",
            "build_dist_gs_gt_plan", "shard_dist_gs_plan", "dist_gs_sweep"]
 
 
@@ -167,7 +171,7 @@ class DistGsGtPlan:
         if self.single is not None:
             return int(np.max(self.single)) if self.rank is None else len(
                 self.single.color_offsets) - 1
-        return len(self.color_blocks)
+        return len(self.color_blocks if self.blocks is None else self.blocks)
 
     # -- layout converters (outside a chain of sweeps) -------------------
     def to_internal(self, x_natural):
@@ -310,7 +314,7 @@ def _gs_block(block, start: int, ncols: int, dev: torch.device) -> gs_cuda.GsBlo
 @annotate("dist.shard_dist_gs_plan")
 def shard_dist_gs_plan(plan, rank=None, device=None, group=None):
     """The rank's part of a ``DistGsPlan`` or ``DistGsGtPlan`` on ``device``
-    (None: the CUDA device)."""
+    (None: the CUDA device); the host arrays of every part are not kept."""
     check_host(plan, "shard_dist_gs_plan")
     r, dev = shard_rank(rank, group), default_device(device)
     if isinstance(plan, DistGsPlan):
@@ -343,7 +347,8 @@ def shard_dist_gs_plan(plan, rank=None, device=None, group=None):
     blocks = tuple(_gs_block(cb[r], off, plan.ncols_ext, dev)
                    for cb, off in zip(plan.color_blocks, plan.offs))
     return dataclasses.replace(plan, send_idx=to_dev(plan.send_idx[r].reshape(-1), dev, True),
-                               blocks=blocks, to_perm_idx=to_dev(to_p, dev, True),
+                               blocks=blocks, color_blocks=None,
+                               to_perm_idx=to_dev(to_p, dev, True),
                                from_perm_idx=to_dev(from_p, dev, True), rank=r)
 
 
@@ -415,3 +420,35 @@ def dist_gs_sweep(plan, x_shard, b_shard, num_sweeps: int = 1,
             xe = _local_sweep_k6(plan, xe, be, True, group)
     x = xe[:plan.rpp_perm].clone()
     return x if permuted else plan.to_natural(x)
+
+
+class DistGsPrec:
+    """z = M⁻¹r on the rank's shard of r: ``sweeps`` symmetric colored
+    Gauss-Seidel sweeps from x = 0 on a shard of a ``DistGsGtPlan`` (the
+    forward half over the colors, then the backward half, the halo
+    refreshed before each color), which is the global multicolor
+    Gauss-Seidel in the plan's color order.  Each apply is the region
+    ``tpukk::dist.gs_apply``."""
+
+    def __init__(self, plan: DistGsGtPlan, sweeps: int = 1, group=None):
+        check_shard(plan, "DistGsPrec")
+        if not isinstance(plan, DistGsGtPlan):
+            raise TpuKKError(f"DistGsPrec: a DistGsGtPlan shard, not {type(plan).__name__}")
+        self.plan, self.sweeps, self.group = plan, int(sweeps), group
+
+    def colors(self) -> np.ndarray:
+        """The 1-based color of each of the rank's natural rows (pad rows:
+        0), read from the plan's layout."""
+        plan = self.plan
+        if plan.single is not None:
+            colors = np.zeros(plan.rows_per_part, np.int32)
+            colors[:plan.nrows] = np.asarray(plan.single.colors)
+            return colors
+        pos = plan.from_perm_idx.cpu().numpy()
+        color = np.searchsorted(np.asarray(plan.offs), pos, side="right").astype(np.int32)
+        return np.where(pos < plan.rpp_perm, color, 0)
+
+    def apply(self, r: torch.Tensor) -> torch.Tensor:
+        with profile_region("tpukk::dist.gs_apply"):
+            return dist_gs_sweep(self.plan, torch.zeros_like(r), r, self.sweeps, "symmetric",
+                                 group=self.group)

@@ -215,14 +215,16 @@ def _k3_plan(csr, nrows: int, ncols: int, dev: torch.device):
 @annotate("dist.shard_dist_gt_plan")
 def shard_dist_gt_plan(plan, rank=None, device=None, group=None):
     """The rank's part of a ``DistGtPlan`` or ``DistGtPlan2`` on ``device``
-    (None: the CUDA device), its local blocks as K3 plans."""
+    (None: the CUDA device), its local blocks as K3 plans; the host arrays
+    of every part are not kept."""
     check_host(plan, "shard_dist_gt_plan")
     r, dev = shard_rank(rank, group), default_device(device)
     P, rpp = plan.n_parts, plan.rows_per_part
     if isinstance(plan, DistGtPlan):
         ncols = rpp if plan.no_remote else plan.ncols_ext
         return dataclasses.replace(plan, send_idx=to_dev(plan.send_idx[r].reshape(-1), dev, True),
-                                   csr=_k3_plan(plan.local_csr[r], rpp, ncols, dev), rank=r)
+                                   csr=_k3_plan(plan.local_csr[r], rpp, ncols, dev),
+                                   local_csr=None, rank=r)
     # destination and source of each offset's block on this rank
     H = [int(sl.shape[1]) for sl in plan.send_lists]
     dst = [(r - d) % P for d in plan.offsets]
@@ -243,7 +245,8 @@ def shard_dist_gt_plan(plan, rank=None, device=None, group=None):
     return dataclasses.replace(
         plan, int_plan=_k3_plan(plan.int_csr[r], rpp, rpp, dev),
         bnd_plan=_k3_plan((rm, cols, vals), rpp, max(plan.halo_total, 1), dev),
-        send=to_dev(send, dev, True), send_splits=send_splits, recv_splits=recv_splits, rank=r)
+        send=to_dev(send, dev, True), send_splits=send_splits, recv_splits=recv_splits,
+        send_lists=None, int_csr=None, bnd_csr=None, rank=r)
 
 
 @annotate("dist.dist_spmv_gt")

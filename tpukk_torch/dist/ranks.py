@@ -25,7 +25,8 @@ The collectives are the ones NCCL and gloo both implement:
 ``all_gather_into_tensor``, ``all_to_all_single`` (with uneven splits) and
 ``all_reduce``; ``jax.lax.all_to_all`` and ``ppermute`` map to
 ``all_to_all_single`` (zero splits to the ranks a rank does not send to),
-``psum`` to ``all_reduce``.
+``psum`` to ``all_reduce``.  ``exchange``, the halo exchange, is the
+``all_to_all`` that the tracing region and counters see.
 """
 from __future__ import annotations
 
@@ -44,10 +45,13 @@ import torch
 import torch.distributed as dist
 
 from ..common import TpuKKError
+from ..common.tracing import count, profile_region
 from ..common.types import default_device
 
 __all__ = ["RankPool", "run_ranks", "call_sharded", "world", "all_reduce_sum", "all_gather",
-           "exchange"]
+           "all_to_all", "exchange"]
+
+HALO_REGION = "tpukk::dist.halo_exchange"
 
 
 # ---- collectives ------------------------------------------------------------
@@ -75,7 +79,7 @@ def all_gather(t: torch.Tensor, group=None) -> torch.Tensor:
     return out
 
 
-def exchange(sends: torch.Tensor, send_splits, recv_splits, group=None) -> torch.Tensor:
+def all_to_all(sends: torch.Tensor, send_splits, recv_splits, group=None) -> torch.Tensor:
     """``all_to_all_single``: ``sends`` holds, rank by rank, send_splits[r]
     values for rank r; the result holds, rank by rank, recv_splits[r] values
     from rank r."""
@@ -83,6 +87,18 @@ def exchange(sends: torch.Tensor, send_splits, recv_splits, group=None) -> torch
     dist.all_to_all_single(out, sends.contiguous(), list(recv_splits), list(send_splits),
                            group=group)
     return out
+
+
+def exchange(sends: torch.Tensor, send_splits, recv_splits, group=None) -> torch.Tensor:
+    """A halo exchange, the one ``all_to_all`` of the SpMV plans and the
+    Gauss-Seidel sweep: inside the region ``tpukk::dist.halo_exchange``,
+    counted in ``dist.halo_exchanges`` (one) and ``dist.halo_bytes`` (the
+    bytes this rank sends to the other ranks)."""
+    with profile_region(HALO_REGION):
+        count("dist.halo_exchanges")
+        own = send_splits[dist.get_rank(group)]
+        count("dist.halo_bytes", (int(sum(send_splits)) - int(own)) * sends.element_size())
+        return all_to_all(sends, send_splits, recv_splits, group)
 
 
 # ---- starting ranks ---------------------------------------------------------

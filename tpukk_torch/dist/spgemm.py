@@ -36,7 +36,7 @@ from ..common.tracing import annotate
 from ..common.types import default_device
 from ..containers import CsrMatrix
 from ..sparse.spgemm_cuda import build_row_plan, spgemm_rows
-from .ranks import all_gather, exchange, world
+from .ranks import all_gather, all_to_all, world
 from .spmv import check_host, check_shard, shard_rank, to_dev
 
 __all__ = ["RingSpgemmPlan", "build_ring_spgemm_plan", "shard_ring_spgemm_plan",
@@ -220,7 +220,7 @@ def ring_spgemm_numeric(plan: RingSpgemmPlan, group=None, plain: bool = False) -
             if k8.nnz_a:
                 acc[:nnz] += spgemm_rows(k8, a[sel], panel[:nb].contiguous())
         if s + 1 < P:
-            panel = exchange(panel, *plan.ring, group)
+            panel = all_to_all(panel, *plan.ring, group)
     c_all = all_gather(acc, group).reshape(size, NC)
     vals = torch.cat([c_all[p, :int(plan.nnz_c_local[p])] for p in range(P)])
     return CsrMatrix.from_arrays(plan.row_map_c, plan.entries_c, vals, nrows=plan.nrows_c,

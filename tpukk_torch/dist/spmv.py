@@ -18,18 +18,23 @@ from one process over a mesh and takes the whole padded vector.
   rank's local CSR.
 * ``dist_pcg`` and ``dist_gmres`` take any of the three plans; their inner
   products are ``dist_dot``: the rank's sum, then ``all_reduce``.  PCG tests
-  convergence on the host every iteration, as ``tpukk``'s ``while_loop``
-  does on the device, so the iteration counts agree.
+  convergence on the host every iteration by default, as ``tpukk``'s
+  ``while_loop`` does on the device, so the iteration counts agree; with
+  ``check_every`` it reads the residual once a block, as ``sparse/pcg.py``
+  does, and takes any preconditioner (``prec``), the distributed
+  Gauss-Seidel's ``DistGsPrec`` among them.
 """
 from __future__ import annotations
 
 import dataclasses
+import inspect
+from types import SimpleNamespace
 
 import numpy as np
 import torch
 
 from ..common import TpuKKError
-from ..common.tracing import annotate
+from ..common.tracing import annotate, count, counters, profile_region
 from ..common.types import default_device
 from .halo import HaloPlan
 from .partition import RowPartition
@@ -161,42 +166,136 @@ def dist_cg_step(plan, state, group=None):
     return (x, r, p, rz_new)
 
 
-@annotate("dist.dist_pcg")
-def dist_pcg(plan, b_shard: torch.Tensor, tol: float = 1e-8, max_iters: int = 200,
-             inv_diag=None, group=None):
-    """(Jacobi-)preconditioned CG from x = 0 on the rank's shard of b
-    (``inv_diag``: the rank's shard of 1/diag, 0 on pad rows).  Returns
-    (x shard, iterations, ‖r‖/‖b‖) — ``tpukk``'s loop, iteration for
-    iteration: stop when r·r ≤ tol²·b·b or after ``max_iters``.  Each
-    iteration reduces p·Ap, then r·z and r·r together."""
-    check_shard(plan, "dist_pcg")
-    spmv = _spmv_fn_for(plan)
+# a check_every block of iterations, and inside it the residual read (the
+# block's one host sync), as in ``sparse/pcg.py``
+BLOCK_REGION = "tpukk::dist_pcg.block"
+CHECK_REGION = "tpukk::dist_pcg.check"
 
-    def prec(r):
-        return r if inv_diag is None else inv_diag * r
+# a capture that other threads' CUDA calls leave alone (NCCL's watchdog
+# queries its events meanwhile), where torch has it
+_THREAD_LOCAL = ({"capture_error_mode": "thread_local"}
+                 if "capture_error_mode" in inspect.signature(torch.cuda.graph).parameters else {})
+
+
+def _capture(block, st, device: torch.device):
+    """The replay of a CUDA graph of ``block(st)``'s device work (its host
+    code runs once, now, and launches nothing), or None off CUDA or where
+    the capture fails."""
+    if device.type != "cuda":
+        return None
+    g = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(g, **_THREAD_LOCAL):
+            block(st)
+    except RuntimeError:
+        return None
+    return g.replay
+
+
+def _pcg_buffers(b_shard: torch.Tensor) -> SimpleNamespace:
+    """x, r, p and the 0-d r·z and r·r that PCG's iterations update in place."""
+    return SimpleNamespace(x=torch.empty_like(b_shard), r=torch.empty_like(b_shard),
+                           p=torch.empty_like(b_shard), rz=b_shard.new_empty(()),
+                           rr=b_shard.new_empty(()), replay=None, tried=False, counts={})
+
+
+def _captured_block(st, block, device, group) -> None:
+    """``st.replay``: a CUDA graph of ``block``, where every rank's capture
+    succeeds; ``st.counts``: the counters its host code added, which each
+    replay adds again (the capture's own are taken back)."""
+    before = counters()
+    replay = _capture(block, st, device)
+    st.counts = {n: v - before.get(n, 0) for n, v in counters().items()
+                 if isinstance(v, (int, float)) and v != before.get(n, 0)}
+    for n, v in st.counts.items():
+        count(n, -v)
+    ok = all_reduce_sum(torch.tensor(float(replay is not None), device=device), group)
+    st.replay = replay if int(ok) == world(group)[1] else None
+    st.tried = True
+
+
+@annotate("dist_pcg")
+def dist_pcg(plan, b_shard: torch.Tensor, tol: float = 1e-8, max_iters: int = 200,
+             inv_diag=None, group=None, prec=None, check_every: int = 1, graphs=None):
+    """Preconditioned CG from x = 0 on the rank's shard of b.  The
+    preconditioner is ``prec`` (an object whose ``apply`` maps the rank's
+    shard of r to its shard of z, such as ``DistGsPrec``), or Jacobi by
+    ``inv_diag`` (the rank's shard of 1/diag, 0 on pad rows), or none.
+    Returns (x shard, iterations, ‖r‖/‖b‖).  r·r is read on the host before
+    the first iteration and after every ``check_every`` iterations, and the
+    solve stops once r·r ≤ tol²·b·b or the iterations reach ``max_iters``;
+    iterations count in whole blocks.  At ``check_every`` 1 this is
+    ``tpukk``'s loop, iteration for iteration.  Each iteration reduces p·Ap,
+    then r·z and r·r together.
+
+    ``graphs``: a dict that the caller keeps between solves with this plan
+    and preconditioner.  On a CUDA device the first solve's first block
+    then runs as it is, and the next ones, in this solve and the later ones,
+    as a replay of a CUDA graph of a block captured after it, where every
+    rank's capture succeeds: the same kernels and collectives on the same
+    values, issued by one launch a block.  Each replay adds to the counters
+    what the block's host code added (``dist.halo_exchanges`` among them);
+    the regions inside a block are not entered again.  Elsewhere the blocks
+    run as they are.  Empty the dict before the process group is destroyed:
+    NCCL destroys a communicator only once no CUDA graph that captured its
+    collectives is left, and waits for that until then."""
+    check_shard(plan, "dist_pcg")
+    if prec is not None and inv_diag is not None:
+        raise TpuKKError("dist_pcg: give prec or inv_diag, not both")
+    if check_every < 1:
+        raise TpuKKError(f"dist_pcg: check_every must be at least 1, got {check_every}")
+    spmv = _spmv_fn_for(plan)
+    apply = (prec or _Jacobi(inv_diag)).apply
 
     bb = dist_dot(b_shard, b_shard, group)
     bb = float(bb) if float(bb) != 0 else 1.0
     tol2 = tol * tol * bb
-    x = torch.zeros_like(b_shard)
-    r = b_shard.clone()
-    z = prec(r)
-    p = z
-    rz, rr = _dots(((r, z), (r, r)), group)
+    if graphs is None:
+        st = _pcg_buffers(b_shard)
+    else:
+        key = (id(plan), id(prec), id(inv_diag), id(group), check_every, b_shard.dtype,
+               tuple(b_shard.shape), b_shard.device)
+        # the entry holds what its graph reads, so that the ids stay theirs
+        st = graphs.setdefault(key, _pcg_buffers(b_shard))
+        st.held = (plan, prec, inv_diag, group)
+    st.x.zero_()
+    st.r.copy_(b_shard)
+    z = apply(st.r)
+    st.p.copy_(z)
+    rz, rr = _dots(((st.r, z), (st.r, st.r)), group)
+    st.rz.copy_(rz)
+    st.rr.copy_(rr)
+
+    def block(st):
+        for _ in range(check_every):
+            Ap = spmv(plan, st.p, group)
+            pAp = dist_dot(st.p, Ap, group)
+            alpha = st.rz / _nonzero(pAp)
+            st.x.add_(alpha * st.p)
+            st.r.sub_(alpha * Ap)
+            z = apply(st.r)
+            rz_new, rr = _dots(((st.r, z), (st.r, st.r)), group)
+            beta = rz_new / _nonzero(st.rz)
+            torch.add(z, beta * st.p, out=st.p)
+            st.rz.copy_(rz_new)
+            st.rr.copy_(rr)
+
     k = 0
-    while k < max_iters and float(rr) > tol2:
-        Ap = spmv(plan, p, group)
-        pAp = dist_dot(p, Ap, group)
-        alpha = rz / _nonzero(pAp)
-        x = x + alpha * p
-        r = r - alpha * Ap
-        z = prec(r)
-        rz_new, rr = _dots(((r, z), (r, r)), group)
-        beta = rz_new / _nonzero(rz)
-        p = z + beta * p
-        rz = rz_new
-        k += 1
-    return x, k, float(np.sqrt(float(rr) / bb))
+    rr_host = float(st.rr)
+    while k < max_iters and rr_host > tol2:
+        with profile_region(BLOCK_REGION):
+            if st.replay is not None:
+                st.replay()
+                for n, v in st.counts.items():
+                    count(n, v)
+            else:
+                block(st)
+                if graphs is not None and not st.tried:
+                    _captured_block(st, block, b_shard.device, group)
+            k += check_every
+            with profile_region(CHECK_REGION):
+                rr_host = float(st.rr)
+    return (st.x if graphs is None else st.x.clone()), k, float(np.sqrt(rr_host / bb))
 
 
 class _Jacobi:

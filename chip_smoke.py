@@ -39,7 +39,10 @@ Builds the CUDA kernels from ``tpukk_torch/csrc`` (nvcc, sm_90a) and the host
 planners (``csrc/host.cpp``, g++), all in parallel, holds each kernel against
 its plain torch version on the card, drives the paths a user runs
 (SpmvHandle AUTO SpMV and SpMM on the 1M-row 2-D Laplacian, AUTO SpMV on a
-random 100k-row CSR, PCG on the Laplacian and on the FEM matrix; SpILUK →
+random 100k-row CSR, PCG on the Laplacian and on the FEM matrix, each PCG
+through a held SpmvHandle (its blocks CUDA graphs) and again through the
+matrix (its launches counted as they happen: the same x, iterations and
+counts); SpILUK →
 LUPrec → GMRES on the FEM matrix to convergence and two restart cycles on the
 Laplacian; GMRES with reorder="rcm" / "none" / "auto"; SERIAL and VB coloring,
 MIS2, POINT / CLUSTER / TWOSTAGE sweeps, GsPrec-PCG on both matrices, SpMM
@@ -464,11 +467,23 @@ def main() -> int:
     emit("main_unstructured_spmv", route=hr.algorithm.name, launches=counts,
          max_abs_err_vs_scipy=host_check(rnd, xr, yr, "rand100k"))
 
+    def eager_twin(label, A, b, prec, max_iters, xs, st, counts):
+        """The solve again through A itself, whose blocks run as they are (a
+        held handle's replay CUDA graphs and count the launches its capture
+        saw): its launches are counted where they happen, and the graphed
+        solve has to match its x and iterations bit for bit and its counts."""
+        (xe, se), eager, _ = counted(f"{label} eager", lambda: pcg(
+            A, b, tol=1e-8, max_iters=max_iters, prec=prec), ())
+        require(torch.equal(xe, xs) and se == st and eager == counts,
+                f"{label}: graphed {st} {counts}, eager {se} {eager}")
+        return eager
+
     def solve(label, A, b, prec, max_iters):
         Ah = SpmvHandle(A)  # plan built before the clock starts; it launches nothing
         Ah._plan("dia" if Ah.algorithm == SpmvAlgorithm.DIA else "csr", torch.float64)
         (xs, st), counts, wall = counted(
             label, lambda: pcg(Ah, b, tol=1e-8, max_iters=max_iters, prec=prec), ())
+        counts = eager_twin(label, A, b, prec, max_iters, xs, st, counts)
         sp = A.to_scipy()
         bh = b.cpu().numpy()
         rel = float(np.linalg.norm(bh - sp @ xs.cpu().numpy()) / np.linalg.norm(bh))
@@ -1883,6 +1898,7 @@ def main() -> int:
     (xH, stH), counts, wall = counted(
         "pcg magnetic lap1000", lambda: pcg(AhH, bH, tol=1e-8, max_iters=5000, prec=precH),
         ("dia_spmv",))
+    counts = eager_twin("pcg magnetic lap1000", Hpm, bH, precH, 5000, xH, stH, counts)
     bHh = bH.cpu().numpy()
     relH = float(np.linalg.norm(bHh - Hp @ xH.cpu().numpy()) / np.linalg.norm(bHh))
     require(stH.converged and relH <= 1e-7, f"pcg magnetic lap1000: {stH}, host residual {relH}")
@@ -2264,6 +2280,7 @@ def main() -> int:
     (xG, stG), counts, wall = counted(
         "pcg gsprec magnetic lap1000", lambda: pcg(AhG, bH, tol=1e-8, max_iters=5000, prec=precG),
         ("gs_sweep", "dia_spmv"))
+    counts = eager_twin("pcg gsprec magnetic lap1000", Hpm, bH, precG, 5000, xG, stG, counts)
     relG = float(np.linalg.norm(bHh - Hp @ xG.cpu().numpy()) / np.linalg.norm(bHh))
     require(stG.converged and relG <= 1e-7, f"pcg gsprec magnetic lap1000: {stG}, host {relG}")
     require(counts["gs_sweep"] >= stG.num_iters

@@ -2,7 +2,10 @@
 version (K3 also on its tiling's edge cases, in both of its modes, and
 replayed in a CUDA graph to the same bits), and the SpMV/PCG,
 ILU(0)-GMRES and Gauss-Seidel paths (coloring,
-MIS2, sweeps, GsPrec-PCG), SpGEMM (K8, DIA, spgemm_jacobi, SpADD,
+MIS2, sweeps, GsPrec-PCG), PCG's blocks replayed as CUDA graphs through a
+held SpmvHandle (bit for bit the eager solves, or run as they are where an
+apply syncs the host; a graph of its own on another stream or card),
+SpGEMM (K8, DIA, spgemm_jacobi, SpADD,
 triangles) and the factor-and-solve slice (SUPERNODAL on K4, SuperLU and
 CHOLMOD imports, their applies two K4 launches and no K5, equal to K5, K4,
 K4, K5 bit for bit, PAR_ILUT, MDF, the ILU(k) refresh) through the kernels, and
@@ -45,6 +48,7 @@ PAR_ILUT's factors to the CPU's with equal patterns and values within 1e-8 of
 max|·| (its device segment sums add their terms in another order).
 """
 import dataclasses
+import sys
 
 import numpy as np
 import pytest
@@ -840,6 +844,158 @@ def test_gsprec_pcg_runs_through_k6(dev):
     assert _launches(kg.gs_sweep_dia) - n0 >= st.num_iters
     _, sj = pcg(A, b, tol=1e-8, max_iters=2000, prec=JacobiPrec(A))
     assert st.num_iters < sj.num_iters
+
+
+def _stencil27(n):
+    """HPCG's 27-point operator on an n³ grid: 26 on the diagonal, −1 at each
+    neighbour."""
+    T = sps.diags([1.0, 1.0, 1.0], [-1, 0, 1], shape=(n, n))
+    A = (27.0 * sps.identity(n ** 3) - sps.kron(sps.kron(T, T), T)).tocsr()
+    A.sort_indices()
+    return A
+
+
+def _counted(fn):
+    """fn()'s result, once the card is done, and the counters it added."""
+    before = tracing.counters()
+    out = fn()
+    torch.cuda.synchronize()
+    after = tracing.counters()
+    return out, {k: v - before.get(k, 0) for k, v in after.items()
+                 if isinstance(v, (int, float)) and v != before.get(k, 0)}
+
+
+GRAPH_COUNTERS = ("pcg.blocks", "pcg.graph_replays", "pcg.graph_captures", "pcg.graph_fallbacks")
+
+
+def _graph_counts(blocks, replays, captures, fallbacks):
+    return dict(zip(GRAPH_COUNTERS, (blocks, replays, captures, fallbacks)))
+
+
+def _eager_and_graphed(A, P, bs):
+    """Solves of each b by pcg on A itself (its blocks run as they are) and
+    through one held SpmvHandle (its blocks graphed), each side's (x, stats)
+    and counters; the held handle."""
+    eager, ce = _counted(lambda: [pcg(A, b, prec=P) for b in bs])
+    Ah = SpmvHandle(A)
+    graphed, cg = _counted(lambda: [pcg(Ah, b, prec=P) for b in bs])
+    for (xe, se), (xg, sg) in zip(eager, graphed):
+        assert sg.converged and se == sg and torch.equal(xe, xg)
+    launches = [{k: v for k, v in c.items() if k.startswith("launches.")} for c in (ce, cg)]
+    assert launches[0] == launches[1]
+    graph = {k: cg.get(k, 0) for k in GRAPH_COUNTERS}
+    return ce["pcg.blocks"], graph, Ah
+
+
+@pytest.mark.parametrize("prec", ["gsprec", "jacobi"])
+def test_graphed_pcg_equals_eager_pcg(dev, prec):
+    """PCG through a held SpmvHandle replays its blocks as CUDA graphs: on
+    HPCG's 27-point operator with GsPrec (K6's DIA route, SERIAL's 8 colors)
+    and with Jacobi, two solves capture once, and give the eager solves' x
+    and iterations bit for bit and their launch counts; the cache entry goes
+    with the handle."""
+    import gc
+    import weakref
+
+    pcg_mod = sys.modules["tpukk_torch.sparse.pcg"]
+    A = tkc.CsrMatrix.from_scipy(_stencil27(24), device=dev)
+    if prec == "jacobi":
+        P = JacobiPrec(A)
+    else:
+        h = _gs_handle(A, coloring=tg.ColoringAlgorithm.SERIAL)
+        assert next(iter(h._plans.values())).dia is not None
+        P = GsPrec(h, A)
+    bs = [_x(A.nrows, torch.float64, dev, seed=s) for s in (1, 2)]
+    blocks, graph, Ah = _eager_and_graphed(A, P, bs)
+    assert graph == _graph_counts(blocks, blocks - 1, 1, 0)
+    (entry,) = pcg_mod._graphs[Ah].values()
+    handle, x_of = weakref.ref(Ah), weakref.ref(entry.x)
+    del Ah, entry
+    gc.collect()
+    assert handle() is None and x_of() is None
+
+
+def test_graphed_pcg_with_luprec_replays_or_falls_back(dev):
+    """LUPrec (two K4 launches an apply) through a held handle: its blocks
+    replay as CUDA graphs, or run as they are where the capture fails;
+    either way x and the iterations are the eager solves' bit for bit."""
+    A = tkc.generate_structured_laplacian(100, 100, dtype=np.float64, device=dev)
+    P = LUPrec(*_ilu0(A))
+    bs = [_x(A.nrows, torch.float64, dev, seed=s) for s in (1, 2)]
+    blocks, graph, _ = _eager_and_graphed(A, P, bs)
+    assert graph in (_graph_counts(blocks, blocks - 1, 1, 0), _graph_counts(blocks, 0, 0, 1))
+
+
+def test_graphed_pcg_on_another_stream_has_its_own_graph(dev):
+    """A solve on another stream through the same held handle and prec
+    captures a graph and buffers of its own (its work is ordered on that
+    stream, not on the first one's), bit for bit the eager solve; the first
+    stream's graph still replays."""
+    A = tkc.generate_structured_laplacian(100, 100, dtype=np.float64, device=dev)
+    P = JacobiPrec(A)
+    Ah = SpmvHandle(A)
+    b1, b2 = (_x(A.nrows, torch.float64, dev, seed=s) for s in (1, 2))
+    pcg(Ah, b1, prec=P)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        (x2, s2), counts = _counted(lambda: pcg(Ah, b2, prec=P))
+    torch.cuda.current_stream(dev).wait_stream(side)
+    assert counts["pcg.graph_captures"] == 1 and counts["pcg.graph_replays"] > 0
+    xe, se = pcg(A, b2, prec=P)
+    assert torch.equal(x2, xe) and s2 == se
+    (x1, s1), counts = _counted(lambda: pcg(Ah, b1, prec=P))
+    assert "pcg.graph_captures" not in counts and counts["pcg.graph_replays"] > 0
+    assert torch.equal(x1, pcg(A, b1, prec=P)[0])
+
+
+@pytest.mark.skipif(torch.cuda.device_count() < 2, reason="needs a second CUDA device")
+def test_graphed_pcg_on_a_second_card(dev):
+    """After a capture on the first card, PCG on the second card through a
+    held handle captures there (its kernels launch on the current card, so
+    the solve runs with the second current): bit for bit the eager solve on
+    that card, with one capture and replays, and the first card's graph
+    still replays."""
+    A0 = tkc.generate_structured_laplacian(100, 100, dtype=np.float64, device=dev)
+    Ah0, P0 = SpmvHandle(A0), JacobiPrec(A0)
+    b0 = _x(A0.nrows, torch.float64, dev, seed=1)
+    pcg(Ah0, b0, prec=P0)
+    dev1 = torch.device("cuda", 1)
+    with torch.cuda.device(dev1):
+        A = tkc.generate_structured_laplacian(100, 100, dtype=np.float64, device=dev1)
+        P = JacobiPrec(A)
+        bs = [_x(A.nrows, torch.float64, dev1, seed=s) for s in (1, 2)]
+        blocks, graph, _ = _eager_and_graphed(A, P, bs)
+        torch.cuda.synchronize(dev1)
+    assert graph == _graph_counts(blocks, blocks - 1, 1, 0)
+    assert torch.cuda.current_device() == 0
+    (x0, _), counts = _counted(lambda: pcg(Ah0, b0, prec=P0))
+    assert "pcg.graph_captures" not in counts and counts["pcg.graph_replays"] > 0
+    assert torch.equal(x0, pcg(A0, b0, prec=P0)[0])
+
+
+class _CheckedJacobi(JacobiPrec):
+    """Jacobi that reads on the host whether its input is finite: a host
+    sync in every apply, so its blocks cannot be captured."""
+
+    def apply(self, x):
+        if not bool(torch.isfinite(x).all()):
+            raise TpuKKError("non-finite residual")
+        return super().apply(x)
+
+
+def test_graphed_pcg_falls_back_where_the_capture_fails(dev):
+    """An apply that syncs the host fails the capture: the blocks run as
+    they are, bit for bit the eager solves', the failure is counted once and
+    not tried again, and the caller's stream and the card are as before."""
+    A = tkc.generate_structured_laplacian(100, 100, dtype=np.float64, device=dev)
+    bs = [_x(A.nrows, torch.float64, dev, seed=s) for s in (1, 2)]
+    stream = torch.cuda.current_stream()
+    blocks, graph, _ = _eager_and_graphed(A, _CheckedJacobi(A), bs)
+    assert graph == _graph_counts(blocks, 0, 0, 1)
+    assert torch.cuda.current_stream() == stream
+    blocks, graph, _ = _eager_and_graphed(A, JacobiPrec(A), bs[:1])
+    assert graph == _graph_counts(blocks, blocks - 1, 1, 0)
 
 
 def test_twostage_multivector_launches_k7(dev):

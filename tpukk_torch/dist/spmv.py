@@ -27,14 +27,15 @@ from one process over a mesh and takes the whole padded vector.
 from __future__ import annotations
 
 import dataclasses
-import inspect
 from types import SimpleNamespace
 
 import numpy as np
 import torch
 
 from ..common import TpuKKError
-from ..common.tracing import annotate, count, counters, profile_region
+from ..common.cuda_graph import block_state, capture_block, replay_block
+from ..common.cuda_graph import capture as _capture
+from ..common.tracing import annotate, profile_region
 from ..common.types import default_device
 from .halo import HaloPlan
 from .partition import RowPartition
@@ -171,47 +172,20 @@ def dist_cg_step(plan, state, group=None):
 BLOCK_REGION = "tpukk::dist_pcg.block"
 CHECK_REGION = "tpukk::dist_pcg.check"
 
-# a capture that other threads' CUDA calls leave alone (NCCL's watchdog
-# queries its events meanwhile), where torch has it
-_THREAD_LOCAL = ({"capture_error_mode": "thread_local"}
-                 if "capture_error_mode" in inspect.signature(torch.cuda.graph).parameters else {})
-
-
-def _capture(block, st, device: torch.device):
-    """The replay of a CUDA graph of ``block(st)``'s device work (its host
-    code runs once, now, and launches nothing), or None off CUDA or where
-    the capture fails."""
-    if device.type != "cuda":
-        return None
-    g = torch.cuda.CUDAGraph()
-    try:
-        with torch.cuda.graph(g, **_THREAD_LOCAL):
-            block(st)
-    except RuntimeError:
-        return None
-    return g.replay
-
 
 def _pcg_buffers(b_shard: torch.Tensor) -> SimpleNamespace:
     """x, r, p and the 0-d r·z and r·r that PCG's iterations update in place."""
-    return SimpleNamespace(x=torch.empty_like(b_shard), r=torch.empty_like(b_shard),
-                           p=torch.empty_like(b_shard), rz=b_shard.new_empty(()),
-                           rr=b_shard.new_empty(()), replay=None, tried=False, counts={})
+    return block_state(b_shard, ("rz", "rr"))
 
 
 def _captured_block(st, block, device, group) -> None:
     """``st.replay``: a CUDA graph of ``block``, where every rank's capture
     succeeds; ``st.counts``: the counters its host code added, which each
     replay adds again (the capture's own are taken back)."""
-    before = counters()
-    replay = _capture(block, st, device)
-    st.counts = {n: v - before.get(n, 0) for n, v in counters().items()
-                 if isinstance(v, (int, float)) and v != before.get(n, 0)}
-    for n, v in st.counts.items():
-        count(n, -v)
-    ok = all_reduce_sum(torch.tensor(float(replay is not None), device=device), group)
-    st.replay = replay if int(ok) == world(group)[1] else None
-    st.tried = True
+    capture_block(st, block, device, _capture)
+    ok = all_reduce_sum(torch.tensor(float(st.replay is not None), device=device), group)
+    if int(ok) != world(group)[1]:
+        st.replay = None
 
 
 @annotate("dist_pcg")
@@ -285,9 +259,7 @@ def dist_pcg(plan, b_shard: torch.Tensor, tol: float = 1e-8, max_iters: int = 20
     while k < max_iters and rr_host > tol2:
         with profile_region(BLOCK_REGION):
             if st.replay is not None:
-                st.replay()
-                for n, v in st.counts.items():
-                    count(n, v)
+                replay_block(st)
             else:
                 block(st)
                 if graphs is not None and not st.tried:

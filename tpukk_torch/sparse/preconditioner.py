@@ -32,6 +32,14 @@ class Preconditioner:
     def apply(self, x: torch.Tensor) -> torch.Tensor:  # pragma: no cover - interface
         raise NotImplementedError
 
+    def operands(self) -> tuple:
+        """What ``apply`` launches on, for a CUDA graph of it (``pcg``): the
+        graph replays only while each object here is the one it was
+        captured on.  Values changed in place are read by a replay; a plan
+        or a tensor put in another's place is not.  Here the
+        preconditioner's own attributes."""
+        return tuple(vars(self).values())
+
     def __call__(self, x):
         return self.apply(x)
 
@@ -124,3 +132,8 @@ class GsPrec(Preconditioner):
     def apply(self, x):
         return gauss_seidel_apply(self._h, self._A, None, x, num_sweeps=self._sweeps,
                                   direction="symmetric")
+
+    def operands(self) -> tuple:
+        # the symbolic and numeric phases put a new sweep plan (its DIA
+        # layout in it), ω and colors in the handle
+        return super().operands() + tuple(vars(self._h).values())

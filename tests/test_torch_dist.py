@@ -533,25 +533,61 @@ def test_dist_pcg_counts_its_halo_exchanges(pool, rng):
         assert counted["dist.halo_bytes"] == 2 * colors * applies * gs_bytes + spmvs * spmv_bytes
 
 
-@pytest.mark.parametrize("fails_on", [None, 1])
-def test_dist_pcg_graphed_blocks_are_the_blocks(pool, rng, fails_on):
+@pytest.mark.parametrize("jacobi, fails_on", [
+    pytest.param(False, None, id="None"), pytest.param(False, 1, id="1"),
+    pytest.param(True, None, id="jacobi-None"), pytest.param(True, 1, id="jacobi-1")])
+def test_dist_pcg_graphed_blocks_are_the_blocks(pool, rng, jacobi, fails_on):
     """With a cache of graphs, dist_pcg replays a graph of a block from the
     first solve's second block on, which gives bit for bit the solves of the
     blocks run as they are, and counts the same halo exchanges and bytes;
     where one rank's capture fails, every rank runs its blocks as they are
-    (the capture is a stand-in here, off the card)."""
+    (the capture is a stand-in here, off the card).  With DistGsPrec or
+    with Jacobi by inv_diag (a new preconditioner object every solve), the
+    cache captures once over both solves and counts its blocks under
+    dist_pcg.*."""
     plan, gs, sp = _hpcg_tiny()
     bs = [sp @ rng.standard_normal(sp.shape[0]) for _ in range(2)]
-    outs = pool.run(torch_dist_jobs.graphed_pcg, plan, gs, bs, fails_on=fails_on, tol=1e-8,
-                    max_iters=500, check_every=10)
-    for (plain, graphed), replayed in outs:
-        assert replayed == (fails_on is None)
+    inv_diag = 1.0 / sp.diagonal() if jacobi else None
+    outs = pool.run(torch_dist_jobs.graphed_pcg, plan, gs, bs, fails_on=fails_on,
+                    inv_diag=inv_diag, tol=1e-8, max_iters=500, check_every=10)
+    for (plain, graphed), replayed, captures, counted in outs:
+        assert replayed == (fails_on is None) and captures == 1
         for (x, its, rel), (x0, its0, rel0) in zip(graphed[0], plain[0]):
             assert its == its0 and rel == rel0 and rel <= 1e-8 and np.array_equal(x, x0)
         assert graphed[1] == plain[1]
         total = sum(its for _, its, _ in plain[0])
         colors = gs.num_colors
-        assert plain[1]["dist.halo_exchanges"] == (2 * colors + 1) * total + 2 * colors * len(bs)
+        exchanges = total if jacobi else (2 * colors + 1) * total + 2 * colors * len(bs)
+        assert plain[1]["dist.halo_exchanges"] == exchanges
+        blocks = total // 10
+        assert counted == {"dist_pcg.blocks": blocks,
+                           "dist_pcg.graph_replays": blocks - 1 if replayed else 0,
+                           "dist_pcg.graph_captures": int(replayed),
+                           "dist_pcg.graph_fallbacks": int(not replayed)}
+
+
+def test_dist_pcg_recaptures_after_a_new_sweep_count(pool, rng):
+    """A DistGsPrec whose sweeps change after its block was captured is no
+    longer what the graph reads: the next solve with the same cache captures
+    anew, and gives bit for bit the eager solve at the new sweep count."""
+    plan, gs, sp = _hpcg_tiny()
+    b = sp @ rng.standard_normal(sp.shape[0])
+    outs = pool.run(torch_dist_jobs.resweep_pcg, plan, gs, b, tol=1e-8, max_iters=500,
+                    check_every=10)
+    for captures, ((x, its, rel), (x0, its0, rel0)) in outs:
+        assert captures == [1, 2]
+        assert its == its0 and rel == rel0 and rel <= 1e-8 and np.array_equal(x, x0)
+
+
+def test_dist_pcg_cleared_graphs_hold_nothing(pool, rng):
+    """Once the caller empties its dict of graphs, nothing of the cache is
+    left alive (NCCL's teardown waits for every graph that captured its
+    collectives), and the next solve captures anew."""
+    plan, gs, sp = _hpcg_tiny()
+    b = sp @ rng.standard_normal(sp.shape[0])
+    outs = pool.run(torch_dist_jobs.cleared_pcg, plan, gs, b, tol=1e-8, max_iters=500,
+                    check_every=10)
+    assert outs == [(False, [1, 2])] * P
 
 
 def test_dist_pcg_spans_nest(pool, rng):

@@ -1,13 +1,8 @@
 """PCG's blocks as CUDA graphs (``tpukk_torch.sparse.pcg``), on the CPU.
 
-The capture is replaced by a stand-in, and the CPU is let in as a device the
-blocks are graphed on: the stand-in runs the block's host code on copies of
-the entry's buffers (so that none of its work lands, as none of a captured
-graph's does), and its replay runs the block on the buffers with the
-recorder off and takes back the counters that adds, as a graph's replay
-enters no region and adds no counter itself.  A capture
-that raises is stood in for by what the real one then returns, None.  The
-card's own graphs are held to the eager solves in tests/test_torch_cuda.py.
+The capture is replaced by the stand-in of tests/cuda_graph_stand_in.py,
+which lets the CPU in as a device the blocks are graphed on.  The card's own
+graphs are held to the eager solves in tests/test_torch_cuda.py.
 """
 from __future__ import annotations
 
@@ -15,13 +10,13 @@ import gc
 import sys
 import threading
 import weakref
-from types import SimpleNamespace
 
 import numpy as np
 import pytest
 import torch
 
 import tpukk_torch.containers as tkc
+from cuda_graph_stand_in import stand_in
 from tpukk_torch.common import tracing
 from tpukk_torch.sparse import (GsAlgorithm, GsHandle, GsPrec, IdentityPrec, JacobiPrec,
                                 SpmvHandle, gauss_seidel_numeric, gauss_seidel_symbolic, pcg)
@@ -40,32 +35,11 @@ class CountingJacobi(JacobiPrec):
 
 
 @pytest.fixture
-def captures(monkeypatch):
+def captures():
     """The stand-in capture on the CPU; ``captures.n`` counts its calls and
     ``captures.fail`` makes the next ones fail."""
-    calls = SimpleNamespace(n=0, fail=False)
-
-    def capture(block, st, device):
-        calls.n += 1
-        block(SimpleNamespace(**{k: v.clone() if isinstance(v, torch.Tensor) else v
-                                 for k, v in vars(st).items()}))
-        if calls.fail:
-            return None
-
-        def replay():
-            before = tracing.counters()
-            recorder, tracing._recorder = tracing._recorder, None
-            try:
-                block(st)
-            finally:
-                tracing._recorder = recorder
-            for n, v in tracing.counters().items():
-                tracing.count(n, before.get(n, 0) - v)
-        return replay
-
-    monkeypatch.setattr(pcg_mod, "_capture", capture)
-    monkeypatch.setattr(pcg_mod, "_GRAPH_DEVICES", ("cpu",))
-    return calls
+    with stand_in() as calls:
+        yield calls
 
 
 def _lap(n=20):
@@ -174,7 +148,7 @@ def test_the_cpu_never_captures():
     A = _lap()
     Ah = SpmvHandle(A)
     _, counts = _counted(lambda: [pcg(Ah, b, prec=JacobiPrec(A)) for b in _bs(A, 2)])
-    assert Ah not in pcg_mod._graphs
+    assert not pcg_mod._graphs.get(Ah)
     assert set(counts) & set(GRAPH_COUNTERS) == {"pcg.blocks"}
 
 
@@ -315,12 +289,12 @@ def test_spans_nest_as_before_under_replays(captures):
         root = [i for i, s in enumerate(spans) if s.name == "tpukk::pcg" and s.solve == solve]
         assert len(root) == 1
         blocks = [i for i, s in enumerate(spans)
-                  if s.name == pcg_mod.BLOCK_REGION and s.solve == solve]
-        checks = [s for s in spans if s.name == pcg_mod.CHECK_REGION and s.solve == solve]
+                  if s.name == "tpukk::pcg.block" and s.solve == solve]
+        checks = [s for s in spans if s.name == "tpukk::pcg.check" and s.solve == solve]
         assert len(blocks) == len(checks) == st.num_iters // 10
         assert all(spans[i].parent == root[0] for i in blocks)
         assert [s.parent for s in checks] == blocks
-        inner = [s for s in spans if s.parent in blocks and s.name != pcg_mod.CHECK_REGION]
+        inner = [s for s in spans if s.parent in blocks and s.name != "tpukk::pcg.check"]
         # solve 1: the eager block's iterations, then the capture's; solve 2: none
         assert ({s.parent for s in inner} == {blocks[0]}) if solve == 1 else not inner
         if solve == 1:

@@ -2,17 +2,18 @@
 of ``ranks.call_sharded`` does not cover: a solve with the distributed
 Gauss-Seidel preconditioner (two plans), the tracing a rank records,
 ``dist_pcg``'s loop as it was before it took ``prec`` and ``check_every``,
-and its blocks replayed from a stand-in for a CUDA graph.
-The ranks import this module by name to run them, so it imports torch,
-numpy and tpukk_torch alone (no JAX)."""
-from types import SimpleNamespace
+and its blocks replayed from a stand-in for a CUDA graph
+(tests/cuda_graph_stand_in.py).  The ranks import this module by name to
+run them, so it imports torch, numpy and tpukk_torch alone (no JAX)."""
+import gc
+import weakref
 
 import numpy as np
 import torch
 
+from cuda_graph_stand_in import stand_in
 from tpukk_torch.common import tracing
 from tpukk_torch.dist import shard_plan
-from tpukk_torch.dist import spmv as dist_spmv_mod
 from tpukk_torch.dist.gauss_seidel import DistGsPrec
 from tpukk_torch.dist.ranks import world
 from tpukk_torch.dist.spmv import _dots, _nonzero, _spmv_fn_for, dist_dot, dist_pcg
@@ -90,49 +91,77 @@ def jacobi_pcg_now_and_before(plan, b: np.ndarray, inv_diag: np.ndarray, tol: fl
     return [(x.numpy(), its, rel) for x, its, rel in (now, before)]
 
 
-def _stand_in_capture(fails_on=None):
-    """``dist_pcg``'s capture off the card: the capture runs the block's
-    host code on copies of the buffers (so that none of its work lands, as
-    none of a captured graph's does); a replay runs it on the buffers and
-    takes back the counters it adds, as a graph's replay adds none itself.
-    On rank ``fails_on`` the capture fails at its end."""
-    def capture(block, st, device):
-        block(SimpleNamespace(**{k: v.clone() if isinstance(v, torch.Tensor) else v
-                                 for k, v in vars(st).items()}))
-        if world()[0] == fails_on:
-            return None
-
-        def replay():
-            before = tracing.counters()
-            block(st)
-            for n, v in tracing.counters().items():
-                tracing.count(n, before.get(n, 0) - v)
-        return replay
-    return capture
+_GRAPH_COUNTERS = ("dist_pcg.blocks", "dist_pcg.graph_replays", "dist_pcg.graph_captures",
+                   "dist_pcg.graph_fallbacks")
 
 
-def graphed_pcg(plan, gs_plan, bs, fails_on=None, **kw):
-    """Solves of each b in ``bs`` by ``dist_pcg`` with ``DistGsPrec`` on the
-    rank, without ``graphs`` and with one cache of them for all, its capture
-    the stand-in: per side, the rank's (x shard, iterations, relative
-    residual) of each solve and the halo exchanges and bytes it counted in
-    all; and whether the cache's block was replayed."""
+def graphed_pcg(plan, gs_plan, bs, fails_on=None, inv_diag=None, **kw):
+    """Solves of each b in ``bs`` by ``dist_pcg`` on the rank, with
+    ``DistGsPrec`` (or Jacobi by ``inv_diag``, one shard for all),
+    without ``graphs`` and with one cache of them for all, its capture the
+    stand-in (failing on rank ``fails_on``): per side, the rank's (x shard,
+    iterations, relative residual) of each solve and the halo exchanges and
+    bytes it counted in all; whether the cache's block was replayed; the
+    stand-in's captures; the graphed side's block counters."""
     rank, _ = world()
     shard = shard_plan(plan, rank=rank, device="cpu")
-    prec = DistGsPrec(shard_plan(gs_plan, rank=rank, device="cpu"))
-    real = dist_spmv_mod._capture
-    dist_spmv_mod._capture = _stand_in_capture(fails_on)
-    try:
+    if inv_diag is None:
+        prec = dict(prec=DistGsPrec(shard_plan(gs_plan, rank=rank, device="cpu")))
+    else:
+        prec = dict(inv_diag=_rows(inv_diag, plan.rows_per_part, rank))
+    names = ("dist.halo_exchanges", "dist.halo_bytes") + _GRAPH_COUNTERS
+    with stand_in(fail=rank == fails_on) as calls:
         out, graphs = [], {}
         for cache in (None, graphs):
             before = tracing.counters()
-            solves = [dist_pcg(shard, _rows(b, plan.rows_per_part, rank), prec=prec,
-                               graphs=cache, **kw) for b in bs]
+            solves = [dist_pcg(shard, _rows(b, plan.rows_per_part, rank), graphs=cache, **prec,
+                               **kw) for b in bs]
             after = tracing.counters()
+            counted = {k: after.get(k, 0) - before.get(k, 0) for k in names}
             out.append(([(x.numpy(), its, rel) for x, its, rel in solves],
-                        {k: after.get(k, 0) - before.get(k, 0)
-                         for k in ("dist.halo_exchanges", "dist.halo_bytes")}))
-    finally:
-        dist_spmv_mod._capture = real
+                        {k: counted[k] for k in names[:2]}))
     (st,) = graphs.values()
-    return out, st.replay is not None
+    return out, st.replay is not None, calls.n, {k: counted[k] for k in _GRAPH_COUNTERS}
+
+
+def resweep_pcg(plan, gs_plan, b, **kw):
+    """``dist_pcg`` with ``DistGsPrec`` and one cache of graphs (the
+    stand-in's), a solve at 1 sweep, then one at 2 sweeps on the same
+    preconditioner: the rank's stand-in captures after each solve, and the
+    second solve's (x shard, iterations, relative residual) beside an eager
+    solve's at 2 sweeps."""
+    rank, _ = world()
+    shard = shard_plan(plan, rank=rank, device="cpu")
+    prec = DistGsPrec(shard_plan(gs_plan, rank=rank, device="cpu"))
+    bs = _rows(b, plan.rows_per_part, rank)
+    graphs, captures = {}, []
+    with stand_in() as calls:
+        dist_pcg(shard, bs, prec=prec, graphs=graphs, **kw)
+        captures.append(calls.n)
+        prec.sweeps = 2
+        graphed = dist_pcg(shard, bs, prec=prec, graphs=graphs, **kw)
+        captures.append(calls.n)
+    eager = dist_pcg(shard, bs, prec=prec, **kw)
+    return captures, [(x.numpy(), its, rel) for x, its, rel in (graphed, eager)]
+
+
+def cleared_pcg(plan, gs_plan, b, **kw):
+    """``dist_pcg`` with ``DistGsPrec`` and one cache of graphs (the
+    stand-in's): after a solve, ``graphs.clear()`` and a collection, whether
+    the entry's x is still alive; the stand-in's captures after the solve
+    and after a second solve on the emptied cache."""
+    rank, _ = world()
+    shard = shard_plan(plan, rank=rank, device="cpu")
+    prec = DistGsPrec(shard_plan(gs_plan, rank=rank, device="cpu"))
+    bs = _rows(b, plan.rows_per_part, rank)
+    graphs, captures = {}, []
+    with stand_in() as calls:
+        dist_pcg(shard, bs, prec=prec, graphs=graphs, **kw)
+        captures.append(calls.n)
+        x_of = weakref.ref(next(iter(graphs.values())).x)
+        graphs.clear()
+        gc.collect()
+        alive = x_of() is not None
+        dist_pcg(shard, bs, prec=prec, graphs=graphs, **kw)
+        captures.append(calls.n)
+    return alive, captures

@@ -18,9 +18,10 @@ Counters are one registry for the process: ``count`` adds, ``set`` holds a
 gauge.  The kernels' launches are ``launches.<kernel>``; ``graph_color``
 sets ``graph.colors`` and ``graph.color_s`` on every call; each halo
 exchange of ``dist`` adds to ``dist.halo_exchanges`` and ``dist.halo_bytes``;
-``sparse.pcg`` counts its blocks in ``pcg.blocks``, those run by a CUDA
-graph's replay in ``pcg.graph_replays``, and its captures in
-``pcg.graph_captures`` (succeeded) and ``pcg.graph_fallbacks`` (failed).
+``common.cuda_graph.run_blocks`` counts a PCG's blocks in ``pcg.blocks``,
+those run by a CUDA graph's replay in ``pcg.graph_replays``, and its
+captures in ``pcg.graph_captures`` (succeeded) and ``pcg.graph_fallbacks``
+(failed); ``dist_pcg``'s under ``dist_pcg.`` alike.
 
 :func:`trace` is the opt-in ``torch.profiler`` session around a block of
 user code, written as a Chrome trace: the one file exporter.

@@ -27,15 +27,13 @@ from one process over a mesh and takes the whole padded vector.
 from __future__ import annotations
 
 import dataclasses
-from types import SimpleNamespace
 
 import numpy as np
 import torch
 
 from ..common import TpuKKError
-from ..common.cuda_graph import block_state, capture_block, replay_block
-from ..common.cuda_graph import capture as _capture
-from ..common.tracing import annotate, profile_region
+from ..common.cuda_graph import block_state, entry, run_blocks
+from ..common.tracing import annotate
 from ..common.types import default_device
 from .halo import HaloPlan
 from .partition import RowPartition
@@ -167,27 +165,6 @@ def dist_cg_step(plan, state, group=None):
     return (x, r, p, rz_new)
 
 
-# a check_every block of iterations, and inside it the residual read (the
-# block's one host sync), as in ``sparse/pcg.py``
-BLOCK_REGION = "tpukk::dist_pcg.block"
-CHECK_REGION = "tpukk::dist_pcg.check"
-
-
-def _pcg_buffers(b_shard: torch.Tensor) -> SimpleNamespace:
-    """x, r, p and the 0-d r·z and r·r that PCG's iterations update in place."""
-    return block_state(b_shard, ("rz", "rr"))
-
-
-def _captured_block(st, block, device, group) -> None:
-    """``st.replay``: a CUDA graph of ``block``, where every rank's capture
-    succeeds; ``st.counts``: the counters its host code added, which each
-    replay adds again (the capture's own are taken back)."""
-    capture_block(st, block, device, _capture)
-    ok = all_reduce_sum(torch.tensor(float(st.replay is not None), device=device), group)
-    if int(ok) != world(group)[1]:
-        st.replay = None
-
-
 @annotate("dist_pcg")
 def dist_pcg(plan, b_shard: torch.Tensor, tol: float = 1e-8, max_iters: int = 200,
              inv_diag=None, group=None, prec=None, check_every: int = 1, graphs=None):
@@ -203,38 +180,38 @@ def dist_pcg(plan, b_shard: torch.Tensor, tol: float = 1e-8, max_iters: int = 20
     then r·z and r·r together.
 
     ``graphs``: a dict that the caller keeps between solves with this plan
-    and preconditioner.  On a CUDA device the first solve's first block
-    then runs as it is, and the next ones, in this solve and the later ones,
-    as a replay of a CUDA graph of a block captured after it, where every
+    and preconditioner.  On a CUDA device the blocks then run as ``pcg``'s
+    do (``common.cuda_graph.run_blocks``): after the first solve's first
+    block, each is a replay of a CUDA graph captured after it, where every
     rank's capture succeeds: the same kernels and collectives on the same
-    values, issued by one launch a block.  Each replay adds to the counters
-    what the block's host code added (``dist.halo_exchanges`` among them);
-    the regions inside a block are not entered again.  Elsewhere the blocks
-    run as they are.  Empty the dict before the process group is destroyed:
-    NCCL destroys a communicator only once no CUDA graph that captured its
-    collectives is left, and waits for that until then."""
+    values, issued by one launch a block, with ``pcg``'s rule for when a
+    graph is stale; the counters are ``dist_pcg.blocks`` and the like.
+    Empty the dict before the process group is destroyed: NCCL destroys a
+    communicator only once no CUDA graph that captured its collectives is
+    left, and waits for that until then."""
     check_shard(plan, "dist_pcg")
     if prec is not None and inv_diag is not None:
         raise TpuKKError("dist_pcg: give prec or inv_diag, not both")
     if check_every < 1:
         raise TpuKKError(f"dist_pcg: check_every must be at least 1, got {check_every}")
     spmv = _spmv_fn_for(plan)
-    apply = (prec or _Jacobi(inv_diag)).apply
+    if prec is None:
+        prec = _NO_PREC if inv_diag is None else _Jacobi(inv_diag)
+    # a fresh _Jacobi would die with the solve: its entry goes by inv_diag
+    owner = prec if inv_diag is None else inv_diag
 
     bb = dist_dot(b_shard, b_shard, group)
     bb = float(bb) if float(bb) != 0 else 1.0
     tol2 = tol * tol * bb
-    if graphs is None:
-        st = _pcg_buffers(b_shard)
+    g = entry(graphs, (id(plan), id(group), check_every), b_shard, owner, ("rz", "rr"))
+    if g is None:
+        st = block_state(b_shard, ("rz", "rr"))
     else:
-        key = (id(plan), id(prec), id(inv_diag), id(group), check_every, b_shard.dtype,
-               tuple(b_shard.shape), b_shard.device)
-        # the entry holds what its graph reads, so that the ids stay theirs
-        st = graphs.setdefault(key, _pcg_buffers(b_shard))
-        st.held = (plan, prec, inv_diag, group)
+        st = g
+        g.pinned = (plan, inv_diag, group)  # so that the key's ids stay theirs
     st.x.zero_()
     st.r.copy_(b_shard)
-    z = apply(st.r)
+    z = prec.apply(st.r)
     st.p.copy_(z)
     rz, rr = _dots(((st.r, z), (st.r, st.r)), group)
     st.rz.copy_(rz)
@@ -247,27 +224,24 @@ def dist_pcg(plan, b_shard: torch.Tensor, tol: float = 1e-8, max_iters: int = 20
             alpha = st.rz / _nonzero(pAp)
             st.x.add_(alpha * st.p)
             st.r.sub_(alpha * Ap)
-            z = apply(st.r)
+            z = prec.apply(st.r)
             rz_new, rr = _dots(((st.r, z), (st.r, st.r)), group)
             beta = rz_new / _nonzero(st.rz)
             torch.add(z, beta * st.p, out=st.p)
             st.rz.copy_(rz_new)
             st.rr.copy_(rr)
 
-    k = 0
-    rr_host = float(st.rr)
-    while k < max_iters and rr_host > tol2:
-        with profile_region(BLOCK_REGION):
-            if st.replay is not None:
-                replay_block(st)
-            else:
-                block(st)
-                if graphs is not None and not st.tried:
-                    _captured_block(st, block, b_shard.device, group)
-            k += check_every
-            with profile_region(CHECK_REGION):
-                rr_host = float(st.rr)
-    return (st.x if graphs is None else st.x.clone()), k, float(np.sqrt(rr_host / bb))
+    def check(st):
+        rr = float(st.rr)
+        return rr, not rr > tol2  # a NaN r·r ends the solve, as tpukk's loop does
+
+    def agree(ok: bool) -> bool:
+        n = all_reduce_sum(torch.tensor(float(ok), device=b_shard.device), group)
+        return int(n) == world(group)[1]
+
+    k, rr = run_blocks("dist_pcg", block, check, st, g is not None, check_every, max_iters,
+                       first=check(st), agree=agree)
+    return (st.x if g is None else st.x.clone()), k, float(np.sqrt(rr / bb))
 
 
 class _Jacobi:
@@ -276,6 +250,10 @@ class _Jacobi:
 
     def apply(self, r):
         return r if self.inv_diag is None else self.inv_diag * r
+
+
+# the preconditioner of neither prec nor inv_diag: one object, so that its entry is found again
+_NO_PREC = _Jacobi(None)
 
 
 @annotate("dist.dist_gmres")
